@@ -8,8 +8,8 @@ Phases — any failure raises, and the script then exits non-zero without
 the final ``ok`` line:
 
 (a) print the card's name and power limit; build every CUDA kernel of the
-    serving path from ``fedml_tpu_torch/ops/csrc`` (one ``nvcc`` per source,
-    all started together) and print the build time and ptxas report;
+    port from ``fedml_tpu_torch/ops/csrc`` (one ``nvcc`` per source, all
+    started together) and print the build time and ptxas report;
 (b) hold the int8 dequant-matmul kernel against its plain PyTorch version
     at every Llama-3-8B projection shape and 1/8/16/128 rows, and time the
     kernel, the plain version and a one-call PyTorch yardstick with CUDA
@@ -19,7 +19,25 @@ the final ``ok`` line:
     8 HTTP requests (4 concurrent) of 20–120 prompt tokens and 32 new tokens
     each, with the kernel's launch count read around exactly that run; then
     time steady decode at 8 slots, and check the served logits are finite
-    and agree with the plain int8 lowering on a short prompt.
+    and agree with the plain int8 lowering on a short prompt;
+(d) hold the three flash-attention kernels (forward, dq, dk/dv) against
+    their plain PyTorch versions in bf16 at Llama-3-8B's heads (B=1, 32 q
+    heads over 8 KV heads, head_dim 128) for T=S=2048 causal (the training
+    shape), T=S=1000 causal (ragged), T=S=512 full and T=256/S=512 causal
+    (top-left alignment), row by row (``row_rel_err``), show at T=2048
+    that two planted faults fail that check, and time each kernel, its
+    plain version and ``scaled_dot_product_attention`` (forward; backward)
+    beside the bound;
+(e) after the serve phase's weights are freed, run federated LoRA rounds
+    of Llama-3-8B at full width and depth through ``FedLLMAPI`` with the
+    on-device round (rank 16, bf16 base, T=2048, batch 1, 4 of 8 clients ×
+    2 local steps, 2 rounds, test each round), with the flash launch counts
+    read around exactly ``train()`` and required to be 32 per forward and
+    backward; print seconds per round, tokens/s, peak memory and the device
+    busy share of one round (with its device time by kernel class); hold
+    layer 0's attention output and LoRA gradients, every layer's flash
+    output on the model's own activations, and the model's loss on one
+    batch, kernels against plain versions.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -28,6 +46,7 @@ with code 2 and prints no result. The full per-shape results also go to
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -55,7 +74,44 @@ ROWS = (1, 8, 16, 128)
 DECODE_ROWS = 8                 # the serve phase decodes 8 slots
 LAUNCHES_PER_PASS = sum(SLICE_SHAPES.values())  # 225
 N_REQUESTS, N_CONCURRENT, NEW_TOKENS = 8, 4, 32
-KERNEL_SOURCES = ("dequant_matmul",)
+KERNEL_SOURCES = ("dequant_matmul", "flash_attention")
+
+# Flash attention at Llama-3-8B's heads (B=1, H=32 over Hkv=8, head_dim 128):
+# (T, S, causal) — the training path's shape, one ragged against the 64-row
+# tiles, one non-causal, one with T != S (top-left causal alignment)
+FLASH_HEADS = (1, 32, 8, 128)
+FLASH_SHAPES = ((2048, 2048, True), (1000, 1000, True), (512, 512, False),
+                (256, 512, True))
+# bf16 outputs and gradients are held row by row (see row_rel_err): every
+# row's error within ROW_TOL of that row's own norm. The kernels round p and
+# ds to bf16 before the second product of each pair (the plain versions keep
+# f32) and round the result once, each ~2^-9 of relative noise; 2^-6 leaves
+# a margin of ~4x, while a fault that drops one 64-key tile of a late row
+# (~18% of its terms) misses it by ~10x. Rows below ROW_FLOOR of a typical
+# row are held to that floor. lse sees no bf16 rounding (exact products, f32
+# sums, fast exp): 1e-3 absolute.
+ROW_TOL, ROW_FLOOR, LSE_TOL = 2.0 ** -6, 1e-3, 1e-3
+# planted faults the row check must catch at the path's shape, T=S=2048
+# causal: dk/dv that skips the last 64-row q tile, and dq that drops keys
+# [128, 192) for rows from 512 on; the old limit (2e-2 of the tensor's
+# largest magnitude) is printed beside the row check for comparison
+FAULT_Q_TILE, FAULT_KEYS, FAULT_ROW0, OLD_REL_TOL = 64, (128, 192), 512, 2e-2
+
+# Phase (e): federated LoRA rounds of Llama-3-8B at full width and depth
+# (random bf16 base from seed 0, the repo's synthetic Markov token stream)
+# through FedLLMAPI's on-device round; remat off, as the JAX bench runs it
+TRAIN_ARGS = dict(
+    model_size="llama3_8b", lora_rank=16, base_params_bf16=True, remat_policy="none",
+    use_flash_attention=True, max_seq_length=2048, per_device_batch_size=1,
+    client_num_in_total=8, client_num_per_round=4, local_steps_per_round=2,
+    comm_round=2, on_device_round=True, vocab_size=128256, train_size=32,
+    test_size=2, random_seed=0, learning_rate=1e-4, frequency_of_the_test=1)
+# layer 0's attention (o_proj output per token, each LoRA gradient per rank
+# component) through the kernels vs their plain versions, and every layer's
+# flash output on the model's own activations, row by row within ROW_TOL;
+# the whole model's loss on one batch within 1e-3 relative (17x the 5.9e-5
+# measured on an H100)
+LOSS_REL_TOL = 1e-3
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s and bf16 FLOP/s.
 PEAKS = (
@@ -172,6 +228,184 @@ def kernel_phase(peak_bw: float, peak_flops: float):
                   f"{library} {library_ms:.4f} ms  bound {rec['bound_ms']:.4f} ms "
                   f"({rec['bound_by']})  {rec['weight_gb_per_s']:.0f} GB/s", flush=True)
         del qs, ss, qts, qt
+        torch.cuda.empty_cache()
+    return results
+
+
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest over rows (the last dim: one query's or key's head vector,
+    one token's hidden vector, one row of a gradient) of ``|got - want| /
+    max(|want|, ROW_FLOOR * rms)`` in L2, with rms the root mean square of
+    the plain rows' norms. The floor holds a row that cancels to rounding
+    noise (causal dq's first row: p = 1 there, so dp - delta is 0 but for
+    rounding) to a small share of a typical row instead of to its own noise.
+    A non-finite value gives nan, which fails any limit."""
+    g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    err = torch.linalg.vector_norm(g - w, dim=-1)
+    ref = torch.linalg.vector_norm(w, dim=-1)
+    ref = ref.clamp_min(ROW_FLOOR * ref.square().mean().sqrt())
+    ratio = torch.where(ref > 0, err / ref.clamp_min(torch.finfo(torch.float32).tiny),
+                        torch.where(err > 0, torch.inf, 0.0))
+    if not torch.isfinite(g).all():
+        return math.nan
+    return ratio.max().item()
+
+
+def old_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest error over the tensor's largest magnitude."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def attention_pairs(t: int, s: int, causal: bool) -> int:
+    """(query, key) pairs the masked attention computes: Σ_r min(r + 1, S)
+    under the top-left causal mask, T·S without it."""
+    if not causal:
+        return t * s
+    n = min(t, s)
+    return n * (n + 1) // 2 + (t - n) * s
+
+
+def flash_bounds(b, h, hkv, d, t, s, causal, peak_bw, peak_flops):
+    """Least time of each kernel: max(FLOPs / peak, bytes / bandwidth), with
+    every input read once and every output written once. Products: forward
+    q k^T and p v (4 FLOPs per pair and dim), dq adds dO v^T and ds k (6),
+    dk/dv q k^T, p^T dO, dO v^T and ds^T q (8)."""
+    pairs = attention_pairs(t, s, causal)
+    q_bytes, kv_bytes, rows = 2 * b * h * t * d, 2 * b * hkv * s * d, 4 * b * h * t
+    work = {
+        "flash_fwd": (4, 2 * q_bytes + 2 * kv_bytes + rows),
+        "flash_bwd_dq": (6, 3 * q_bytes + 2 * kv_bytes + 2 * rows),
+        "flash_bwd_dkv": (8, 2 * q_bytes + 4 * kv_bytes + 2 * rows),
+    }
+    out = {}
+    for name, (per_pair, nbytes) in work.items():
+        flops_ms = per_pair * b * h * d * pairs / peak_flops * 1e3
+        bytes_ms = nbytes / peak_bw * 1e3
+        out[name] = (max(flops_ms, bytes_ms),
+                     "operations" if flops_ms >= bytes_ms else "bytes")
+    return out
+
+
+def planted_faults(fa, q, k, v, do, lse, delta, scale, want):
+    """Two faulty backward results the row check must reject, made from the
+    kernels' own outputs: dk/dv that skip the last q tile (the kernel run
+    with those rows' lse at +inf, so their p and ds are 0), and dq that
+    drops one 64-key tile for rows from FAULT_ROW0 on (the kernel's dq less
+    that tile's share, which the plain version computes without a mask:
+    every such row sees the whole tile). Returns {fault: {tensor: (row
+    measure, old measure)}} and raises if the row check passes a fault."""
+    lse_cut = lse.clone()
+    lse_cut[..., -FAULT_Q_TILE:] = math.inf
+    dk_f, dv_f = fa.flash_dkv_cuda(q, k, v, do, lse_cut, delta, True, scale)
+    k0, k1 = FAULT_KEYS
+    r0 = FAULT_ROW0
+    share = fa.flash_dq_reference(q[:, :, r0:], k[:, :, k0:k1], v[:, :, k0:k1],
+                                  do[:, :, r0:], lse[:, :, r0:], delta[:, :, r0:],
+                                  False, scale)
+    dq_f = fa.flash_dq_cuda(q, k, v, do, lse, delta, True, scale).float()
+    dq_f[:, :, r0:] -= share.float()
+    faults = {
+        "dkv_skips_last_q_tile": {"dk": (dk_f, want["dk"]), "dv": (dv_f, want["dv"])},
+        "dq_drops_a_kv_tile": {"dq": (dq_f, want["dq"])},
+    }
+    out = {}
+    for fault, tensors in faults.items():
+        out[fault] = {n: (row_rel_err(g, w), old_rel_err(g, w))
+                      for n, (g, w) in tensors.items()}
+        print(f"    planted fault {fault}: "
+              + ", ".join(f"{n} row measure {r:.4g} (limit {ROW_TOL:.4g}), old measure "
+                          f"{o:.4g} (limit {OLD_REL_TOL})" for n, (r, o) in out[fault].items()),
+              flush=True)
+        if not all(r > ROW_TOL for r, _ in out[fault].values()):
+            raise RuntimeError(f"the row check passes the planted fault {fault}: "
+                               f"{out[fault]}")
+    return out
+
+
+def flash_phase(peak_bw: float, peak_flops: float):
+    """Phase (d): the three flash-attention kernels against their plain
+    versions in bf16, and their times beside the bound and a one-call
+    PyTorch yardstick (``scaled_dot_product_attention`` and its backward)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    b, h, hkv, d = FLASH_HEADS
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    results = []
+    for t, s, causal in FLASH_SHAPES:
+        def randn(*shape):
+            return torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+        q, k, v, do = randn(b, h, t, d), randn(b, hkv, s, d), randn(b, hkv, s, d), \
+            randn(b, h, t, d)
+        out, lse = fa.flash_forward_cuda(q, k, v, causal, scale)
+        delta = fa.attention_delta(do, out)
+        dq = fa.flash_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+        dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+        # each kernel's plain version on the same inputs (the backward ones
+        # take the kernel's own lse and delta, so each kernel is held alone)
+        out_p, lse_p = fa.flash_forward_reference(q, k, v, causal, scale)
+        dq_p = fa.flash_dq_reference(q, k, v, do, lse, delta, causal, scale)
+        dk_p, dv_p = fa.flash_dkv_reference(q, k, v, do, lse, delta, causal, scale)
+        torch.cuda.synchronize()
+        # {name: (max abs error, measure held, limit)}: lse absolute, the
+        # bf16 tensors row by row
+        errs = {}
+        for name, got, want in (("out", out, out_p), ("lse", lse, lse_p), ("dq", dq, dq_p),
+                                ("dk", dk, dk_p), ("dv", dv, dv_p)):
+            err = (got.float() - want.float()).abs().max().item()
+            held, tol = (err, LSE_TOL) if name == "lse" else (row_rel_err(got, want), ROW_TOL)
+            errs[name] = (err, held if torch.isfinite(got).all() else math.nan, tol)
+        print(f"  T={t:4d} S={s:4d} causal={int(causal)}  max abs error / held / limit: "
+              + ", ".join(f"{n} {e:.3g} / {h_:.3g} / {tl:.3g}"
+                          for n, (e, h_, tl) in errs.items()), flush=True)
+        if not all(h_ <= tl for _, h_, tl in errs.values()):
+            raise RuntimeError(f"a flash kernel disagrees with its plain version at "
+                               f"T={t} S={s} causal={causal}: {errs}")
+        faults = None
+        if (t, s, causal) == FLASH_SHAPES[0]:
+            faults = planted_faults(fa, q, k, v, do, lse, delta, scale,
+                                    dict(dq=dq_p, dk=dk_p, dv=dv_p))
+
+        reps = 20
+        ms = {
+            "flash_fwd": device_ms([lambda: fa.flash_forward_cuda(q, k, v, causal, scale)],
+                                   reps),
+            "flash_bwd_dq": device_ms([lambda: fa.flash_dq_cuda(
+                q, k, v, do, lse, delta, causal, scale)], reps),
+            "flash_bwd_dkv": device_ms([lambda: fa.flash_dkv_cuda(
+                q, k, v, do, lse, delta, causal, scale)], reps),
+        }
+        plain_ms = {
+            "flash_fwd": device_ms([lambda: fa.flash_forward_reference(
+                q, k, v, causal, scale)], 5),
+            "flash_bwd_dq": device_ms([lambda: fa.flash_dq_reference(
+                q, k, v, do, lse, delta, causal, scale)], 5),
+            "flash_bwd_dkv": device_ms([lambda: fa.flash_dkv_reference(
+                q, k, v, do, lse, delta, causal, scale)], 5),
+        }
+        qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        o_lib = sdpa(qg, kg, vg, is_causal=causal, enable_gqa=True)
+        lib_fwd = device_ms([lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)],
+                            reps)
+        lib_bwd = device_ms([lambda: torch.autograd.grad(
+            o_lib, (qg, kg, vg), do, retain_graph=True)], reps)
+        del qg, kg, vg, o_lib
+        bounds = flash_bounds(b, h, hkv, d, t, s, causal, peak_bw, peak_flops)
+        rec = dict(T=t, S=s, causal=causal, errors=errs, planted_faults=faults, ms=ms,
+                   plain_ms=plain_ms, library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
+                   bound_ms={n: v[0] for n, v in bounds.items()},
+                   bound_by={n: v[1] for n, v in bounds.items()})
+        results.append(rec)
+        for n in ms:
+            lib = lib_fwd if n == "flash_fwd" else lib_bwd
+            print(f"    {n:14s} kernel {ms[n]:.4f} ms  plain {plain_ms[n]:.4f} ms  "
+                  f"bound {bounds[n][0]:.4f} ms ({bounds[n][1]})  "
+                  f"{'sdpa fwd' if n == 'flash_fwd' else 'sdpa bwd (dq+dk+dv)'} "
+                  f"{lib:.4f} ms", flush=True)
+        del q, k, v, do, out, lse, delta, dq, dk, dv, out_p, lse_p, dq_p, dk_p, dv_p
         torch.cuda.empty_cache()
     return results
 
@@ -352,6 +586,221 @@ def serve_phase():
                 logits_l2_vs_dequant=vs_dequant, **mem)
 
 
+def plain_flash_route():
+    """Context manager routing the flash wrappers to their plain versions
+    (same signatures), so the model runs the same code minus the kernels."""
+    import contextlib
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    @contextlib.contextmanager
+    def route():
+        saved = (fa.flash_forward_cuda, fa.flash_dq_cuda, fa.flash_dkv_cuda)
+        fa.flash_forward_cuda = fa.flash_forward_reference
+        fa.flash_dq_cuda = fa.flash_dq_reference
+        fa.flash_dkv_cuda = fa.flash_dkv_reference
+        try:
+            yield
+        finally:
+            fa.flash_forward_cuda, fa.flash_dq_cuda, fa.flash_dkv_cuda = saved
+
+    return route()
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd" in low or "flash_bwd" in low:
+        return "flash attention (port kernels)"
+    if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "matmul", "nvjet")):
+        return "matmul (cuBLAS)"
+    return "other (elementwise, norms, rope, softmax/CE, optimizer)"
+
+
+def train_step_flops(cfg, batch: int, t: int) -> float:
+    """Model FLOPs of one LoRA training step: every projection and the LM
+    head forward and its activation gradient (2 + 2 FLOPs per weight per
+    token; the frozen base gets no weight gradient), the adapters' forward
+    and both gradients (2 + 4), and the attention kernels' products
+    (4 + 6 + 8 per (query, key) pair and head dim, causal)."""
+    h, d, kv = cfg.hidden_size, cfg.head_dim, cfg.num_key_value_heads * cfg.head_dim
+    proj = 2 * h * h + 2 * h * kv + 3 * h * cfg.intermediate_size
+    lora = cfg.lora_rank * (2 * (h + h) + 2 * (h + kv))
+    tokens = batch * t
+    per_layer = (4 * proj + 6 * lora) * tokens + 18 * batch * cfg.num_attention_heads \
+        * d * attention_pairs(t, t, True)
+    return cfg.num_hidden_layers * per_layer + 4 * h * cfg.vocab_size * tokens
+
+
+def train_phase():
+    """Phase (e): federated LoRA rounds of Llama-3-8B through FedLLMAPI."""
+    import types
+
+    from fedml_tpu_torch.data.data_loader import load_synthetic_lm
+    from fedml_tpu_torch.models.llm.llama import causal_lm_loss, rope_tables
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
+    from fedml_tpu_torch.train.llm.trainer import extract_lora
+
+    args = types.SimpleNamespace(**TRAIN_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    api = FedLLMAPI(args, "cuda", load_synthetic_lm(args))
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    engine, cfg = api.client.engine, api.cfg
+    lora_n = sum(p.numel() for p in extract_lora(engine.model).values())
+    print(f"  booted {args.model_size} (LoRA rank {cfg.lora_rank}, {lora_n} adapter parameters) "
+          f"in {boot_s:.1f} s: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated",
+          flush=True)
+
+    rounds = []
+    inner = api.train_one_round
+
+    def recorded(r):
+        rep = inner(r)
+        rep["lora_b_max"] = max(float(v.abs().max()) for k, v in
+                                api.global_exchange.items() if k.endswith("lora_b"))
+        rounds.append(rep)
+        return rep
+
+    api.train_one_round = recorded
+    # --- the main path, with the launch counts read around exactly it ---
+    fa.FLASH_FWD_LAUNCHES = fa.FLASH_DQ_LAUNCHES = fa.FLASH_DKV_LAUNCHES = 0
+    t0 = time.perf_counter()
+    summary = api.train()
+    train_wall_s = time.perf_counter() - t0
+    launches = {"flash_fwd": fa.FLASH_FWD_LAUNCHES, "flash_bwd_dq": fa.FLASH_DQ_LAUNCHES,
+                "flash_bwd_dkv": fa.FLASH_DKV_LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    layers, clients = cfg.num_hidden_layers, args.client_num_per_round
+    steps = clients * args.local_steps_per_round * args.comm_round
+    evals = len(api.test_history)
+    expected = {"flash_fwd": layers * (steps + evals), "flash_bwd_dq": layers * steps,
+                "flash_bwd_dkv": layers * steps}
+    tokens_per_round = (clients * args.local_steps_per_round * args.per_device_batch_size
+                        * args.max_seq_length)
+    for rep in rounds:
+        print(f"  round {rep['round']}: {rep['round_sec']:.3f} s, train loss "
+              f"{rep['train_loss']:.4f}, test loss {rep.get('test_loss', float('nan')):.4f}, "
+              f"global lora_b max |.| {rep['lora_b_max']:.3g}", flush=True)
+    steady = rounds[-1]["round_sec"]
+    step_flops = train_step_flops(cfg, args.per_device_batch_size, args.max_seq_length)
+    round_flops = step_flops * clients * args.local_steps_per_round
+    print(f"  train(): {args.comm_round} rounds in {train_wall_s:.2f} s (with "
+          f"{evals} evals); steady round {steady:.3f} s = "
+          f"{tokens_per_round / steady:.1f} tokens/s, {round_flops / steady / 1e12:.1f} "
+          f"TFLOP/s of model FLOPs ({step_flops:.4g} a step); peak memory {peak_gb:.3f} GB; "
+          f"launches {launches} (expected {expected})", flush=True)
+    if launches != expected or min(launches.values()) == 0:
+        raise RuntimeError(f"flash launches {launches} != expected {expected}")
+    if not all(math.isfinite(r["train_loss"]) and math.isfinite(r["test_loss"])
+               for r in rounds):
+        raise RuntimeError(f"non-finite losses: {rounds}")
+    if not rounds[0]["lora_b_max"] > 0:
+        raise RuntimeError("the global lora_b is still zero after round 0")
+
+    # --- device busy share of one round: profiler device time over the
+    # unprofiled wall of the same round ---
+    xs, ys, ms, w = api.round_batch(args.comm_round)
+
+    def one_round():
+        _, _, new_global, loss = api._fed_round(engine.params, engine.opt_state,
+                                                api.global_exchange, xs, ys, ms, w)
+        return float(loss)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_round()
+    round_wall_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one_round()
+    by_class, by_kernel = {}, []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            ms_ = e.self_device_time_total / 1e3
+            by_kernel.append((ms_, e.count, e.key))
+            c = kernel_class(e.key)
+            by_class[c] = by_class.get(c, 0.0) + ms_
+    dev_ms = sum(by_class.values())
+    busy = dev_ms / (round_wall_s * 1e3) if dev_ms else None
+    print(f"  one round: {round_wall_s * 1e3:.1f} ms unprofiled wall; device time "
+          + ("not measured" if busy is None else
+             f"{dev_ms:.1f} ms (profiler), busy share {busy:.3f}"), flush=True)
+    for c, v in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"    {c}: {v:.1f} ms", flush=True)
+    by_kernel.sort(reverse=True)
+    for ms_, count, key in by_kernel[:12]:
+        print(f"    {ms_:9.2f} ms  x{count:<6d} {key[:90]}", flush=True)
+
+    # --- layer 0's attention (with its LoRA adapters, as trained), forward
+    # and backward, kernels vs plain versions: the o_proj output, not the
+    # block's, which the residual stream dominates ---
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    t = args.max_seq_length
+    x = torch.randn(1, t, cfg.hidden_size, device="cuda", generator=gen).to(cfg.dtype)
+    dout = torch.randn(1, t, cfg.hidden_size, device="cuda", generator=gen).to(cfg.dtype)
+    cos, sin = rope_tables(torch.arange(t, device="cuda"), cfg.head_dim, cfg.rope_theta)
+    block = engine.model.layer_0
+    lora = extract_lora(block.attn)
+
+    def attn_run():
+        out, _ = block.attn(block.input_norm(x), cos, sin)
+        return [out.detach()] + list(torch.autograd.grad(out, list(lora.values()), dout))
+
+    got = attn_run()
+    with plain_flash_route():
+        want = attn_run()
+    # rows: the output's tokens, and each adapter gradient's rank components
+    # (lora_a is [in, rank]: its columns; lora_b is [rank, out]: its rows)
+    attn_errs = {name: row_rel_err(g.T, w_.T) if name.endswith("lora_a")
+                 else row_rel_err(g, w_)
+                 for name, g, w_ in zip(["o_proj output", *lora], got, want)}
+    attn_err = max(attn_errs.values())
+    # --- the whole model on one test batch: every layer's flash output on
+    # the model's own activations against the plain forward on the same
+    # q, k, v, and the loss through the kernels vs through the plain versions ---
+    xt, yt = (torch.as_tensor(a[:1], device="cuda").long() for a in
+              api.dataset.test_data_global)
+    m1 = torch.ones(1, device="cuda")
+    layer_errs = []
+
+    def checked_flash(q, k, v):
+        out = fa.flash_attention(q, k, v, causal=True)
+        layer_errs.append(row_rel_err(out, fa.flash_forward_reference(q, k, v, True)[0]))
+        return out
+
+    checked_loss = causal_lm_loss(lambda m, x_: m(x_, attention_fn=checked_flash))
+    with torch.no_grad():
+        loss_k = float(checked_loss(engine.model, xt, yt, m1)[0])
+        with plain_flash_route():
+            loss_p = float(engine._loss_fn(engine.model, xt, yt, m1)[0])
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    layer_err = max(layer_errs)
+    print(f"  layer_0 attention fwd+bwd, kernels vs plain versions, row measure: "
+          + ", ".join(f"{n.removeprefix('params/')} {e:.4g}" for n, e in attn_errs.items())
+          + f" (limit {ROW_TOL:.4g}); flash output of each of {len(layer_errs)} layers on "
+          f"the model's activations: worst {layer_err:.4g} (layer "
+          f"{layer_errs.index(layer_err)}); model loss {loss_k:.5f} vs {loss_p:.5f} "
+          f"plain ({loss_rel:.3g} relative, limit {LOSS_REL_TOL})", flush=True)
+    if not (attn_err <= ROW_TOL and len(layer_errs) == cfg.num_hidden_layers
+            and layer_err <= ROW_TOL and loss_rel <= LOSS_REL_TOL
+            and math.isfinite(loss_k)):
+        raise RuntimeError(f"the kernels' model disagrees with the plain versions: "
+                           f"attention {attn_errs}, layers {layer_errs}, loss {loss_rel}")
+    return dict(launches=launches, expected_launches=expected, rounds=rounds,
+                summary={k: v for k, v in summary.items() if isinstance(v, (int, float))},
+                boot_s=boot_s, train_wall_s=train_wall_s, round_wall_s=round_wall_s,
+                tokens_per_round=tokens_per_round, tokens_per_s=tokens_per_round / steady,
+                step_flops=step_flops, model_tflops_per_s=round_flops / steady / 1e12,
+                peak_gb=peak_gb, device_ms_per_round=dev_ms, device_busy_share=busy,
+                device_ms_by_class=by_class,
+                top_kernels=[dict(ms=m_, count=c_, name=k_) for m_, c_, k_ in by_kernel[:20]],
+                attention_row_err=attn_errs, layer_flash_row_err=layer_errs,
+                loss_kernel=loss_k, loss_plain=loss_p,
+                loss_rel_err=loss_rel, lora_params=lora_n)
+
+
 def step_sum(results, key):
     """One decode step's total over its 225 launches at DECODE_ROWS rows."""
     by = {(r["H"], r["F"]): r[key] for r in results if r["rows"] == DECODE_ROWS}
@@ -383,6 +832,12 @@ def main() -> int:
     results = kernel_phase(peak_bw, peak_flops)
     print("(c) serve llama3_8b int8", flush=True)
     serve = serve_phase()
+    gc.collect()  # the serve phase's engine and weights are gone
+    torch.cuda.empty_cache()
+    print("(d) flash attention kernels vs plain versions", flush=True)
+    flash = flash_phase(peak_bw, peak_flops)
+    print("(e) federated LoRA rounds of llama3_8b through FedLLMAPI", flush=True)
+    train = train_phase()
 
     kernels = [{
         "name": "dequant_matmul",
@@ -400,10 +855,36 @@ def main() -> int:
                      f"launches at {DECODE_ROWS} rows",
         "library": sorted({r["library"] for r in results}),
     }]
+    path = flash[0]  # T = S = 2048, causal: the training path's shape
+    errs = {n: max(r["errors"][n][0] for r in flash) for n in ("out", "dq", "dk", "dv")}
+    for kname, line, err, lib in (
+            ("flash_fwd", 63, errs["out"], path["library_fwd_ms"]),
+            ("flash_bwd_dq", 168, errs["dq"], path["library_bwd_ms"]),
+            ("flash_bwd_dkv", 224, max(errs["dk"], errs["dv"]), path["library_bwd_ms"])):
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "fedml_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": f"fedml_tpu/ops/flash_attention.py:{line}",
+            "launches": train["launches"][kname],
+            "max_abs_err": err,
+            "ms": path["ms"][kname],
+            "plain_ms": path["plain_ms"][kname],
+            "bound_ms": path["bound_ms"][kname],
+            "bound_by": path["bound_by"][kname],
+            "library_ms": lib,
+            "times_are": "one launch at B=1, H=32, Hkv=8, T=S=2048, D=128, causal",
+            "library": ("torch.nn.functional.scaled_dot_product_attention"
+                        "(is_causal=True, enable_gqa=True)"
+                        + ("" if kname == "flash_fwd" else
+                           " backward: dq, dk and dv together (compare with "
+                           "flash_bwd_dq + flash_bwd_dkv)")),
+        })
     os.makedirs("results", exist_ok=True)
     with open(os.path.join("results", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "shapes": results,
-                   "serve": serve, "kernels": kernels}, f, indent=1)
+                   "serve": serve, "flash": flash, "train": train, "kernels": kernels},
+                  f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

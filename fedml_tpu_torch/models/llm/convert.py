@@ -8,10 +8,17 @@ the port's parameter names. A quantized reference leaf is accepted as a
 becomes a :class:`~fedml_tpu_torch.ops.quant.QuantizedTensor`, so both
 frameworks can be fed identical codes. ``load_weights`` installs such a
 dict into a model.
+
+The federated exchange crosses between the frameworks as a flat dict keyed
+by the reference's flax path strings (``params/layer_0/attn/q_proj/lora_a``,
+what ``fedml_tpu.train.llm.trainer.extract_lora`` produces):
+``to_exchange`` / ``from_exchange`` move the port's LoRA tensors in and out
+of it, and ``exchange_to_numpy`` gives the numpy form the JAX trainer
+takes.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -89,3 +96,54 @@ def load_weights(model: nn.Module, weights: Dict[str, Weight]) -> nn.Module:
                                      f"{tuple(p.shape)}")
                 p.copy_(w.to(p.dtype))
     return model
+
+
+# -- the federated exchange --------------------------------------------------
+
+def ref_path(name: str) -> str:
+    """Port parameter name → the reference's flax path string
+    (``layer_0.attn.q_proj.lora_a`` → ``params/layer_0/attn/q_proj/lora_a``)."""
+    return "params/" + name.replace(".", "/")
+
+
+def port_name(path: str) -> str:
+    """The inverse of :func:`ref_path`."""
+    keys = path.split("/")
+    if keys[0] == "params":
+        keys = keys[1:]
+    return ".".join(keys)
+
+
+def is_lora_path(path: str) -> bool:
+    """A LoRA leaf: some key of the path names ``lora``."""
+    return any("lora" in key for key in path.replace(".", "/").split("/"))
+
+
+def extract_lora(model: nn.Module) -> Dict[str, nn.Parameter]:
+    """``{reference path: live parameter}`` of the model's LoRA adapters —
+    the exchangeable state."""
+    return {ref_path(n): p for n, p in model.named_parameters() if is_lora_path(n)}
+
+
+def to_exchange(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """:func:`extract_lora` as detached copies (safe to ship while the model
+    trains on)."""
+    return {k: p.detach().clone() for k, p in extract_lora(model).items()}
+
+
+def from_exchange(model: nn.Module, exchanged: Mapping[str, Any]) -> nn.Module:
+    """Copy an exchange dict (tensors or numpy arrays, reference path keys)
+    into the model's parameters in place; every key must name one."""
+    with torch.no_grad():
+        for path, value in exchanged.items():
+            p = model.get_parameter(port_name(path))
+            t = value if isinstance(value, torch.Tensor) else _to_tensor(value, p.device)
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{path}: shape {tuple(t.shape)} != {tuple(p.shape)}")
+            p.copy_(t.to(p.dtype))
+    return model
+
+
+def exchange_to_numpy(exchanged: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """An exchange dict as host numpy arrays (what the JAX trainer takes)."""
+    return {k: v.detach().to("cpu").numpy() for k, v in exchanged.items()}

@@ -11,27 +11,29 @@ Module and parameter names follow the flax param paths
 which is what ``convert.from_jax_params`` and the quantization leaf filter
 key on.
 
-What is ported is the serving path: the KV-cache branch of attention. The
-no-cache (training) branch runs a plain reference attention, which on the
-CPU is what the reference runs off-TPU; on CUDA with ``use_flash=True`` it
-raises until the flash-attention kernels are ported (ROADMAP A3, B1-B3).
-Mixture-of-experts (``num_experts > 0``) and remat wait for the training
-slice.
+The no-cache (training) branch of attention runs the port's
+``flash_attention`` when ``use_flash`` is set — on CUDA the hand-written
+Hopper kernels, on the CPU their plain versions — and the plain
+``reference_attention`` otherwise; the KV-cache branch serves decoding.
+``remat`` checkpoints each block with ``torch.utils.checkpoint``.
+Mixture-of-experts (``num_experts > 0``) waits for ROADMAP A13.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from fedml_tpu_torch.device import DeviceLike, resolve_device
+from fedml_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 from fedml_tpu_torch.ops.quant import matmul_maybe_quantized
 
-DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # flax lecun_normal: variance_scaling(1, fan_in, truncated_normal), whose
 # stddev is corrected for the truncation at ±2 standard deviations
 _TRUNC_STD_CORRECTION = 0.87962566103423978
@@ -201,25 +203,6 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
                      dim=-1).to(x.dtype)
 
 
-def reference_attention(q, k, v):
-    """Plain causal attention, [B, H, T, D] layout — a copy of the
-    reference's ``ops/flash_attention.py::reference_attention`` with
-    ``causal=True`` (bottom-right causal mask)."""
-    b, h, t, d = q.shape
-    _, hkv, s_len, _ = k.shape
-    if hkv != h:
-        k = torch.repeat_interleave(k, h // hkv, dim=1)
-        v = torch.repeat_interleave(v, h // hkv, dim=1)
-    logits = torch.einsum("bhtd,bhsd->bhts", q.to(torch.float32),
-                          k.to(torch.float32)) * d ** -0.5
-    mask = torch.tril(torch.ones((t, s_len), dtype=torch.bool,
-                                 device=q.device), diagonal=s_len - t)
-    logits = torch.where(mask, logits, DEFAULT_MASK_VALUE)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhts,bhsd->bhtd", probs,
-                        v.to(torch.float32)).to(q.dtype)
-
-
 class LoRADense(nn.Module):
     """Dense with an optional additive low-rank adapter:
     ``y = x W + (x A) B * alpha / rank``.
@@ -268,7 +251,8 @@ class LlamaAttention(nn.Module):
         self.v_proj = dense(cfg.hidden_size, hkv * d)
         self.o_proj = dense(h * d, cfg.hidden_size)
 
-    def forward(self, x, cos, sin, kv_cache: Optional[KVCache] = None):
+    def forward(self, x, cos, sin, kv_cache: Optional[KVCache] = None,
+                attention_fn: Optional[Callable] = None):
         cfg = self.cfg
         b, t, _ = x.shape
         h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -309,12 +293,12 @@ class LlamaAttention(nn.Module):
             probs = torch.softmax(logits, dim=-1).reshape(b, hkv, group * t, s_len)
             out = torch.einsum("bkqs,bksd->bkqd", probs, cv.to(torch.float32))
             out = out.reshape(b, h, t, d).to(cfg.dtype)
+        elif attention_fn is not None:
+            out = attention_fn(q, k, v)
+        elif cfg.use_flash:
+            out = flash_attention(q, k, v, causal=True)
         else:
-            if cfg.use_flash and q.device.type == "cuda":
-                raise NotImplementedError(
-                    "the flash-attention kernels are not ported yet "
-                    "(ROADMAP A3, B1-B3); serving uses the KV-cache branch")
-            out = reference_attention(q, k, v)
+            out = reference_attention(q, k, v, causal=True)
         out = out.transpose(1, 2).reshape(b, t, h * d)
         return self.o_proj(out), new_cache
 
@@ -344,8 +328,9 @@ class LlamaBlock(nn.Module):
                                       cfg.dtype, device)
         self.mlp = LlamaMLP(cfg, device, gen)
 
-    def forward(self, x, cos, sin, kv_cache=None):
-        attn_out, new_cache = self.attn(self.input_norm(x), cos, sin, kv_cache)
+    def forward(self, x, cos, sin, kv_cache=None, attention_fn=None):
+        attn_out, new_cache = self.attn(self.input_norm(x), cos, sin, kv_cache,
+                                        attention_fn)
         x = x + attn_out
         x = x + self.mlp(self.post_attn_norm(x))
         return x, new_cache
@@ -388,16 +373,23 @@ class LlamaForCausalLM(nn.Module):
                 for i in range(self.cfg.num_hidden_layers)]
 
     def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
-                kv_caches: Optional[List[KVCache]] = None):
+                kv_caches: Optional[List[KVCache]] = None,
+                attention_fn: Optional[Callable] = None):
         cfg = self.cfg
         x = F.embedding(tokens, self.embed_tokens).to(cfg.dtype)
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        remat = (cfg.remat and cfg.remat_policy != "none" and kv_caches is None
+                 and torch.is_grad_enabled())
         new_caches = []
         for i, block in enumerate(self.layers()):
             cache_i = kv_caches[i] if kv_caches is not None else None
-            x, new_cache = block(x, cos, sin, cache_i)
+            if remat:
+                x, new_cache = _checkpoint_block(block, cfg.remat_policy, x, cos,
+                                                 sin, attention_fn)
+            else:
+                x, new_cache = block(x, cos, sin, cache_i, attention_fn)
             new_caches.append(new_cache)
         x = self.final_norm(x)
         if cfg.tie_word_embeddings:
@@ -417,3 +409,48 @@ class LlamaForCausalLM(nn.Module):
              torch.zeros(shape, dtype=cfg.dtype, device=self.device), 0)
             for _ in range(cfg.num_hidden_layers)
         ]
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: keep the 2-D matmul outputs (the projections),
+    recompute everything else — the counterpart of JAX's
+    ``dots_with_no_batch_dims_saveable``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint_block(block: LlamaBlock, policy: str, x, cos, sin, attention_fn):
+    """One block under activation checkpointing: ``full`` saves only the
+    block's inputs, ``dots`` also the matmul outputs."""
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {policy!r}: expected none, full or dots")
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+    return ckpt.checkpoint(block, x, cos, sin, None, attention_fn,
+                           use_reentrant=False, **kw)
+
+
+def causal_lm_loss(apply_fn: Callable):
+    """Next-token cross-entropy over a [B, T] token batch; ``mask`` is the
+    [B] sample validity. ``loss_fn(model, x, y, mask)`` returns
+    ``(loss, (correct, denom))`` as the reference's ``causal_lm_loss``;
+    ``apply_fn(model, x)`` returns logits or ``(logits, aux_loss)``."""
+
+    def loss_fn(model, x, y, mask):
+        out = apply_fn(model, x)
+        logits, aux = out if isinstance(out, tuple) else (out, 0.0)
+        logits = logits.to(torch.float32)
+        # labels < 0 are ignored: their (finite) loss is multiplied by 0
+        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                             y.reshape(-1).clamp_min(0),
+                             reduction="none").reshape(y.shape)
+        valid = (y >= 0).to(torch.float32) * mask.to(torch.float32)[:, None]
+        total = torch.sum(ce * valid)
+        denom = torch.clamp_min(torch.sum(valid), 1.0)
+        correct = torch.sum((logits.argmax(dim=-1) == y).to(torch.float32) * valid)
+        return total / denom + aux, (correct, denom)
+
+    return loss_fn

@@ -40,6 +40,21 @@ def test_port_modules_import_with_jax_blocked():
     assert len(PORT_MODULES) >= 15
 
 
+@pytest.mark.parametrize("module", [
+    "fedml_tpu_torch.ops.flash_attention",
+    "fedml_tpu_torch.train.llm.trainer",
+    "fedml_tpu_torch.train.llm.federated",
+    "fedml_tpu_torch.train.llm.run_fedllm",
+    "fedml_tpu_torch.train.llm.configurations",
+    "fedml_tpu_torch.data.dataset",
+    "fedml_tpu_torch.data.data_loader",
+    "fedml_tpu_torch.simulation.sampling",
+])
+def test_training_slice_modules_are_scanned(module):
+    """The training slice's modules are among those both scans cover."""
+    assert module in PORT_MODULES
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -77,6 +92,10 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     assert eng.device.type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("meta")
+    from fedml_tpu_torch.train.llm.trainer import LLMTrainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LLMTrainer(LlamaConfig.tiny(dtype=torch.float32, lora_rank=4), object())
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

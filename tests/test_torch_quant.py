@@ -183,21 +183,3 @@ def test_build_names_sm90a_and_source_hash(tmp_path, monkeypatch):
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
-
-
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("rows", [1, 3, 8, 128])
-def test_kernel_matches_plain_version_on_cuda(rows):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    gen = torch.Generator(device="cuda").manual_seed(rows)
-    w = torch.randn(512, 1024, device="cuda", generator=gen)
-    qt = tq.quantize_int8(w, mode="kernel")
-    x = torch.randn(rows, 512, device="cuda", generator=gen).to(torch.bfloat16)
-    before = tq.DEQUANT_MATMUL_LAUNCHES
-    got = tq.dequant_matmul(x, qt.data, qt.scale, torch.bfloat16)
-    torch.cuda.synchronize()
-    assert tq.DEQUANT_MATMUL_LAUNCHES == before + 1
-    want = tq.dequant_matmul_reference(x, qt.data, qt.scale, torch.bfloat16)
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= 2.0 ** -7 * want.float().abs().max().item()

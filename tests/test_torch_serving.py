@@ -3,6 +3,7 @@ greedy token streams identical to the reference engine's, model-slot lease
 semantics, and an HTTP round trip through the inference runner."""
 import json
 import threading
+import time
 import urllib.request
 
 import jax
@@ -188,7 +189,14 @@ def test_http_round_trip_through_runner_and_engine(shared_tiny):
                                                  "max_new_tokens": 3, "stream": True})
         chunks = [json.loads(ln) for ln in body.decode().splitlines()]
         assert chunks[-1] == {"done": True} and [c["token"] for c in chunks[:-1]] == want[:3]
+        # the runner records a request after its body has gone out (as the
+        # reference runner does), so the fourth may land just after the
+        # client has read the end of the stream: poll until it does
+        deadline = time.monotonic() + 5.0
         ready = json.loads(_http(base + "/ready")[1])
+        while ready["requests"] < 4 and time.monotonic() < deadline:
+            time.sleep(0.01)
+            ready = json.loads(_http(base + "/ready")[1])
         assert ready["ready"] is True and ready["requests"] == 4
         assert ready["errors"] == 0 and "ttft_p95_ms" in ready
         status, metrics = _http(base + "/metrics")
