@@ -9,7 +9,8 @@ the final ``ok`` line:
 
 (a) print the card's name and power limit; build every CUDA kernel of the
     port from ``fedml_tpu_torch/ops/csrc`` (one ``nvcc`` per source, all
-    started together) and print the build time and ptxas report;
+    started together) and print the build time and, for each kernel, its
+    registers, dynamic shared memory and spill bytes;
 (b) hold the int8 dequant-matmul kernel against its plain PyTorch version
     at every Llama-3-8B projection shape and 1/8/16/128 rows, and time the
     kernel, the plain version and a one-call PyTorch yardstick with CUDA
@@ -25,9 +26,10 @@ the final ``ok`` line:
     heads over 8 KV heads, head_dim 128) for T=S=2048 causal (the training
     shape), T=S=1000 causal (ragged), T=S=512 full and T=256/S=512 causal
     (top-left alignment), row by row (``row_rel_err``), show at T=2048
-    that two planted faults fail that check, and time each kernel, its
-    plain version and ``scaled_dot_product_attention`` (forward; backward)
-    beside the bound;
+    that two planted faults fail that check and that two launches of the
+    backward give bit-identical dq, dk and dv, and time each kernel (with
+    its achieved TFLOP/s), its plain version and
+    ``scaled_dot_product_attention`` (forward; backward) beside the bound;
 (e) after the serve phase's weights are freed, run federated LoRA rounds
     of Llama-3-8B at full width and depth through ``FedLLMAPI`` with the
     on-device round (rank 16, bf16 base, T=2048, batch 1, 4 of 8 clients ×
@@ -42,7 +44,8 @@ the final ``ok`` line:
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with code 2 and prints no result. The full per-shape results also go to
-``results/chip_smoke.json``.
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcde``) runs
+(a) and the phases named, and prints no kernels or ok line.
 """
 from __future__ import annotations
 
@@ -148,6 +151,35 @@ def build_kernels():
     for n in KERNEL_SOURCES:
         _build.load(n)
     return time.perf_counter() - t0, dict(_build.build_logs)
+
+
+def ptxas_report(log: str):
+    """Per kernel of an ``nvcc -Xptxas -v`` log: {name<D>: registers, spill
+    store and load bytes, stack frame bytes}."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            mangled = m.group(1)
+            # the kernel's own name: the <length><name> pair that ends in _kernel
+            base = next((mangled[m.end():m.end() + int(m.group())]
+                         for m in re.finditer(r"\d+", mangled)
+                         if mangled[m.end():m.end() + int(m.group())].endswith("_kernel")),
+                        mangled)
+            width = re.search(r"ILi(\d+)E", mangled)
+            name = base + (f"<{width.group(1)}>" if width else "")
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def device_ms(calls, reps: int) -> float:
@@ -279,10 +311,11 @@ def flash_bounds(b, h, hkv, d, t, s, causal, peak_bw, peak_flops):
     }
     out = {}
     for name, (per_pair, nbytes) in work.items():
-        flops_ms = per_pair * b * h * d * pairs / peak_flops * 1e3
+        flops = per_pair * b * h * d * pairs
+        flops_ms = flops / peak_flops * 1e3
         bytes_ms = nbytes / peak_bw * 1e3
         out[name] = (max(flops_ms, bytes_ms),
-                     "operations" if flops_ms >= bytes_ms else "bytes")
+                     "operations" if flops_ms >= bytes_ms else "bytes", flops)
     return out
 
 
@@ -364,10 +397,19 @@ def flash_phase(peak_bw: float, peak_flops: float):
         if not all(h_ <= tl for _, h_, tl in errs.values()):
             raise RuntimeError(f"a flash kernel disagrees with its plain version at "
                                f"T={t} S={s} causal={causal}: {errs}")
-        faults = None
+        faults = identical = None
         if (t, s, causal) == FLASH_SHAPES[0]:
             faults = planted_faults(fa, q, k, v, do, lse, delta, scale,
                                     dict(dq=dq_p, dk=dk_p, dv=dv_p))
+            # the backward is deterministic: no atomics, a fixed sum order
+            again = (fa.flash_dq_cuda(q, k, v, do, lse, delta, causal, scale),
+                     *fa.flash_dkv_cuda(q, k, v, do, lse, delta, causal, scale))
+            identical = {n: bool(torch.equal(a, b_)) for n, a, b_ in
+                         zip(("dq", "dk", "dv"), (dq, dk, dv), again)}
+            print(f"    two launches bit-identical: {identical}", flush=True)
+            if not all(identical.values()):
+                raise RuntimeError(f"two backward launches differ: {identical}")
+            del again
 
         reps = 20
         ms = {
@@ -394,17 +436,21 @@ def flash_phase(peak_bw: float, peak_flops: float):
             o_lib, (qg, kg, vg), do, retain_graph=True)], reps)
         del qg, kg, vg, o_lib
         bounds = flash_bounds(b, h, hkv, d, t, s, causal, peak_bw, peak_flops)
-        rec = dict(T=t, S=s, causal=causal, errors=errs, planted_faults=faults, ms=ms,
+        tflops = {n: v[2] / ms[n] / 1e9 for n, v in bounds.items()}
+        rec = dict(T=t, S=s, causal=causal, errors=errs, planted_faults=faults,
+                   bit_identical=identical, ms=ms,
                    plain_ms=plain_ms, library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
                    bound_ms={n: v[0] for n, v in bounds.items()},
-                   bound_by={n: v[1] for n, v in bounds.items()})
+                   bound_by={n: v[1] for n, v in bounds.items()}, tflops_per_s=tflops)
         results.append(rec)
         for n in ms:
             lib = lib_fwd if n == "flash_fwd" else lib_bwd
-            print(f"    {n:14s} kernel {ms[n]:.4f} ms  plain {plain_ms[n]:.4f} ms  "
-                  f"bound {bounds[n][0]:.4f} ms ({bounds[n][1]})  "
+            print(f"    {n:14s} kernel {ms[n]:.4f} ms ({tflops[n]:.1f} TFLOP/s)  plain "
+                  f"{plain_ms[n]:.4f} ms  bound {bounds[n][0]:.4f} ms ({bounds[n][1]})  "
                   f"{'sdpa fwd' if n == 'flash_fwd' else 'sdpa bwd (dq+dk+dv)'} "
                   f"{lib:.4f} ms", flush=True)
+        print(f"    backward pair dq + dk/dv {ms['flash_bwd_dq'] + ms['flash_bwd_dkv']:.4f} ms "
+              f"against sdpa bwd {lib_bwd:.4f} ms", flush=True)
         del q, k, v, do, out, lse, delta, dq, dk, dv, out_p, lse_p, dq_p, dk_p, dv_p
         torch.cuda.empty_cache()
     return results
@@ -807,12 +853,20 @@ def step_sum(results, key):
     return sum(n * by[s] for s, n in SLICE_SHAPES.items())
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", default="bcde",
+                        help="phases to run after (a), e.g. 'd' for the flash kernels "
+                             "alone (default: all; only a full run prints the kernels "
+                             "and ok lines)")
+    phases = parser.parse_args(argv).phases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 2
-    from fedml_tpu_torch.ops import quant  # noqa: F401 - fails outside the repo
+    from fedml_tpu_torch.ops import flash_attention as fa  # fails outside the repo
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -824,20 +878,42 @@ def main() -> int:
           flush=True)
     build_s, logs = build_kernels()
     print(f"    built {len(KERNEL_SOURCES)} kernel(s) in {build_s:.2f} s", flush=True)
+    ptxas = {}
     for n, log in logs.items():
-        print(f"    {n}: " + " | ".join(ln.strip() for ln in log.splitlines()
-                                         if "registers" in ln), flush=True)
+        ptxas.update(ptxas_report(log))
+        for ln in log.splitlines():
+            if "warning" in ln.lower():
+                print(f"    {n}: {ln.strip()}", flush=True)
+    smem = fa.kernel_smem_bytes()
+    for kname, info in sorted(ptxas.items()):
+        print(f"    {kname}: {info.get('registers')} registers, "
+              f"{smem.get(kname, 'static')} bytes of dynamic shared memory, spill stores "
+              f"{info.get('spill_stores')} / loads {info.get('spill_loads')} bytes, stack "
+              f"{info.get('stack')} bytes", flush=True)
 
-    print("(b) dequant_matmul vs plain version", flush=True)
-    results = kernel_phase(peak_bw, peak_flops)
-    print("(c) serve llama3_8b int8", flush=True)
-    serve = serve_phase()
-    gc.collect()  # the serve phase's engine and weights are gone
-    torch.cuda.empty_cache()
-    print("(d) flash attention kernels vs plain versions", flush=True)
-    flash = flash_phase(peak_bw, peak_flops)
-    print("(e) federated LoRA rounds of llama3_8b through FedLLMAPI", flush=True)
-    train = train_phase()
+    results = serve = flash = train = None
+    if "b" in phases:
+        print("(b) dequant_matmul vs plain version", flush=True)
+        results = kernel_phase(peak_bw, peak_flops)
+    if "c" in phases:
+        print("(c) serve llama3_8b int8", flush=True)
+        serve = serve_phase()
+        gc.collect()  # the serve phase's engine and weights are gone
+        torch.cuda.empty_cache()
+    if "d" in phases:
+        print("(d) flash attention kernels vs plain versions", flush=True)
+        flash = flash_phase(peak_bw, peak_flops)
+    if "e" in phases:
+        print("(e) federated LoRA rounds of llama3_8b through FedLLMAPI", flush=True)
+        train = train_phase()
+    os.makedirs("results", exist_ok=True)
+    record = {"card": card, "torch": torch.__version__, "build_s": build_s, "ptxas": ptxas,
+              "shapes": results, "serve": serve, "flash": flash, "train": train}
+    if sorted(phases) != list("bcde"):
+        with open(os.path.join("results", "chip_smoke.json"), "w") as f:
+            json.dump(record, f, indent=1)
+        print(f"phases {phases} passed (a partial run prints no kernels or ok line)")
+        return 0
 
     kernels = [{
         "name": "dequant_matmul",
@@ -880,11 +956,8 @@ def main() -> int:
                            " backward: dq, dk and dv together (compare with "
                            "flash_bwd_dq + flash_bwd_dkv)")),
         })
-    os.makedirs("results", exist_ok=True)
     with open(os.path.join("results", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "torch": torch.__version__, "shapes": results,
-                   "serve": serve, "flash": flash, "train": train, "kernels": kernels},
-                  f, indent=1)
+        json.dump(dict(record, kernels=kernels), f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -145,7 +145,9 @@ _SIGNATURES = {
     "fedml_flash_fwd_bf16": [_PTR] * 5 + [_INT] * 7 + [_FLOAT, _PTR],
     "fedml_flash_bwd_dq_bf16": [_PTR] * 7 + [_INT] * 7 + [_FLOAT, _PTR],
     "fedml_flash_bwd_dkv_bf16": [_PTR] * 8 + [_INT] * 7 + [_FLOAT, _PTR],
+    "fedml_flash_smem_bytes": [_INT, _INT],
 }
+_KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -156,6 +158,14 @@ def _kernel_lib() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_smem_bytes() -> dict:
+    """Dynamic shared memory of each kernel's launch, keyed as ptxas names
+    the instances (``flash_bwd_dq_kernel<128>``). Builds the library."""
+    lib = _kernel_lib()
+    return {f"{n}<{d}>": lib.fedml_flash_smem_bytes(i, d)
+            for i, n in enumerate(_KERNEL_NAMES) for d in HEAD_DIMS}
 
 
 def _check_kernel_inputs(what: str, q, k, *rest) -> Tuple[int, ...]:

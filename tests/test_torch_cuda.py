@@ -68,6 +68,56 @@ def test_kernels_match_plain_versions_on_cuda(t, s, causal, d):
                                v[..., :32].contiguous())
 
 
+def _backward_inputs(h, hkv, t, s, causal, d, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+    q, k, v, do = randn(2, h, t, d), randn(2, hkv, s, d), randn(2, hkv, s, d), randn(2, h, t, d)
+    out, lse = tfa.flash_forward_cuda(q, k, v, causal)
+    return q, k, v, do, lse, tfa.attention_delta(do, out)
+
+
+# GQA groups 1, 3, 4 and 8: the dk/dv launch puts a group's query heads in a
+# cluster of 1, 1 (each block loops over 3 heads), 4 and 8 blocks
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("t,s,causal", [(200, 200, True), (136, 264, True), (264, 136, False)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,hkv", [(8, 8), (6, 2), (8, 2), (16, 2)])
+def test_backward_kernels_match_plain_versions_over_groups_on_cuda(h, hkv, d, t, s, causal):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from chip_smoke import ROW_TOL, row_rel_err
+
+    q, k, v, do, lse, delta = _backward_inputs(h, hkv, t, s, causal, d, seed=h * t + d)
+    got = (tfa.flash_dq_cuda(q, k, v, do, lse, delta, causal),
+           *tfa.flash_dkv_cuda(q, k, v, do, lse, delta, causal))
+    want = (tfa.flash_dq_reference(q, k, v, do, lse, delta, causal),
+            *tfa.flash_dkv_reference(q, k, v, do, lse, delta, causal))
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert row_rel_err(g, w) <= ROW_TOL, name
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("h,hkv", [(6, 2), (32, 8)])
+def test_backward_kernels_are_bit_identical_on_cuda(h, hkv):
+    """No atomics and a fixed order of every sum, the cluster's group sum
+    included: two launches on the same inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    q, k, v, do, lse, delta = _backward_inputs(h, hkv, 512, 512, True, 128, seed=h)
+    first = (tfa.flash_dq_cuda(q, k, v, do, lse, delta),
+             *tfa.flash_dkv_cuda(q, k, v, do, lse, delta))
+    second = (tfa.flash_dq_cuda(q, k, v, do, lse, delta),
+              *tfa.flash_dkv_cuda(q, k, v, do, lse, delta))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.requires_cuda
 def test_fedllm_round_trains_through_the_kernels_on_cuda():
     if not torch.cuda.is_available():

@@ -25,6 +25,10 @@ CASES = {
     "ragged_full": (2, 2, 100, 100, False, 32),
     "t_lt_s_causal": (4, 2, 48, 96, True, 32),
     "t_gt_s_causal": (2, 1, 96, 48, True, 32),
+    # the group sizes the dk/dv launch tells apart: 3 runs clusters of one
+    # block looping over 3 heads, 8 a cluster of 8
+    "gqa3_causal": (6, 2, 64, 64, True, 32),
+    "gqa8_causal": (8, 1, 64, 64, True, 32),
 }
 D = 32
 TOL = 1e-4

@@ -218,7 +218,14 @@ def test_runner_errors_and_shedding():
         with pytest.raises(urllib.error.HTTPError) as err:
             _http(base + "/nope", {})
         assert err.value.code == 404
+        # the runner records a request after its response has gone out (as
+        # the reference runner does), so the 500 may land just after the
+        # client has read it: poll until both requests are recorded
+        deadline = time.monotonic() + 5.0
         snap = runner.monitor.snapshot()
+        while snap["requests"] < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+            snap = runner.monitor.snapshot()
         assert snap["requests"] == 2 and snap["errors"] == 1
     finally:
         runner.stop()
