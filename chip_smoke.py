@@ -12,9 +12,13 @@ the final ``ok`` line:
     started together) and print the build time and, for each kernel, its
     registers, dynamic shared memory and spill bytes;
 (b) hold the int8 dequant-matmul kernel against its plain PyTorch version
-    at every Llama-3-8B projection shape and 1/8/16/128 rows, and time the
-    kernel, the plain version and a one-call PyTorch yardstick with CUDA
-    events, beside the card's bound for the same work;
+    at every Llama-3-8B projection shape and 1/8/16/32/64/128 rows, row by
+    row (each output row within 2^-8 of its own norm), show that two
+    planted faults (one split's partial sum missing, the last 16 columns
+    missing) fail that check and that two launches give the same bits, and
+    time the kernel, the plain version and a one-call PyTorch yardstick
+    with CUDA events, beside the card's bound for the same work, with each
+    row count's sum over one pass's 225 launches;
 (c) serve Llama-3-8B at full width (random bf16 weights from a seed,
     quantized to int8 in place) through the port's ``serve`` entry point:
     8 HTTP requests (4 concurrent) of 20–120 prompt tokens and 32 new tokens
@@ -45,7 +49,10 @@ The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with code 2 and prints no result. The full per-shape results also go to
 ``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcde``) runs
-(a) and the phases named, and prints no kernels or ok line.
+(a) and the phases named, and prints no kernels or ok line. ``--parent
+DIR`` builds the dequant and flash-forward kernels of another checkout
+(DIR, e.g. the parent commit unpacked by ``git archive``) and times them
+beside this tree's in phases b and d.
 """
 from __future__ import annotations
 
@@ -73,7 +80,7 @@ SLICE_SHAPES = {
     (14336, 4096): 32,
     (4096, 128256): 1,
 }
-ROWS = (1, 8, 16, 128)
+ROWS = (1, 8, 16, 32, 64, 128)   # decode slots and the serve path's prefill buckets
 DECODE_ROWS = 8                 # the serve phase decodes 8 slots
 LAUNCHES_PER_PASS = sum(SLICE_SHAPES.values())  # 225
 N_REQUESTS, N_CONCURRENT, NEW_TOKENS = 8, 4, 32
@@ -99,6 +106,11 @@ ROW_TOL, ROW_FLOOR, LSE_TOL = 2.0 ** -6, 1e-3, 1e-3
 # [128, 192) for rows from 512 on; the old limit (2e-2 of the tensor's
 # largest magnitude) is printed beside the row check for comparison
 FAULT_Q_TILE, FAULT_KEYS, FAULT_ROW0, OLD_REL_TOL = 64, (128, 192), 512, 2e-2
+# dequant outputs row by row: both versions add exact products in f32 and
+# round once to bf16 (2^-9 relative at most), so each row within 2^-8 of
+# its own norm; planted faults at two split-K shapes must fail that check
+DEQUANT_ROW_TOL = 2.0 ** -8
+DEQUANT_FAULT_SHAPES = ((4096, 1024), (14336, 4096))
 
 # Phase (e): federated LoRA rounds of Llama-3-8B at full width and depth
 # (random bf16 base from seed 0, the repo's synthetic Markov token stream)
@@ -168,8 +180,9 @@ def ptxas_report(log: str):
                          for m in re.finditer(r"\d+", mangled)
                          if mangled[m.end():m.end() + int(m.group())].endswith("_kernel")),
                         mangled)
-            width = re.search(r"ILi(\d+)E", mangled)
-            name = base + (f"<{width.group(1)}>" if width else "")
+            args = re.search(r"I((?:Li\d+E)+)E", mangled)
+            name = base + (f"<{','.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
+                           if args else "")
             out.setdefault(name, {})
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -200,8 +213,94 @@ def device_ms(calls, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_phase(peak_bw: float, peak_flops: float):
-    """Phase (b): kernel vs plain version at every slice shape and row count."""
+def parent_kernels(parent_dir: str):
+    """The dequant-matmul and flash-forward kernels of another checkout
+    (``parent_dir``), built from its sources with this tree's nvcc flags
+    into ``results/parent_build`` and bound with ctypes from the argument
+    lists of its ``extern "C"`` declarations: ``(dequant(x, q, scale),
+    flash_fwd(q, k, v, causal, scale))`` on the current stream."""
+    import ctypes
+    import re
+
+    from fedml_tpu_torch.ops import _build
+    from fedml_tpu_torch.ops import quant
+
+    out_dir = os.path.abspath(os.path.join("results", "parent_build"))
+    os.makedirs(out_dir, exist_ok=True)
+    csrc = os.path.join(parent_dir, "fedml_tpu_torch", "ops", "csrc")
+
+    def build(name):
+        so = os.path.join(out_dir, f"lib{name}.so")
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", so,
+                        os.path.join(csrc, f"{name}.cu")], check=True, capture_output=True)
+        return ctypes.CDLL(so)
+
+    def bind(lib, source, fn_name):
+        with open(os.path.join(csrc, f"{source}.cu")) as f:
+            decl = re.search(rf"int {fn_name}\(([^)]*)\)", f.read()).group(1)
+        params = [p.split()[0] for p in decl.split(",")]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = [{"int": ctypes.c_int, "float": ctypes.c_float}.get(p, ctypes.c_void_p)
+                       for p in params]
+        fn.restype = ctypes.c_int
+        return fn, len(params)
+
+    with ThreadPoolExecutor(2) as pool:
+        dq_lib, fa_lib = pool.map(build, ("dequant_matmul", "flash_attention"))
+    for lib in (dq_lib, fa_lib):
+        lib.fedml_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.fedml_cuda_error_string.restype = ctypes.c_char_p
+    deq, n_deq = bind(dq_lib, "dequant_matmul", "fedml_dequant_matmul_bf16")
+    fwd, _ = bind(fa_lib, "flash_attention", "fedml_flash_fwd_bf16")
+
+    def dequant(x, q, scale):
+        rows, h = x.shape
+        f = q.shape[1]
+        out = torch.empty((rows, f), dtype=torch.bfloat16, device=x.device)
+        # this tree's split count where the entry point takes one (the
+        # kernel before split-K has 8 parameters and no split)
+        splits = [quant.dequant_splits(h, f)] if n_deq == 9 else []
+        code = deq(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, h, f,
+                   *splits, torch.cuda.current_stream().cuda_stream)
+        _build.check(dq_lib, code, "parent dequant_matmul launch")
+        return out
+
+    def flash_fwd(q, k, v, causal, scale):
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        b, h, t, d = q.shape
+        code = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                   b, h, k.shape[1], t, k.shape[2], d, int(causal), scale,
+                   torch.cuda.current_stream().cuda_stream)
+        _build.check(fa_lib, code, "parent flash forward launch")
+        return out, lse
+
+    return dequant, flash_fwd
+
+
+def dequant_faults(quant, x, q, scale, want):
+    """Two faulty results the row check must reject, made by the kernel on
+    altered inputs: one split's partial sum missing (x zeroed over rank 0's
+    H-rows: its whole partial sum is then 0) and the last 16 columns
+    missing (their scales zeroed). Returns {fault: row measure}."""
+    h, f = q.shape
+    x_cut = x.clone()
+    x_cut[:, :h // quant.dequant_splits(h, f)] = 0
+    s_cut = scale.clone()
+    s_cut[-16:] = 0
+    out = {"missing_one_split": row_rel_err(quant.dequant_matmul_cuda(x_cut, q, scale), want),
+           "missing_last_16_columns": row_rel_err(quant.dequant_matmul_cuda(x, q, s_cut), want)}
+    print(f"    planted faults at H={h} F={f} ({quant.dequant_splits(h, f)} splits): "
+          + ", ".join(f"{n} row measure {v:.4g}" for n, v in out.items())
+          + f" (limit {DEQUANT_ROW_TOL:.4g})", flush=True)
+    if not all(v > DEQUANT_ROW_TOL for v in out.values()):
+        raise RuntimeError(f"the row check passes a planted dequant fault: {out}")
+    return out
+
+
+def kernel_phase(peak_bw: float, peak_flops: float, parent=None):
+    """Phase (b): kernel vs plain version at every slice shape and row
+    count, and the times of one pass's 225 launches at each row count."""
     from fedml_tpu_torch.ops import quant
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -220,15 +319,18 @@ def kernel_phase(peak_bw: float, peak_flops: float):
         for rows in ROWS:
             x = torch.randn(rows, h, device="cuda", generator=gen).to(torch.bfloat16)
             got = quant.dequant_matmul_cuda(x, qt.data, qt.scale)
+            again = quant.dequant_matmul_cuda(x, qt.data, qt.scale)
             want = quant.dequant_matmul_reference(x, qt.data, qt.scale, torch.bfloat16)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
-            # one bf16 ulp of the largest output: both sums are exact products
-            # added in f32 in different orders, then rounded once to bf16
-            tol = 2.0 ** -7 * want.float().abs().max().item()
-            if not (math.isfinite(err) and err <= tol and torch.isfinite(got).all()):
-                raise RuntimeError(f"kernel disagrees with its plain version at "
-                                   f"H={h} F={f} rows={rows}: {err} > {tol}")
+            held = row_rel_err(got, want)
+            identical = bool(torch.equal(got, again))
+            if not (held <= DEQUANT_ROW_TOL and identical):
+                raise RuntimeError(f"kernel disagrees with its plain version at H={h} F={f} "
+                                   f"rows={rows}: row measure {held} > {DEQUANT_ROW_TOL}, "
+                                   f"or two launches differ ({identical})")
+            faults = (dequant_faults(quant, x, qt.data, qt.scale, want)
+                      if (h, f) in DEQUANT_FAULT_SHAPES and rows == DECODE_ROWS else None)
             library = "torch._weight_int8pack_mm"
             try:
                 torch._weight_int8pack_mm(x, qts[0], s16)
@@ -239,28 +341,46 @@ def kernel_phase(peak_bw: float, peak_flops: float):
                 lib_calls = [lambda i=i: (x @ qs[i].to(torch.bfloat16)) * s16
                              for i in range(n_copies)]
             reps = 20 if h * f < 1e8 else 10
-            ms = device_ms([lambda i=i: quant.dequant_matmul_cuda(x, qs[i], ss[i])
-                            for i in range(n_copies)], reps)
+            kernel_calls = [lambda i=i: quant.dequant_matmul_cuda(x, qs[i], ss[i])
+                            for i in range(n_copies)]
+            ms = device_ms(kernel_calls, reps)
+            parent_ms = None if parent is None else device_ms(
+                [lambda i=i: parent(x, qs[i], ss[i]) for i in range(n_copies)], reps)
             plain_ms = device_ms(
                 [lambda i=i: quant.dequant_matmul_reference(x, qs[i], ss[i],
                                                             torch.bfloat16)
                  for i in range(n_copies)], reps)
             library_ms = device_ms(lib_calls, reps)
+            ms_again = device_ms(kernel_calls, reps)
             nbytes = h * f + 2 * rows * (h + f) + 4 * f
             flops = 2 * rows * h * f
             bytes_ms, flops_ms = nbytes / peak_bw * 1e3, flops / peak_flops * 1e3
-            rec = dict(H=h, F=f, rows=rows, max_abs_err=err, tol=tol, ms=ms,
-                       plain_ms=plain_ms, library_ms=library_ms, library=library,
+            rec = dict(H=h, F=f, rows=rows, splits=quant.dequant_splits(h, f),
+                       max_abs_err=err, row_measure=held, tol=DEQUANT_ROW_TOL,
+                       bit_identical=identical, planted_faults=faults, ms=ms,
+                       ms_again=ms_again, parent_ms=parent_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, library=library,
                        bound_ms=max(bytes_ms, flops_ms),
                        bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                        weight_gb_per_s=h * f / ms / 1e6)
             results.append(rec)
-            print(f"  H={h:5d} F={f:6d} rows={rows:3d}  err {err:.4g} (tol {tol:.4g})"
-                  f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                  f"{library} {library_ms:.4f} ms  bound {rec['bound_ms']:.4f} ms "
-                  f"({rec['bound_by']})  {rec['weight_gb_per_s']:.0f} GB/s", flush=True)
+            print(f"  H={h:5d} F={f:6d} rows={rows:3d}  row measure {held:.3g} (max abs "
+                  f"{err:.3g})  kernel {ms:.4f} / {ms_again:.4f} ms  parent "
+                  + ("not measured" if parent_ms is None else f"{parent_ms:.4f} ms")
+                  + f"  plain {plain_ms:.4f} ms  {library} {library_ms:.4f} ms  bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})  "
+                  f"{rec['weight_gb_per_s']:.0f} GB/s", flush=True)
         del qs, ss, qts, qt
         torch.cuda.empty_cache()
+    print("  one pass of 225 launches (the sum over the shapes):", flush=True)
+    for rows in ROWS:
+        sums = {k: step_sum(results, k, rows) for k in
+                ("ms", "ms_again", "parent_ms", "library_ms", "plain_ms", "bound_ms")}
+        print(f"    rows={rows:3d}  kernel {sums['ms']:.4f} / {sums['ms_again']:.4f} ms  "
+              "parent " + ("not measured" if sums["parent_ms"] is None
+                           else f"{sums['parent_ms']:.4f} ms")
+              + f"  torch._weight_int8pack_mm {sums['library_ms']:.4f} ms  plain "
+              f"{sums['plain_ms']:.4f} ms  bound {sums['bound_ms']:.4f} ms", flush=True)
     return results
 
 
@@ -355,7 +475,7 @@ def planted_faults(fa, q, k, v, do, lse, delta, scale, want):
     return out
 
 
-def flash_phase(peak_bw: float, peak_flops: float):
+def flash_phase(peak_bw: float, peak_flops: float, parent_fwd=None):
     """Phase (d): the three flash-attention kernels against their plain
     versions in bf16, and their times beside the bound and a one-call
     PyTorch yardstick (``scaled_dot_product_attention`` and its backward)."""
@@ -420,6 +540,9 @@ def flash_phase(peak_bw: float, peak_flops: float):
             "flash_bwd_dkv": device_ms([lambda: fa.flash_dkv_cuda(
                 q, k, v, do, lse, delta, causal, scale)], reps),
         }
+        fwd_again = device_ms([lambda: fa.flash_forward_cuda(q, k, v, causal, scale)], reps)
+        parent_fwd_ms = None if parent_fwd is None else device_ms(
+            [lambda: parent_fwd(q, k, v, causal, scale)], reps)
         plain_ms = {
             "flash_fwd": device_ms([lambda: fa.flash_forward_reference(
                 q, k, v, causal, scale)], 5),
@@ -438,8 +561,9 @@ def flash_phase(peak_bw: float, peak_flops: float):
         bounds = flash_bounds(b, h, hkv, d, t, s, causal, peak_bw, peak_flops)
         tflops = {n: v[2] / ms[n] / 1e9 for n, v in bounds.items()}
         rec = dict(T=t, S=s, causal=causal, errors=errs, planted_faults=faults,
-                   bit_identical=identical, ms=ms,
-                   plain_ms=plain_ms, library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
+                   bit_identical=identical, ms=ms, fwd_again_ms=fwd_again,
+                   parent_fwd_ms=parent_fwd_ms, plain_ms=plain_ms,
+                   library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
                    bound_ms={n: v[0] for n, v in bounds.items()},
                    bound_by={n: v[1] for n, v in bounds.items()}, tflops_per_s=tflops)
         results.append(rec)
@@ -449,6 +573,9 @@ def flash_phase(peak_bw: float, peak_flops: float):
                   f"{plain_ms[n]:.4f} ms  bound {bounds[n][0]:.4f} ms ({bounds[n][1]})  "
                   f"{'sdpa fwd' if n == 'flash_fwd' else 'sdpa bwd (dq+dk+dv)'} "
                   f"{lib:.4f} ms", flush=True)
+        print(f"    flash_fwd again {fwd_again:.4f} ms; parent's forward "
+              + ("not measured" if parent_fwd_ms is None else f"{parent_fwd_ms:.4f} ms"),
+              flush=True)
         print(f"    backward pair dq + dk/dv {ms['flash_bwd_dq'] + ms['flash_bwd_dkv']:.4f} ms "
               f"against sdpa bwd {lib_bwd:.4f} ms", flush=True)
         del q, k, v, do, out, lse, delta, dq, dk, dv, out_p, lse_p, dq_p, dk_p, dv_p
@@ -847,9 +974,12 @@ def train_phase():
                 loss_rel_err=loss_rel, lora_params=lora_n)
 
 
-def step_sum(results, key):
-    """One decode step's total over its 225 launches at DECODE_ROWS rows."""
-    by = {(r["H"], r["F"]): r[key] for r in results if r["rows"] == DECODE_ROWS}
+def step_sum(results, key, rows=DECODE_ROWS):
+    """One pass's total over its 225 launches at ``rows`` rows (None where
+    a time was not measured)."""
+    by = {(r["H"], r["F"]): r[key] for r in results if r["rows"] == rows}
+    if any(v is None for v in by.values()):
+        return None
     return sum(n * by[s] for s, n in SLICE_SHAPES.items())
 
 
@@ -861,7 +991,11 @@ def main(argv=None) -> int:
                         help="phases to run after (a), e.g. 'd' for the flash kernels "
                              "alone (default: all; only a full run prints the kernels "
                              "and ok lines)")
-    phases = parser.parse_args(argv).phases
+    parser.add_argument("--parent", default=None, metavar="DIR",
+                        help="a checkout whose dequant and flash-forward kernels are "
+                             "timed beside this tree's (phases b and d)")
+    opts = parser.parse_args(argv)
+    phases = opts.phases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
@@ -884,7 +1018,9 @@ def main(argv=None) -> int:
         for ln in log.splitlines():
             if "warning" in ln.lower():
                 print(f"    {n}: {ln.strip()}", flush=True)
-    smem = fa.kernel_smem_bytes()
+    from fedml_tpu_torch.ops import quant
+
+    smem = {**fa.kernel_smem_bytes(), **quant.kernel_smem_bytes()}
     for kname, info in sorted(ptxas.items()):
         print(f"    {kname}: {info.get('registers')} registers, "
               f"{smem.get(kname, 'static')} bytes of dynamic shared memory, spill stores "
@@ -892,9 +1028,15 @@ def main(argv=None) -> int:
               f"{info.get('stack')} bytes", flush=True)
 
     results = serve = flash = train = None
+    parent_dequant = parent_fwd = None
+    if opts.parent:
+        t0 = time.perf_counter()
+        parent_dequant, parent_fwd = parent_kernels(opts.parent)
+        print(f"    built the kernels of {opts.parent} in {time.perf_counter() - t0:.2f} s",
+              flush=True)
     if "b" in phases:
         print("(b) dequant_matmul vs plain version", flush=True)
-        results = kernel_phase(peak_bw, peak_flops)
+        results = kernel_phase(peak_bw, peak_flops, parent_dequant)
     if "c" in phases:
         print("(c) serve llama3_8b int8", flush=True)
         serve = serve_phase()
@@ -902,7 +1044,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "d" in phases:
         print("(d) flash attention kernels vs plain versions", flush=True)
-        flash = flash_phase(peak_bw, peak_flops)
+        flash = flash_phase(peak_bw, peak_flops, parent_fwd)
     if "e" in phases:
         print("(e) federated LoRA rounds of llama3_8b through FedLLMAPI", flush=True)
         train = train_phase()
@@ -929,6 +1071,10 @@ def main(argv=None) -> int:
         "library_ms": step_sum(results, "library_ms"),
         "times_are": f"one decode step: the sum over its {LAUNCHES_PER_PASS} "
                      f"launches at {DECODE_ROWS} rows",
+        "parent_ms": step_sum(results, "parent_ms"),
+        "prefill_128_rows_ms": step_sum(results, "ms", 128),
+        "prefill_128_rows_bound_ms": step_sum(results, "bound_ms", 128),
+        "pass_ms_by_rows": {rows: step_sum(results, "ms", rows) for rows in ROWS},
         "library": sorted({r["library"] for r in results}),
     }]
     path = flash[0]  # T = S = 2048, causal: the training path's shape
@@ -949,6 +1095,7 @@ def main(argv=None) -> int:
             "bound_ms": path["bound_ms"][kname],
             "bound_by": path["bound_by"][kname],
             "library_ms": lib,
+            **({"parent_ms": path["parent_fwd_ms"]} if kname == "flash_fwd" else {}),
             "times_are": "one launch at B=1, H=32, Hkv=8, T=S=2048, D=128, causal",
             "library": ("torch.nn.functional.scaled_dot_product_attention"
                         "(is_causal=True, enable_gqa=True)"

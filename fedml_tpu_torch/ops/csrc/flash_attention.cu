@@ -29,21 +29,23 @@
 // p and ds go from the accumulators of one product straight into the A
 // operand of the next, never through shared memory).
 //
-//  * forward (one 128-thread block per 64-row q tile, h, b; mma.sync
-//    m16n8k16 on tiles padded by 8 bf16 a row, loaded synchronously): a
-//    loop over the KV tiles up to the diagonal stands in for the TPU's
-//    sequential kv grid axis; running max, sum and each warp's 16 x D
-//    accumulator stay in registers (FlashAttention-2's split).
-//  * dq and dk/dv (one warpgroup each, Hopper's wgmma): the streamed tiles
-//    (K and V for dq; q and dO for dk/dv) come in by TMA into
-//    128-byte-swizzled shared memory, two stages deep, each stage with its
-//    mbarrier, so the next tile's copy is in flight while the tensor cores
-//    work; the TMA zero-fills rows past T or S. The first product of each
-//    pair reads both operands through wgmma descriptors, the second takes
-//    p or ds from registers and its B operand transposed through the
-//    descriptor (dq's first pair takes q and dO from registers). The tiles
-//    loaded once (q, dO for dq; K, V for dk/dv) and lse, delta come by
-//    cp.async (a source size of 0 zero-fills).
+//  * all three run one warpgroup a block on Hopper's wgmma. The streamed
+//    tiles (K and V for the forward and dq; q and dO for dk/dv) come in by
+//    TMA into 128-byte-swizzled shared memory, two stages deep, each stage
+//    with its mbarrier, so the next tile's copy is in flight while the
+//    tensor cores work; the TMA zero-fills rows past T or S (their scores
+//    are masked all the same). The first product of each pair reads both
+//    operands through wgmma descriptors, the second takes p or ds from
+//    registers and its B operand transposed through the descriptor (dq's
+//    first pair takes q and dO from registers). dq's q, dO and dk/dv's K,
+//    V, lse, delta come by cp.async (a source size of 0 zero-fills).
+//  * forward: one block per (64-row q tile, b, h), the last q tiles (the
+//    most KV tiles under the causal mask) dispatched first; q comes by TMA
+//    and is read from shared memory; the online softmax (running max and
+//    sum, in the log2 domain) and the 64 x D accumulator stay in
+//    registers; each tile issues the next tile's q k^T before its own p v,
+//    so the softmax of tile kt + 1 runs while the tensor cores do p v of
+//    tile kt (FlashAttention-3's overlap inside one warpgroup).
 //  * dq: one block per (64-row q tile, b, h), the last q tiles (the most KV
 //    tiles under the causal mask) dispatched first; q and dO are loaded
 //    into registers once, as the A operands of q k^T and dO v^T, and a
@@ -57,9 +59,11 @@
 //    keys once, in bf16: no [B, H, S, D] f32 buffer, no group sum outside
 //    (the TPU design's), no atomics, and two launches give the same bits.
 //
-// Left for later work: the forward's redesign (it is still the mma.sync
-// kernel), a producer warp with setmaxnreg in place of the consumer-issued
-// TMA, and deeper pipelines across iterations.
+// What still limits them: one warpgroup a block (two blocks an SM), so a
+// block's copy issue, barriers and elementwise work sit between its
+// products; FlashAttention-3 adds a producer warp (setmaxnreg) and two
+// consumer warpgroups that take turns, and the forward could take 128-key
+// tiles. Those, and deeper pipelines, are later work.
 //
 // Plain C interface, loaded with ctypes (fedml_tpu_torch/ops/_build.py).
 // Inputs: bf16, contiguous [B, H, T, D] (q, out, dO, dq) and [B, Hkv, S, D]
@@ -83,7 +87,6 @@ using bf16 = __nv_bfloat16;
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 constexpr int kThreads = 128;  // 4 warps
-constexpr int kPad = 8;        // bf16 of padding per shared-memory row
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 
 struct Dims {
@@ -96,46 +99,6 @@ __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// two adjacent bf16 of a row (the lower column in the low half)
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// p[0] in the low half, p[stride] (one row down) in the high half
-__device__ __forceinline__ uint32_t ld_col_pair(const bf16* p, int stride) {
-  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + stride);
-  return lo | (hi << 16);
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 out
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Stage rows [row0, row0 + ROWS) of a row-major [n_rows, D] bf16 matrix in
-// shared memory (row stride D + kPad), 16 bytes per thread per step; rows
-// past n_rows are zero-filled, so phantom rows add nothing and stay finite.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
-                                          int n_rows) {
-  constexpr int kVec = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kVec; i += kThreads) {
-    const int r = i / kVec;
-    const int c = (i - r * kVec) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = v;
-  }
 }
 
 // Asynchronous copies (cp.async): the bytes land in shared memory while the
@@ -174,52 +137,6 @@ __device__ __forceinline__ void load_rows_async(float* dst, const float* src, in
   }
 }
 
-// One warp: acc[j] += A[16 x K] * B[8j .. 8j+7, 0 .. K)^T for j < NT, where
-// A and B are row-major in shared memory with k contiguous (q k^T, dO v^T,
-// k q^T, v dO^T). Fragment layout of mma.m16n8k16: lane = 4 g + tq; A holds
-// rows g, g+8 and columns 2tq(+1), 2tq+8(+1); B column n = g, rows 2tq(+1),
-// 2tq+8(+1); the accumulator rows g (c0, c1) and g+8 (c2, c3), columns
-// 2tq, 2tq+1 of each 8-wide tile.
-template <int NT, int K>
-__device__ __forceinline__ void warp_gemm_nt(float (&acc)[NT][4], const bf16* a_tile,
-                                             const bf16* b_tile, int ld) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    const bf16* a = a_tile + g * ld + k0 + tq * 2;
-    const uint32_t a0 = ld_u32(a), a1 = ld_u32(a + 8 * ld);
-    const uint32_t a2 = ld_u32(a + 8), a3 = ld_u32(a + 8 * ld + 8);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const bf16* b = b_tile + (j * 8 + g) * ld + k0 + tq * 2;
-      mma_bf16(acc[j], a0, a1, a2, a3, ld_u32(b), ld_u32(b + 8));
-    }
-  }
-}
-
-// One warp: acc[j] += P[16 x 8KT] * V[8KT x 8NT], with P given as the f32
-// accumulator fragments of an earlier warp_gemm_nt (rounded to bf16 here:
-// the accumulator layout of two adjacent 8-wide tiles is exactly the A
-// layout of one 16-deep step) and V row-major in shared memory, k running
-// down its rows (p v, ds k, p^T dO, ds^T q).
-template <int KT, int NT>
-__device__ __forceinline__ void warp_gemm_pv(float (&acc)[NT][4], const float (&p)[KT][4],
-                                             const bf16* v_tile, int ld) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int c = 0; c < KT / 2; ++c) {
-    const uint32_t a0 = pack_bf16(p[2 * c][0], p[2 * c][1]);
-    const uint32_t a1 = pack_bf16(p[2 * c][2], p[2 * c][3]);
-    const uint32_t a2 = pack_bf16(p[2 * c + 1][0], p[2 * c + 1][1]);
-    const uint32_t a3 = pack_bf16(p[2 * c + 1][2], p[2 * c + 1][3]);
-    const bf16* v = v_tile + (c * 16 + tq * 2) * ld + g;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      mma_bf16(acc[j], a0, a1, a2, a3, ld_col_pair(v + j * 8, ld),
-               ld_col_pair(v + j * 8 + 8 * ld, ld));
-  }
-}
-
 // Store a warp's 16 x D f32 accumulator as bf16 rows row_a, row_a + 8 of a
 // row-major [n_rows, D] matrix (rows past n_rows are skipped).
 template <int NT>
@@ -251,102 +168,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// forward: replaces _fwd_kernel
-// ---------------------------------------------------------------------------
-constexpr int kFwdM = 64, kFwdN = 64;
-
-template <int D>
-constexpr int fwd_smem() { return (kFwdM + 2 * kFwdN) * (D + kPad) * 2; }
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out,
-                 float* __restrict__ lse, Dims p) {
-  constexpr int LD = D + kPad, NS = kFwdN / 8, NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kFwdM * LD;
-  bf16* vs = ks + kFwdN * LD;
-
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (p.h / p.hkv);
-  const int q0 = blockIdx.x * kFwdM;
-  const size_t bh = (size_t)b * p.h + h;
-  const bf16* kb = k + ((size_t)b * p.hkv + hk) * p.s * D;
-  const bf16* vb = v + ((size_t)b * p.hkv + hk) * p.s * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int row_a = q0 + warp * 16 + g;  // this thread's rows: row_a, row_a + 8
-
-  load_tile<kFwdM, D>(qs, q + bh * p.t * D, q0, p.t);
-
-  float o[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
-  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.0f, 0.0f};
-
-  int n_tiles = (p.s + kFwdN - 1) / kFwdN;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + kFwdM - 1) / kFwdN + 1);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kFwdN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<kFwdN, D>(ks, kb, k0, p.s);
-    load_tile<kFwdN, D>(vs, vb, k0, p.s);
-    __syncthreads();
-
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-    warp_gemm_nt<NS, D>(s, qs + warp * 16 * LD, ks, LD);
-
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row_a + (e >> 1) * 8, col = k0 + j * 8 + tq * 2 + (e & 1);
-        float x = s[j][e] * p.scale;
-        if (col >= p.s || (p.causal && col > row)) x = kMaskValue;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2], rs[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      alpha[i] = __expf(m[i] - mx[i]);  // 0 on the first tile (m = -inf)
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = __expf(s[j][e] - m[e >> 1]);
-        rs[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      o[j][0] *= alpha[0]; o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1]; o[j][3] *= alpha[1];
-    }
-    warp_gemm_pv<NS, NO>(o, s, vs, LD);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float li = fmaxf(quad_sum(l[i]), 1e-30f);
-    inv[i] = 1.0f / li;
-    const int row = row_a + i * 8;
-    if (tq == 0 && row < p.t) lse[bh * p.t + row] = m[i] + logf(li);
-  }
-  store_rows<NO>(out + bh * p.t * D, o, row_a, p.t, inv[0], inv[1]);
-}
-
-// ---------------------------------------------------------------------------
-// Hopper pieces of the backward kernels: 128-byte-swizzled tiles filled by
+// Hopper pieces of the kernels: 128-byte-swizzled tiles filled by TMA or
 // cp.async, read by wgmma through shared-memory descriptors
 // ---------------------------------------------------------------------------
 // A [ROWS, D] bf16 tile is D / 64 column blocks of [ROWS][64] (128 bytes a
@@ -434,8 +256,8 @@ __device__ __forceinline__ void zero(float (&d)[NT][4]) {
 }
 
 // The bf16 A operand of step kk (16 columns) of a product whose left factor
-// is an accumulator of 8-wide column tiles (rounded here, as the forward's
-// warp_gemm_pv does): tiles 2 kk and 2 kk + 1.
+// is an accumulator of 8-wide column tiles (rounded to bf16 here): tiles
+// 2 kk and 2 kk + 1.
 template <int NT>
 __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&p)[NT][4], int kk) {
   a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
@@ -607,6 +429,182 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// ---------------------------------------------------------------------------
+// forward: replaces _fwd_kernel
+// ---------------------------------------------------------------------------
+constexpr int kFwdM = 64, kFwdN = 64;
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// q, two stages of K, V (all swizzled [64, D]), then three mbarriers (the
+// two stages', q's)
+template <int D>
+__host__ __device__ constexpr int fwd_tiles() { return (kFwdM + 2 * 2 * kFwdN) * D * 2; }
+
+template <int D>
+constexpr int fwd_smem() { return fwd_tiles<D>() + 3 * 8 + kAlign; }
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One KV tile (keys from k0) of the online softmax, in the log2 domain:
+// the scores scaled by scale * log2(e) and masked by a select (columns past
+// S, and col > row under the causal mask, at kMaskValue); m becomes the new
+// running max of this thread's two rows, alpha = 2^(old m - new m) rescales
+// the old sums (0 on the first tile), s becomes p = 2^(x - m) and rs its
+// row sums over this thread's columns (the quad's other threads hold the
+// rest, as in the accumulator layout).
+template <int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS][4], int k0, int row_a,
+                                             const Dims& p, float scale2, float (&m)[2],
+                                             float (&alpha)[2], float (&rs)[2]) {
+  const int tq = threadIdx.x & 3;
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row_a + (e >> 1) * 8, col = k0 + j * 8 + tq * 2 + (e & 1);
+      const bool masked = col >= p.s || (p.causal && col > row);
+      const float x = masked ? kMaskValue : s[j][e] * scale2;
+      s[j][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = quad_max(mx[i]);
+    alpha[i] = exp2_approx(m[i] - mx[i]);
+    m[i] = mx[i];
+    rs[i] = 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = exp2_approx(s[j][e] - m[e >> 1]);
+      rs[e >> 1] += s[j][e];
+    }
+}
+
+// One block (one warpgroup) per (64-row q tile, b, h), the last q tiles (the
+// most KV tiles under the causal mask) first. q comes in once by TMA and
+// stays in shared memory; K and V stream through two stages filled by TMA,
+// the copy of tile kt + 2 issued as soon as tile kt's stage is read. Each
+// iteration issues s = q k^T of the next tile (both operands through
+// descriptors) and then o += p v of this one (p from registers, in bf16; v
+// transposed through its descriptor), and computes the next tile's softmax
+// while the tensor cores run p v. No branch sits between a tile's first
+// wgmma and its last (the mask is a select, the copy is predicated).
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
+                 float* __restrict__ lse, Dims p) {
+  constexpr int NS = kFwdN / 8, NO = D / 8, KD = D / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* kvs = qs + kFwdM * D;  // [stage][K, V][kFwdN][D], swizzled
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + fwd_tiles<D>());
+
+  const int h = blockIdx.x % p.h, b = blockIdx.x / p.h % p.b, hk = h / (p.h / p.hkv);
+  const int q_tiles = (p.t + kFwdM - 1) / kFwdM;
+  const int q0 = (q_tiles - 1 - blockIdx.x / (p.h * p.b)) * kFwdM;
+  const int bh = b * p.h + h, bhk = b * p.hkv + hk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row_a = q0 + warp * 16 + g;  // this thread's rows: row_a, row_a + 8
+  const float scale2 = p.scale * kLog2e;
+
+  int n_tiles = (p.s + kFwdN - 1) / kFwdN;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + kFwdM - 1) / kFwdN + 1);
+  auto stage = [&](int kt) { return kvs + (kt & 1) * 2 * kFwdN * D; };  // K; V follows
+  auto issue = [&](int kt, bool pred) {  // pred holds for one thread
+    mbar_expect(&full[kt & 1], 2 * kFwdN * D * 2, pred);
+    tma_tile<kFwdN, D>(stage(kt), &k_map, &full[kt & 1], kt * kFwdN, bhk, pred);
+    tma_tile<kFwdN, D>(stage(kt) + kFwdN * D, &v_map, &full[kt & 1], kt * kFwdN, bhk, pred);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+    mbar_init(&full[2]);
+    mbar_init_fence();
+    mbar_expect(&full[2], kFwdM * D * 2, true);
+    tma_tile<kFwdM, D>(qs, &q_map, &full[2], q0, bh, true);
+    issue(0, true);
+    issue(1, n_tiles > 1);
+  }
+  __syncthreads();  // the barriers are initialised
+
+  float s[NS][4], o[NO][4];
+  float m[2] = {neg_inf(), neg_inf()}, l[2], alpha[2], rs[2];
+  zero(o);
+  mbar_wait(&full[2], 0);  // q
+  mbar_wait(&full[0], 0);  // tile 0
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    wgmma_ss_n64(s, desc_k<kFwdM>(qs, kk), desc_k<kFwdN>(stage(0), kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  softmax_tile(s, 0, row_a, p, scale2, m, alpha, l);
+  uint32_t a[NS / 2][4];  // p of the tile whose p v is in flight
+#pragma unroll
+  for (int kk = 0; kk < NS / 2; ++kk) a_frag(a[kk], s, kk);
+
+  for (int kt = 0; kt + 1 < n_tiles; ++kt) {
+    mbar_wait(&full[(kt + 1) & 1], ((kt + 1) >> 1) & 1);  // the next tile has landed
+    const bf16* vs = stage(kt) + kFwdN * D;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      wgmma_ss_n64(s, desc_k<kFwdM>(qs, kk), desc_k<kFwdN>(stage(kt + 1), kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) wgmma_rs<1>(o, a[kk], desc_mn<kFwdN>(vs, kk), 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // s of the next tile has landed; p v may still run
+    fence_regs(s);
+    softmax_tile(s, (kt + 1) * kFwdN, row_a, p, scale2, m, alpha, rs);
+    wgmma_wait<0>();  // p v has landed: o and a are free
+    hold_frags(a);
+    fence_regs(o);
+    __syncthreads();  // no warp reads tile kt's stage any more
+    issue(kt + 2, threadIdx.x == 0 && kt + 2 < n_tiles);
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      o[j][0] *= alpha[0]; o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1]; o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) a_frag(a[kk], s, kk);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NS / 2; ++kk)
+    wgmma_rs<1>(o, a[kk], desc_mn<kFwdN>(stage(n_tiles - 1) + kFwdN * D, kk), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  hold_frags(a);
+  fence_regs(o);
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float li = fmaxf(quad_sum(l[i]), 1e-30f);
+    inv[i] = 1.0f / li;
+    const int row = row_a + i * 8;
+    if (tq == 0 && row < p.t) lse[(size_t)bh * p.t + row] = m[i] * kLn2 + logf(li);
+  }
+  store_rows<NO>(out + (size_t)bh * p.t * D, o, row_a, p.t, inv[0], inv[1]);
 }
 
 // ---------------------------------------------------------------------------
@@ -1003,18 +1001,6 @@ Dims make_dims(int b, int h, int hkv, int t, int s, int causal, float scale) {
   return p;
 }
 
-template <int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-                       const Dims& p, cudaStream_t st) {
-  static cudaError_t attr = allow_smem(flash_fwd_kernel<D>, fwd_smem<D>());
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((p.t + kFwdM - 1) / kFwdM, p.h, p.b);
-  flash_fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), static_cast<float*>(lse), p);
-  return cudaGetLastError();
-}
-
 // cuTensorMapEncodeTiled, from the driver at run time (no -lcuda)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -1047,6 +1033,22 @@ cudaError_t tile_map(CUtensorMap* map, const void* base, int d, int rows, int he
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+                       const Dims& p, cudaStream_t st) {
+  static cudaError_t attr = allow_smem(flash_fwd_kernel<D>, fwd_smem<D>());
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err = tile_map(&q_map, q, D, p.t, p.b * p.h);
+  if (err == cudaSuccess) err = tile_map(&k_map, k, D, p.s, p.b * p.hkv);
+  if (err == cudaSuccess) err = tile_map(&v_map, v, D, p.s, p.b * p.hkv);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.t + kFwdM - 1) / kFwdM * p.b * p.h);
+  flash_fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), st>>>(
+      q_map, k_map, v_map, static_cast<bf16*>(out), static_cast<float*>(lse), p);
+  return cudaGetLastError();
 }
 
 template <int D>

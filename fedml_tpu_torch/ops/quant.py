@@ -143,13 +143,54 @@ def dequant_matmul_reference(x: torch.Tensor, q: torch.Tensor,
     return ((x.to(torch.bfloat16).float() @ q.float()) * scale.float()).to(dtype)
 
 
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "fedml_dequant_matmul_bf16": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    "fedml_dequant_smem_bytes": [_INT],
+}
+# the kernel's tiles: 128 output columns a block, 128 H-rows a pipeline
+# stage, 4 stages; a cluster of at most 8 blocks splits H
+BLOCK_COLS, CHUNK_ROWS, STAGES, SPLITS = 128, 128, 4, (1, 2, 4, 8)
+H100_SMS = 132
+
+
+def dequant_splits(h: int, f: int) -> int:
+    """Blocks of the kernel's cluster for an ``[H, F]`` weight, each summing
+    ``H / splits`` rows: the fewest of 1, 2, 4, 8 that give the launch at
+    least one block per SM of an H100 (``F / 128 * splits >= 132``), never
+    splitting below the 4-stage pipeline (``STAGES`` chunks of 128 H-rows
+    per block). Where the cap of 8 leaves fewer blocks (F = 1024 gives 64)
+    it takes 8."""
+    cols, best = f // BLOCK_COLS, 1
+    for c in SPLITS:
+        if h % (CHUNK_ROWS * c) or h // (CHUNK_ROWS * c) < STAGES:
+            break
+        best = c
+        if cols * c >= H100_SMS:
+            break
+    return best
+
+
 def _kernel_lib():
     lib = _build.load("dequant_matmul")
-    fn = lib.fedml_dequant_matmul_bf16
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_smem_bytes() -> dict:
+    """Dynamic shared memory of each kernel instance's launch, keyed as
+    ptxas names them (``dequant_matmul_kernel<1,1>``). Builds the library."""
+    lib = _kernel_lib()
+    # the largest row count of each instance -> its kernel and template
+    # arguments, as csrc/dequant_matmul.cu dispatches them
+    instances = {8: "kernel<128,8,1,1>", 16: "kernel<128,8,2,1>",
+                 32: "kernel<128,4,4,1>", 64: "wgmma_kernel<64>", 128: "wgmma_kernel<128>"}
+    return {f"dequant_matmul_{args}": lib.fedml_dequant_smem_bytes(r)
+            for r, args in instances.items()}
 
 
 def dequant_matmul_cuda(x: torch.Tensor, q: torch.Tensor,
@@ -176,15 +217,16 @@ def dequant_matmul_cuda(x: torch.Tensor, q: torch.Tensor,
         raise ValueError("x, q and scale must be on one device")
     if not (x.is_contiguous() and q.is_contiguous() and scale.is_contiguous()):
         raise ValueError("dequant_matmul_cuda needs contiguous tensors")
-    if q.data_ptr() % 4:
-        raise ValueError("the int8 weight must be 4-byte aligned")
+    if x.data_ptr() % 16 or q.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError("x, the int8 weight and scale must be 16-byte aligned "
+                         "(the kernel copies them in 16-byte chunks)")
     lib = _kernel_lib()
     out = torch.empty((rows, f), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.fedml_dequant_matmul_bf16(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            rows, h, f, stream)
+            rows, h, f, dequant_splits(h, f), stream)
     _build.check(lib, code, "dequant_matmul launch")
     DEQUANT_MATMUL_LAUNCHES += 1
     return out

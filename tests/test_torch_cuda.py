@@ -152,3 +152,95 @@ def test_fedllm_round_trains_through_the_kernels_on_cuda():
     assert abs(got - want) <= LOSS_REL_TOL * abs(want)
     with pytest.raises(TypeError, match="bf16"):
         tfa.flash_attention(*(torch.zeros(1, 4, 8, 64, device="cuda") for _ in range(3)))
+
+
+# The forward over the GQA groups and T/S cases of the backward's group test,
+# at head_dim 64 and 128: ragged tiles, T != S (top-left alignment) and two
+# or more KV tiles, where a register hazard once showed at head_dim 64
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("t,s,causal", [(200, 200, True), (136, 264, True), (264, 136, False)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,hkv", [(8, 8), (6, 2), (8, 2), (16, 2), (32, 8)])
+def test_forward_kernel_matches_plain_version_over_groups_on_cuda(h, hkv, d, t, s, causal):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from chip_smoke import LSE_TOL, ROW_TOL, row_rel_err
+
+    gen = torch.Generator(device="cuda").manual_seed(h * t + d + s)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+    q, k, v = randn(2, h, t, d), randn(2, hkv, s, d), randn(2, hkv, s, d)
+    out, lse = tfa.flash_forward_cuda(q, k, v, causal)
+    out_p, lse_p = tfa.flash_forward_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert out.shape == out_p.shape and out.dtype == torch.bfloat16
+    assert row_rel_err(out, out_p) <= ROW_TOL
+    assert (lse - lse_p).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("h,hkv,d", [(6, 2, 64), (32, 8, 128)])
+def test_forward_kernel_is_bit_identical_on_cuda(h, hkv, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(h + d)
+    q, k, v = (torch.randn(1, n, 520, d, device="cuda", generator=gen).to(torch.bfloat16)
+               for n in (h, hkv, hkv))
+    first, second = tfa.flash_forward_cuda(q, k, v), tfa.flash_forward_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+_INT8_WEIGHTS = {}
+
+
+def _int8_weight(h, f):
+    """Random int8 codes and f32 scales of an [h, f] weight, one per shape."""
+    if (h, f) not in _INT8_WEIGHTS:
+        _INT8_WEIGHTS.clear()  # keep one (up to 0.5 GB) on the card at a time
+        gen = torch.Generator(device="cuda").manual_seed(h + f)
+        q = torch.randint(-127, 128, (h, f), device="cuda", generator=gen, dtype=torch.int8)
+        scale = torch.rand(f, device="cuda", generator=gen) * 0.02 + 1e-3
+        _INT8_WEIGHTS[(h, f)] = (q, scale)
+    return _INT8_WEIGHTS[(h, f)]
+
+
+# every prefill bucket and decode width, ragged row counts between them, at
+# the split-K shapes of Llama-3-8B (8 splits: k/v and down) and the LM head
+# (one split, 1002 column blocks)
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("h,f", [(4096, 1024), (14336, 4096), (4096, 128256)])
+@pytest.mark.parametrize("rows", [1, 2, 5, 8, 16, 17, 32, 64, 100, 128])
+def test_dequant_kernel_matches_plain_version_row_by_row_on_cuda(rows, h, f):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from chip_smoke import DEQUANT_ROW_TOL, row_rel_err
+
+    q, scale = _int8_weight(h, f)
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    x = torch.randn(rows, h, device="cuda", generator=gen).to(torch.bfloat16)
+    got = tq.dequant_matmul_cuda(x, q, scale)
+    want = tq.dequant_matmul_reference(x, q, scale, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, f) and got.dtype == torch.bfloat16
+    assert row_rel_err(got, want) <= DEQUANT_ROW_TOL
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows", [8, 128])
+def test_dequant_kernel_is_bit_identical_on_cuda(rows):
+    """The cluster adds the split partial sums in rank order: two launches
+    on the same inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, scale = _int8_weight(14336, 4096)
+    x = torch.randn(rows, 14336, device="cuda").to(torch.bfloat16)
+    first, second = tq.dequant_matmul_cuda(x, q, scale), tq.dequant_matmul_cuda(x, q, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    # an int8 weight 8 bytes off the 16-byte grid the kernel's copies need
+    shifted = q.view(-1)[8:8 + 128 * 4096].view(128, 4096)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tq.dequant_matmul_cuda(x[:, :128].contiguous(), shifted, scale)

@@ -183,3 +183,53 @@ def test_build_names_sm90a_and_source_hash(tmp_path, monkeypatch):
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+def test_kernel_signatures_match_the_c_interface():
+    """The ctypes argument lists follow the extern "C" declarations of
+    csrc/dequant_matmul.cu, the split count included."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    src = (Path(tq.__file__).parent / "csrc" / "dequant_matmul.cu").read_text()
+    assert set(tq._SIGNATURES) == set(re.findall(r"^int (fedml_\w+)\(", src, re.M))
+    for name, argtypes in tq._SIGNATURES.items():
+        decl = re.search(rf"int {name}\(([^)]*)\)", src).group(1)
+        params = [p.strip() for p in decl.split(",")]
+        assert len(params) == len(argtypes), name
+        for p, a in zip(params, argtypes):
+            want = {"int": ctypes.c_int, "float": ctypes.c_float}.get(
+                p.split()[0], ctypes.c_void_p)
+            assert a is want, (name, p)
+
+
+# every Llama-3-8B projection: q/o, k/v, gate/up, down, the LM head
+LLAMA3_8B_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                    (4096, 128256)]
+
+
+@pytest.mark.parametrize("h,f", LLAMA3_8B_SHAPES)
+def test_dequant_splits_fill_the_card_without_splitting_below_a_tile(h, f):
+    """The cluster's split count: a power of two up to 8 that divides H into
+    whole 128-row chunks, at least STAGES of them a block (never below the
+    pipeline's depth), and enough blocks for the H100's 132 SMs, except
+    where F = 1024 leaves 8 column blocks: the cap of 8 gives 64 blocks."""
+    c = tq.dequant_splits(h, f)
+    blocks = f // tq.BLOCK_COLS * c
+    assert c in tq.SPLITS
+    assert h % (tq.CHUNK_ROWS * c) == 0 and h // (tq.CHUNK_ROWS * c) >= tq.STAGES
+    if f == 1024:
+        assert c == max(tq.SPLITS) and blocks == 64
+    else:
+        assert blocks >= tq.H100_SMS
+        # the fewest splits that do: half as many would not fill the card
+        assert c == 1 or f // tq.BLOCK_COLS * (c // 2) < tq.H100_SMS
+
+
+@pytest.mark.parametrize("h,f,want", [(128, 128, 1), (384, 1024, 1), (1024, 1024, 2),
+                                      (2048, 256, 4), (8192, 128, 8), (1536, 4096, 2)])
+def test_dequant_splits_small_and_odd_depths(h, f, want):
+    """Depths of few chunks split no further than STAGES chunks a block, and
+    only into counts that divide them."""
+    assert tq.dequant_splits(h, f) == want
