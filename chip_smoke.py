@@ -43,16 +43,36 @@ the final ``ok`` line:
     busy share of one round (with its device time by kernel class); hold
     layer 0's attention output and LoRA gradients, every layer's flash
     output on the model's own activations, and the model's loss on one
-    batch, kernels against plain versions.
+    batch, kernels against plain versions;
+(f) the quantized formats at Llama-3-8B's widths: what ``torch._int_mm``
+    takes (16 rows or not; the weight's layout, timed both ways), the w8a8
+    product against its plain version on the CPU at every
+    projection shape and 1/8/16/17/128/2048 rows (activation codes and
+    int32 accumulators bit for bit, outputs row by row); int4 and nf4
+    quantized and dequantized on the card to the CPU's bits for layer 0's
+    seven kernels and the LM head; one 225-launch pass at 8 and 128 rows
+    timed for w8a8, nf4 dequant + matmul and bf16 ``torch.matmul`` beside
+    the int8 kernel's (phase b) and each pass's bound; then Llama-3-8B
+    served with ``--quantize w8a8`` and ``--quantize nf4`` (4 HTTP requests,
+    2 concurrent, 16 new tokens each) with decode ms/step at 8 slots, TTFT
+    and the served bytes, finite logits, and one prompt's greedy tokens
+    equal to the plain lowering of the same quantized weights;
+(g) after phase (e)'s weights are freed, phase (e) again over an nf4 base
+    (QLoRA, ``base_quantize: nf4``): the same launch counts and checks, the
+    packed base bit-identical before and after ``train()``, the
+    ``quant/base_bytes`` gauge equal to the packed bytes, its round time,
+    tokens/s, busy share, device time by class and peak memory beside
+    phase (e)'s (the peak at least 5 GB lower); then one round over an int8
+    base.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with code 2 and prints no result. The full per-shape results also go to
-``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcde``) runs
-(a) and the phases named, and prints no kernels or ok line. ``--parent
-DIR`` builds the dequant and flash-forward kernels of another checkout
-(DIR, e.g. the parent commit unpacked by ``git archive``) and times them
-beside this tree's in phases b and d.
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefg``) runs
+(a) and the phases named, and prints no kernels or ok line (phase g sets
+its round beside phase e's only when both run). ``--parent DIR`` builds the dequant and flash-forward kernels of
+another checkout (DIR, e.g. the parent commit unpacked by ``git archive``)
+and times them beside this tree's in phases b and d.
 """
 from __future__ import annotations
 
@@ -127,6 +147,24 @@ TRAIN_ARGS = dict(
 # the whole model's loss on one batch within 1e-3 relative (17x the 5.9e-5
 # measured on an H100)
 LOSS_REL_TOL = 1e-3
+
+# Phase (f): the w8a8 product's row counts (decode 1 and 8, both sides of
+# torch._int_mm's 16-row limit, a prefill bucket and a long prefill), the
+# 4-bit formats, and the serve runs of phase (f)
+W8A8_ROWS = (1, 8, 16, 17, 128, 2048)
+PASS_ROWS = (8, 128)
+QUANT_SERVE_MODES = ("w8a8", "nf4")
+QUANT_REQUESTS, QUANT_CONCURRENT, QUANT_NEW_TOKENS = 4, 2, 16
+# layer 0's seven kernels and the LM head, by parameter name
+LAYER0_KERNELS = {
+    "layer_0.attn.q_proj.kernel": (4096, 4096), "layer_0.attn.k_proj.kernel": (4096, 1024),
+    "layer_0.attn.v_proj.kernel": (4096, 1024), "layer_0.attn.o_proj.kernel": (4096, 4096),
+    "layer_0.mlp.gate_proj.kernel": (4096, 14336), "layer_0.mlp.up_proj.kernel": (4096, 14336),
+    "layer_0.mlp.down_proj.kernel": (14336, 4096), "lm_head": (4096, 128256),
+}
+# Phase (g): the QLoRA round's peak memory must sit at least this far below
+# the bf16 round's (linear weights 15.0 GB in bf16, 4.22 GB in nf4)
+QLORA_PEAK_MARGIN_GB = 5.0
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s and bf16 FLOP/s.
 PEAKS = (
@@ -657,35 +695,7 @@ def serve_phase():
     if engine.failure is not None:
         raise RuntimeError("serving engine failed") from engine.failure
 
-    # --- steady decode at 8 slots, engine driven directly ---
-    for _ in range(engine.n_slots):
-        engine.submit(rng.integers(0, cfg.vocab_size, size=64).tolist(),
-                      max_new_tokens=48)
-    for _ in range(engine.n_slots):
-        engine._admit(engine._requests.get_nowait())
-    for _ in range(2):
-        engine.step()
-    n_steps = 30
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        engine.step()
-    step_s = (time.perf_counter() - t0) / n_steps
-    # device time per step from the profiler's kernel records; the wall time
-    # is the unprofiled one above (the profiler slows the host side)
-    n_prof = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            engine.step()
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    dev_step_ms = dev_us / 1e3 / n_prof if dev_us > 0 else None
-    busy = dev_step_ms / (step_s * 1e3) if dev_step_ms else None
-    print(f"  decode at {engine.n_slots} slots: {step_s * 1e3:.2f} ms/step, "
-          f"{engine.n_slots / step_s:.1f} tokens/s; device time "
-          + ("not measured" if busy is None else
-             f"{dev_step_ms:.2f} ms/step (profiler, {n_prof} steps), busy share {busy:.3f}"),
-          flush=True)
+    step_s, dev_step_ms, busy = steady_decode(engine, rng)
 
     # --- served outputs are right: the served model through the kernel
     # against the same int8 codes through the kernel's plain version (same
@@ -759,6 +769,42 @@ def serve_phase():
                 logits_l2_vs_dequant=vs_dequant, **mem)
 
 
+def steady_decode(engine, rng, n_steps: int = 30, n_prof: int = 5):
+    """Steady decode with every slot busy, the engine driven directly:
+    ``(seconds a step on the host's clock, device ms a step from the
+    profiler or None, busy share or None)``, printed."""
+    vocab = engine.cfg.vocab_size
+    for _ in range(engine.n_slots):
+        engine.submit(rng.integers(0, vocab, size=64).tolist(),
+                      max_new_tokens=n_steps + n_prof + 10)
+    for _ in range(engine.n_slots):
+        engine._admit(engine._requests.get_nowait())
+    for _ in range(2):
+        engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        engine.step()
+    step_s = (time.perf_counter() - t0) / n_steps
+    # device time per step from the profiler's kernel records; the wall time
+    # is the unprofiled one above (the profiler slows the host side)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            engine.step()
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    dev_step_ms = dev_us / 1e3 / n_prof if dev_us > 0 else None
+    busy = dev_step_ms / (step_s * 1e3) if dev_step_ms else None
+    print(f"  decode at {engine.n_slots} slots: {step_s * 1e3:.2f} ms/step, "
+          f"{engine.n_slots / step_s:.1f} tokens/s; device time "
+          + ("not measured" if busy is None else
+             f"{dev_step_ms:.2f} ms/step (profiler, {n_prof} steps), busy share {busy:.3f}"),
+          flush=True)
+    while engine.active_slots:  # finish the streams: every slot free again
+        engine.step()
+    return step_s, dev_step_ms, busy
+
+
 def plain_flash_route():
     """Context manager routing the flash wrappers to their plain versions
     (same signatures), so the model runs the same code minus the kernels."""
@@ -784,6 +830,8 @@ def kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in low or "flash_bwd" in low:
         return "flash attention (port kernels)"
+    if "indexselect" in low or "scatter_gather" in low:
+        return "gather (4-bit dequant lookups, embedding)"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "matmul", "nvjet")):
         return "matmul (cuBLAS)"
     return "other (elementwise, norms, rope, softmax/CE, optimizer)"
@@ -804,17 +852,22 @@ def train_step_flops(cfg, batch: int, t: int) -> float:
     return cfg.num_hidden_layers * per_layer + 4 * h * cfg.vocab_size * tokens
 
 
-def train_phase():
-    """Phase (e): federated LoRA rounds of Llama-3-8B through FedLLMAPI."""
+def train_phase(light: bool = False, **overrides):
+    """Phase (e), and with ``base_quantize`` in ``overrides`` phase (g):
+    federated LoRA rounds of Llama-3-8B through FedLLMAPI. A quantized base
+    must come out of ``train()`` bit-identical. ``light`` stops after
+    ``train()`` (its round times, launches and peak memory)."""
     import types
 
     from fedml_tpu_torch.data.data_loader import load_synthetic_lm
     from fedml_tpu_torch.models.llm.llama import causal_lm_loss, rope_tables
     from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops.quant import named_quantized_weights
+    from fedml_tpu_torch.telemetry import get_registry
     from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
     from fedml_tpu_torch.train.llm.trainer import extract_lora
 
-    args = types.SimpleNamespace(**TRAIN_ARGS)
+    args = types.SimpleNamespace(**{**TRAIN_ARGS, **overrides})
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     api = FedLLMAPI(args, "cuda", load_synthetic_lm(args))
@@ -822,9 +875,25 @@ def train_phase():
     boot_s = time.perf_counter() - t0
     engine, cfg = api.client.engine, api.cfg
     lora_n = sum(p.numel() for p in extract_lora(engine.model).values())
-    print(f"  booted {args.model_size} (LoRA rank {cfg.lora_rank}, {lora_n} adapter parameters) "
-          f"in {boot_s:.1f} s: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated",
+    def quantized_weights(model):
+        return [q for _, q in named_quantized_weights(model)]
+
+    base = quantized_weights(engine.model)
+    base_bytes = sum(q.data.numel() * q.data.element_size() + 4 * q.scale.numel()
+                     for q in base)
+    print(f"  booted {args.model_size} (LoRA rank {cfg.lora_rank}, {lora_n} adapter parameters"
+          + (f"; {len(base)} base kernels {args.base_quantize}, {base_bytes / 1e9:.3f} GB"
+             if base else "")
+          + f") in {boot_s:.1f} s: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated",
           flush=True)
+    base_gauge = None
+    if base and args.base_quantize in ("int4", "nf4"):
+        base_gauge = get_registry().gauge("quant/base_bytes").value
+        if base_gauge != base_bytes:
+            raise RuntimeError(f"quant/base_bytes gauge {base_gauge} != the packed "
+                               f"leaves' {base_bytes} bytes")
+    # the frozen base, on the host (kept off the card: its peak is measured)
+    base0 = [(q.data.cpu(), q.scale.cpu()) for q in base]
 
     rounds = []
     inner = api.train_one_round
@@ -845,6 +914,15 @@ def train_phase():
     launches = {"flash_fwd": fa.FLASH_FWD_LAUNCHES, "flash_bwd_dq": fa.FLASH_DQ_LAUNCHES,
                 "flash_bwd_dkv": fa.FLASH_DKV_LAUNCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    frozen = all(torch.equal(q.data.cpu(), d0) and torch.equal(q.scale.cpu(), s0)
+                 for q, (d0, s0) in zip(quantized_weights(engine.model), base0))
+    if base:
+        print(f"  quantized base bit-identical after train(): {frozen} ({len(base0)} "
+              f"kernels" + ("" if base_gauge is None else
+                            f"; quant/base_bytes gauge {base_gauge:.0f} B = the packed "
+                            f"leaves' bytes") + ")", flush=True)
+    if not frozen or len(quantized_weights(engine.model)) != len(base0):
+        raise RuntimeError("the quantized base changed in train()")
 
     layers, clients = cfg.num_hidden_layers, args.client_num_per_round
     steps = clients * args.local_steps_per_round * args.comm_round
@@ -872,6 +950,16 @@ def train_phase():
         raise RuntimeError(f"non-finite losses: {rounds}")
     if not rounds[0]["lora_b_max"] > 0:
         raise RuntimeError("the global lora_b is still zero after round 0")
+    result = dict(launches=launches, expected_launches=expected, rounds=rounds,
+                  summary={k: v for k, v in summary.items() if isinstance(v, (int, float))},
+                  boot_s=boot_s, train_wall_s=train_wall_s,
+                  tokens_per_round=tokens_per_round, tokens_per_s=tokens_per_round / steady,
+                  steady_round_s=steady, step_flops=step_flops,
+                  model_tflops_per_s=round_flops / steady / 1e12, peak_gb=peak_gb,
+                  lora_params=lora_n, base_quantize=getattr(args, "base_quantize", ""),
+                  base_bytes=base_bytes, base_kernels=len(base))
+    if light:
+        return result
 
     # --- device busy share of one round: profiler device time over the
     # unprofiled wall of the same round ---
@@ -961,17 +1049,347 @@ def train_phase():
             and math.isfinite(loss_k)):
         raise RuntimeError(f"the kernels' model disagrees with the plain versions: "
                            f"attention {attn_errs}, layers {layer_errs}, loss {loss_rel}")
-    return dict(launches=launches, expected_launches=expected, rounds=rounds,
-                summary={k: v for k, v in summary.items() if isinstance(v, (int, float))},
-                boot_s=boot_s, train_wall_s=train_wall_s, round_wall_s=round_wall_s,
-                tokens_per_round=tokens_per_round, tokens_per_s=tokens_per_round / steady,
-                step_flops=step_flops, model_tflops_per_s=round_flops / steady / 1e12,
-                peak_gb=peak_gb, device_ms_per_round=dev_ms, device_busy_share=busy,
-                device_ms_by_class=by_class,
+    return dict(result, round_wall_s=round_wall_s, device_ms_per_round=dev_ms,
+                device_busy_share=busy, device_ms_by_class=by_class,
                 top_kernels=[dict(ms=m_, count=c_, name=k_) for m_, c_, k_ in by_kernel[:20]],
                 attention_row_err=attn_errs, layer_flash_row_err=layer_errs,
-                loss_kernel=loss_k, loss_plain=loss_p,
-                loss_rel_err=loss_rel, lora_params=lora_n)
+                loss_kernel=loss_k, loss_plain=loss_p, loss_rel_err=loss_rel)
+
+
+def int_mm_needs():
+    """Phase (f), part 0: what ``torch._int_mm`` needs on this card, which
+    the w8a8 path is built around: whether it takes 16 rows (the path pads
+    fewer than INT_MM_MIN_ROWS to that count), and its time at 32 rows
+    with the int8 weight row-major against column-major (the layout
+    ``QuantizedTensor`` stores in w8a8 mode)."""
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    out = {}
+    for (h, f) in ((4096, 4096), (4096, 128256)):
+        w = torch.randint(-127, 128, (h, f), device="cuda", generator=gen,
+                          dtype=torch.int32).to(torch.int8)
+        x16 = torch.randint(-127, 128, (16, h), device="cuda", generator=gen,
+                            dtype=torch.int32).to(torch.int8)
+        try:
+            torch._int_mm(x16, w)
+            refused = None
+        except RuntimeError as e:
+            refused = str(e).splitlines()[0]
+        x = torch.cat([x16, x16])
+        col = w.t().contiguous().t()
+        row_ms = device_ms([lambda: torch._int_mm(x, w)], 10)
+        col_ms = device_ms([lambda: torch._int_mm(x, col)], 10)
+        out[f"{h}x{f}"] = dict(refuses_16_rows=refused, row_major_ms=row_ms,
+                               column_major_ms=col_ms)
+        print(f"  torch._int_mm at K={h} N={f}: 16 rows "
+              + (f"refused ({refused})" if refused else "taken")
+              + f"; 32 rows {row_ms:.4f} ms row-major, {col_ms:.4f} ms column-major",
+              flush=True)
+        del w, col
+    torch.cuda.empty_cache()
+    return out
+
+
+def w8a8_check():
+    """Phase (f), part 1: the w8a8 product on the card (``torch._int_mm``,
+    fewer than 32 rows padded) against its plain version on the CPU (an
+    exact float64 product) at every projection shape and W8A8_ROWS rows:
+    activation codes, row scales and int32 accumulators bit for bit, the
+    bf16 outputs row by row within DEQUANT_ROW_TOL."""
+    from fedml_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(5678)
+    out = []
+    for (h, f) in SLICE_SHAPES:
+        qt = quant.quantize_int8(torch.randn(h, f, device="cuda", generator=gen), mode="w8a8")
+        xs = [torch.randn(rows, h, device="cuda", generator=gen).to(torch.bfloat16)
+              for rows in W8A8_ROWS]
+        # the plain version once for all row counts (rows are independent)
+        t0 = time.perf_counter()
+        xq_c, xs_c = quant.quantize_rows_int8(torch.cat(xs).cpu())
+        acc_c = quant.int8_product(xq_c, qt.data.cpu())
+        want_c = quant.w8a8_rescale(acc_c, xs_c, qt.scale.cpu(), torch.bfloat16)
+        cpu_s = time.perf_counter() - t0
+        r0 = 0
+        for rows, x in zip(W8A8_ROWS, xs):
+            sl = slice(r0, r0 + rows)
+            r0 += rows
+            xq, xsc = quant.quantize_rows_int8(x)
+            acc = quant.int8_product(xq, qt.data)
+            got = qt.matmul(x, torch.bfloat16).cpu()
+            rec = dict(H=h, F=f, rows=rows,
+                       codes_identical=bool(torch.equal(xq.cpu(), xq_c[sl])),
+                       row_scales_identical=bool(torch.equal(xsc.cpu(), xs_c[sl])),
+                       acc_identical=bool(torch.equal(acc.cpu(), acc_c[sl])),
+                       out_identical=bool(torch.equal(got, want_c[sl])),
+                       row_measure=row_rel_err(got, want_c[sl]))
+            out.append(rec)
+            if not (rec["codes_identical"] and rec["row_scales_identical"]
+                    and rec["acc_identical"] and rec["row_measure"] <= DEQUANT_ROW_TOL):
+                raise RuntimeError(f"w8a8 on the card disagrees with the CPU: {rec}")
+        print(f"  w8a8 H={h:5d} F={f:6d}: codes, row scales and int32 accumulators "
+              f"bit-identical to the CPU at rows {W8A8_ROWS}; outputs row measure "
+              f"<= {max(r['row_measure'] for r in out[-len(W8A8_ROWS):]):.3g} (limit "
+              f"{DEQUANT_ROW_TOL:.4g}), bit-identical "
+              f"{all(r['out_identical'] for r in out[-len(W8A8_ROWS):])}; CPU plain "
+              f"version {cpu_s:.1f} s", flush=True)
+        del qt, xs, xq_c, xs_c, acc_c, want_c
+        torch.cuda.empty_cache()
+    return out
+
+
+def quant4_check():
+    """Phase (f), part 2: int4 and nf4 quantization of layer 0's seven
+    kernel shapes and the LM head's on the card and on the CPU from the
+    same bf16 weights: packed bytes, scales and the bf16 dequantized weight
+    bit for bit."""
+    from fedml_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(8765)
+    out = {}
+    for fmt in ("int4", "nf4"):
+        for name, (h, f) in LAYER0_KERNELS.items():
+            w = (torch.randn(h, f, device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+            q, q_c = quant.quantize_int4(w, fmt=fmt), quant.quantize_int4(w.cpu(), fmt=fmt)
+            same = (torch.equal(q.data.cpu(), q_c.data) and torch.equal(q.scale.cpu(), q_c.scale)
+                    and torch.equal(q.dequantize(torch.bfloat16).cpu(),
+                                    q_c.dequantize(torch.bfloat16)))
+            out[f"{fmt} {name}"] = same
+            if not same:
+                raise RuntimeError(f"{fmt} {name}: the card's bytes or dequantized "
+                                   f"weight differ from the CPU's")
+            del w, q, q_c
+        print(f"  {fmt}: packed bytes, scales and bf16 dequantized weights of layer 0's "
+              f"seven kernels and the LM head bit-identical on the card and the CPU",
+              flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def quant_pass_times(peak_bw: float, peak_flops: float, int8_results=None):
+    """Phase (f), part 3: one pass of the 225 projections at PASS_ROWS rows,
+    timed with CUDA events for w8a8, nf4 dequant + matmul, nf4 dequant alone
+    and bf16 ``torch.matmul``, beside the int8 dequant kernel's pass (phase
+    b) and each pass's bound: the larger of its bytes (the weights, x and
+    the output, each once) over the bandwidth and its products over the
+    type's peak (int8 on the tensor cores at twice the bf16 rate)."""
+    from fedml_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    per = []
+    for (h, f), count in SLICE_SHAPES.items():
+        w = torch.randn(h, f, device="cuda", generator=gen) * 0.02
+        n_copies = max(2, min(32, math.ceil(256e6 / (h * f))))  # beyond the 50 MB L2
+        w8 = quant.quantize_int8(w, mode="w8a8")
+        w4 = quant.quantize_int4(w, fmt="nf4")
+        wb = w.to(torch.bfloat16)
+        del w
+        w8s = [w8] + [quant.QuantizedTensor(w8.data.clone(), w8.scale.clone(), mode="w8a8")
+                      for _ in range(n_copies - 1)]
+        w4s = [w4] + [quant.QuantizedTensor4(w4.data.clone(), w4.scale.clone(), w4.shape,
+                                             fmt="nf4", block=w4.block)
+                      for _ in range(n_copies - 1)]
+        wbs = [wb] + [wb.clone() for _ in range(n_copies - 1)]
+        reps = 20 if h * f < 1e8 else 10
+        for rows in PASS_ROWS:
+            x = torch.randn(rows, h, device="cuda", generator=gen).to(torch.bfloat16)
+            with torch.inference_mode():
+                ms = {
+                    "w8a8": device_ms([lambda i=i: quant.matmul_maybe_quantized(
+                        x, w8s[i], torch.bfloat16) for i in range(n_copies)], reps),
+                    "nf4": device_ms([lambda i=i: quant.matmul_maybe_quantized(
+                        x, w4s[i], torch.bfloat16) for i in range(n_copies)], reps),
+                    "nf4_dequant": device_ms([lambda i=i: w4s[i].dequantize(torch.bfloat16)
+                                              for i in range(n_copies)], reps),
+                    "bf16": device_ms([lambda i=i: x @ wbs[i] for i in range(n_copies)], reps),
+                }
+            act = 2 * rows * (h + f)
+            flops = 2 * rows * h * f
+            bounds = {
+                "w8a8": max((h * f + 4 * f + act) / peak_bw, flops / (2 * peak_flops)),
+                "nf4": max((w4.data.numel() + 4 * w4.scale.numel() + act) / peak_bw,
+                           flops / peak_flops),
+                "nf4_dequant": (w4.data.numel() + 4 * w4.scale.numel() + 2 * h * f) / peak_bw,
+                "bf16": max((2 * h * f + act) / peak_bw, flops / peak_flops),
+            }
+            per.append(dict(H=h, F=f, rows=rows, count=count, ms=ms,
+                            bound_ms={k: v * 1e3 for k, v in bounds.items()}))
+        del w8s, w4s, wbs, w8, w4, wb
+        torch.cuda.empty_cache()
+    passes = {}
+    for rows in PASS_ROWS:
+        recs = [r for r in per if r["rows"] == rows]
+        p = {k: sum(r["count"] * r["ms"][k] for r in recs) for k in recs[0]["ms"]}
+        b = {k: sum(r["count"] * r["bound_ms"][k] for r in recs) for k in recs[0]["ms"]}
+        int8_ms = None if int8_results is None else step_sum(int8_results, "ms", rows)
+        int8_bound = None if int8_results is None else step_sum(int8_results, "bound_ms", rows)
+        passes[rows] = dict(ms=p, bound_ms=b, int8_kernel_ms=int8_ms,
+                            int8_kernel_bound_ms=int8_bound)
+        print(f"  one pass of {LAUNCHES_PER_PASS} projections at {rows} rows (ms, bound ms): "
+              + ", ".join(f"{k} {p[k]:.4f} ({b[k]:.4f})" for k in p)
+              + "; int8 dequant kernel (phase b) "
+              + ("not measured" if int8_ms is None else f"{int8_ms:.4f} ({int8_bound:.4f})"),
+              flush=True)
+    return dict(per_shape=per, passes=passes)
+
+
+def quant_serve(mode: str):
+    """Phase (f), part 4: Llama-3-8B served with ``--quantize mode``
+    through the ``serve`` entry point: QUANT_REQUESTS HTTP requests,
+    QUANT_CONCURRENT at a time, then steady decode at 8 slots; finite
+    logits of the vocab width; one short prompt's greedy tokens equal to
+    the plain lowering of the same quantized weights (w8a8: the exact int8
+    product in plain PyTorch; nf4: a bf16 model built from the dequantized
+    weights)."""
+    from fedml_tpu_torch.cli import build_endpoint, build_parser
+    from fedml_tpu_torch.ops import quant
+    from fedml_tpu_torch.serving import ContinuousBatchingEngine
+
+    args = build_parser().parse_args(
+        ["serve", "--model", "llama3_8b", "--quantize", mode, "--batch-slots", "8",
+         "--max-len", "512", "--host", "127.0.0.1", "--port", "0"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, runner = build_endpoint(args)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    model, cfg = engine.params, engine.cfg
+    served_bytes = quant.tree_bytes(model)
+    print(f"  {mode}: booted {args.model_size} in {boot_s:.1f} s: tree_bytes {served_bytes} "
+          f"({served_bytes / 1e9:.3f} GB), {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+          f"allocated", flush=True)
+    # every request's TTFT, unbucketed, as the engine hands it to the monitor
+    ttfts = []
+    record = runner.monitor.record_stream
+
+    def record_stream(ttft_ms, tpot_ms, tps):
+        ttfts.append(ttft_ms)
+        record(ttft_ms, tpot_ms, tps)
+
+    runner.monitor.record_stream = record_stream
+    rng = np.random.default_rng(1)
+    runner.start()
+    try:
+        lens = rng.integers(20, 121, size=QUANT_REQUESTS)
+        bodies = [{"prompt_tokens": rng.integers(0, cfg.vocab_size, size=int(n)).tolist(),
+                   "max_new_tokens": QUANT_NEW_TOKENS} for n in lens]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(QUANT_CONCURRENT) as pool:
+            resps = list(pool.map(lambda b: post(runner.port, b), bodies))
+        wall_s = time.perf_counter() - t0
+        for r in resps:
+            toks = r.get("tokens")
+            if (not isinstance(toks, list) or len(toks) != QUANT_NEW_TOKENS
+                    or not all(0 <= t < cfg.vocab_size for t in toks)):
+                raise RuntimeError(f"bad response: {r}")
+        deadline = time.time() + 5
+        while len(ttfts) < QUANT_REQUESTS and time.time() < deadline:
+            time.sleep(0.01)
+        http_ttfts = list(ttfts)
+        print(f"  {mode}: {QUANT_REQUESTS} requests ({QUANT_CONCURRENT} concurrent) in "
+              f"{wall_s:.2f} s; TTFT ms {[round(t, 2) for t in http_ttfts]}", flush=True)
+    finally:
+        runner.stop()
+        engine.stop()
+    if engine.failure is not None:
+        raise RuntimeError("serving engine failed") from engine.failure
+    step_s, dev_step_ms, busy = steady_decode(engine, rng)
+
+    # logits finite and of the vocab width, prefill and one decode step
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, 48))).cuda()
+    with torch.inference_mode():
+        caches = model.init_kv_caches(1, 64)
+        lp, caches = model(tokens, kv_caches=caches)
+        ld, _ = model(tokens[:, -1:], positions=torch.tensor([[48]], device="cuda"),
+                      kv_caches=caches)
+    if not all(torch.isfinite(t).all() and t.shape[-1] == cfg.vocab_size for t in (lp, ld)):
+        raise RuntimeError(f"{mode}: served logits are not finite / of the vocab width")
+    del caches, lp, ld
+
+    # one short prompt's greedy tokens against the plain lowering
+    prompt = rng.integers(0, cfg.vocab_size, size=24).tolist()
+
+    def greedy(eng):
+        eng.start()
+        try:
+            return eng.generate(prompt, max_new_tokens=QUANT_NEW_TOKENS)
+        finally:
+            eng.stop()
+
+    got = greedy(engine)
+    if mode == "w8a8":
+        product = quant.int8_product_cuda
+        quant.int8_product_cuda = quant.int8_product_reference
+        try:
+            want = greedy(engine)
+        finally:
+            quant.int8_product_cuda = product
+        plain = "the exact int8 product in plain PyTorch (float64)"
+    else:
+        bf16 = quant._shallow_module_copy(model)
+        for m in bf16.modules():
+            for k, v in list(vars(m).items()):
+                if isinstance(v, quant.QuantizedTensor4):
+                    delattr(m, k)
+                    m.register_parameter(k, torch.nn.Parameter(
+                        v.dequantize(torch.bfloat16), requires_grad=False))
+        want = greedy(ContinuousBatchingEngine(bf16, batch_slots=engine.n_slots,
+                                               max_len=engine.max_len))
+        plain = "a bf16 model of the dequantized weights"
+        del bf16
+    print(f"  {mode}: greedy tokens of a 24-token prompt {got[:8]}... equal to {plain}: "
+          f"{got == want}", flush=True)
+    if got != want:
+        raise RuntimeError(f"{mode}: greedy tokens {got} != the plain lowering's {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    return dict(mode=mode, boot_s=boot_s, tree_bytes=served_bytes, http_wall_s=wall_s,
+                ttft_ms=http_ttfts, decode_ms_per_step=step_s * 1e3,
+                tokens_per_s=engine.n_slots / step_s, device_ms_per_step=dev_step_ms,
+                device_busy_share=busy, greedy_tokens=got, greedy_equal_plain=got == want,
+                peak_gb=peak_gb)
+
+
+def quant_phase(peak_bw: float, peak_flops: float, int8_results=None):
+    """Phase (f): the quantized formats at Llama-3-8B's widths."""
+    out = dict(int_mm=int_mm_needs(), w8a8=w8a8_check(), quant4=quant4_check(),
+               passes=quant_pass_times(peak_bw, peak_flops, int8_results))
+    for mode in QUANT_SERVE_MODES:
+        out[f"serve_{mode}"] = quant_serve(mode)
+        gc.collect()  # this mode's engine and weights are gone
+        torch.cuda.empty_cache()
+    return out
+
+
+def qlora_phase(bf16_round):
+    """Phase (g): phase (e) over an nf4 base, set beside phase (e)'s round
+    (``bf16_round``), then one round over an int8 base."""
+    nf4 = train_phase(base_quantize="nf4")
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8 = train_phase(light=True, base_quantize="int8", comm_round=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  int8 base, one round: {int8['rounds'][0]['round_sec']:.3f} s (the first round, "
+          f"with first-call costs), peak memory {int8['peak_gb']:.3f} GB", flush=True)
+    rows = [("steady round s", "steady_round_s", "{:.3f}"),
+            ("tokens/s", "tokens_per_s", "{:.1f}"),
+            ("busy share", "device_busy_share", "{:.3f}"),
+            ("device ms a round", "device_ms_per_round", "{:.1f}"),
+            ("peak memory GB", "peak_gb", "{:.3f}")]
+    if bf16_round is not None:
+        print("  nf4 base beside phase (e)'s bf16 base, this run:", flush=True)
+        for label, key, fmt in rows:
+            a, b = nf4.get(key), bf16_round.get(key)
+            print(f"    {label}: nf4 " + ("not measured" if a is None else fmt.format(a))
+                  + " / bf16 " + ("not measured" if b is None else fmt.format(b)), flush=True)
+        for c in sorted(set(nf4["device_ms_by_class"]) | set(bf16_round["device_ms_by_class"])):
+            print(f"    {c}: nf4 {nf4['device_ms_by_class'].get(c, 0.0):.1f} ms / bf16 "
+                  f"{bf16_round['device_ms_by_class'].get(c, 0.0):.1f} ms", flush=True)
+        margin = bf16_round["peak_gb"] - nf4["peak_gb"]
+        if margin < QLORA_PEAK_MARGIN_GB:
+            raise RuntimeError(f"the nf4 round's peak {nf4['peak_gb']:.3f} GB is only "
+                               f"{margin:.3f} GB below the bf16 round's (need "
+                               f"{QLORA_PEAK_MARGIN_GB})")
+    return dict(nf4=nf4, int8=int8)
 
 
 def step_sum(results, key, rows=DECODE_ROWS):
@@ -987,7 +1405,7 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="bcde",
+    parser.add_argument("--phases", default="bcdefg",
                         help="phases to run after (a), e.g. 'd' for the flash kernels "
                              "alone (default: all; only a full run prints the kernels "
                              "and ok lines)")
@@ -1027,7 +1445,7 @@ def main(argv=None) -> int:
               f"{info.get('spill_stores')} / loads {info.get('spill_loads')} bytes, stack "
               f"{info.get('stack')} bytes", flush=True)
 
-    results = serve = flash = train = None
+    results = serve = flash = train = quantized = qlora = None
     parent_dequant = parent_fwd = None
     if opts.parent:
         t0 = time.perf_counter()
@@ -1048,10 +1466,21 @@ def main(argv=None) -> int:
     if "e" in phases:
         print("(e) federated LoRA rounds of llama3_8b through FedLLMAPI", flush=True)
         train = train_phase()
+        gc.collect()  # the bf16 round's model and optimizer are gone
+        torch.cuda.empty_cache()
+    if "f" in phases:
+        print("(f) quantized formats: w8a8 and 4-bit, then llama3_8b served with "
+              "--quantize w8a8 and nf4", flush=True)
+        quantized = quant_phase(peak_bw, peak_flops, results)
+    if "g" in phases:
+        print("(g) QLoRA rounds of llama3_8b through FedLLMAPI: nf4 base, then one "
+              "round over an int8 base", flush=True)
+        qlora = qlora_phase(train)
     os.makedirs("results", exist_ok=True)
     record = {"card": card, "torch": torch.__version__, "build_s": build_s, "ptxas": ptxas,
-              "shapes": results, "serve": serve, "flash": flash, "train": train}
-    if sorted(phases) != list("bcde"):
+              "shapes": results, "serve": serve, "flash": flash, "train": train,
+              "quantized": quantized, "qlora": qlora}
+    if sorted(phases) != list("bcdefg"):
         with open(os.path.join("results", "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
         print(f"phases {phases} passed (a partial run prints no kernels or ok line)")

@@ -6,9 +6,11 @@ anything of ``fedml_tpu``, and replaces every Pallas kernel on a ported
 path with a CUDA kernel written for ``sm_90a`` (``ops/csrc``).
 
 Ported so far: the int8 serving path (``models.llm.llama``,
-``ops.quant``, ``serving``) and federated LoRA fine-tuning with the
+``ops.quant``, ``serving``), federated LoRA fine-tuning with the
 on-device round (``train.llm``, ``ops.flash_attention``, ``data``,
-``simulation.sampling``). Entry points run on ``cuda`` unless the caller
+``simulation.sampling``), and the quantized formats: w8a8 and int4/nf4
+serving and QLoRA over an int8/int4/nf4 frozen base (``ops.quant``, the
+NF4 codebook in ``compression``). Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``.
 """
 from fedml_tpu_torch.device import resolve_device

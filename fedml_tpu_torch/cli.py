@@ -4,9 +4,11 @@ of ``fedml_tpu/cli.py``).
     python -m fedml_tpu_torch.cli serve --model llama3_8b --quantize int8
 
 boots a continuous-batching Llama endpoint on one CUDA device: weights
-are drawn on the device in bf16 from seed 0, quantized to int8 in place
-(the full-precision kernels are dropped as their int8 twins are built), and
-served over HTTP (``POST /predict``, ``GET /ready``, ``GET /metrics``).
+are drawn on the device in bf16 from seed 0, quantized in place (int8
+through the dequant-matmul kernel, ``w8a8`` int8 activations and weights,
+or packed ``int4``/``nf4``; the full-precision kernels are dropped as
+their quantized twins are built), and served over HTTP (``POST /predict``,
+``GET /ready``, ``GET /metrics``).
 Checkpoint loading, the live bridge, SLO flags and the OpenAI surface wait
 for later slices of the port.
 """
@@ -18,7 +20,8 @@ from typing import List, Optional
 
 import torch
 
-QUANTIZE_CHOICES = ("int8", "int8_pallas", "int8_dequant")
+QUANTIZE_CHOICES = ("int8", "int8_pallas", "int8_dequant", "w8a8", "int8_w8a8",
+                    "int4", "nf4")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,9 +37,11 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--max-len", type=int, default=512)
     serve.add_argument("--lora-rank", type=int, default=0)
     serve.add_argument("--quantize", default=None, choices=QUANTIZE_CHOICES,
-                       help="int8 weights; int8/int8_pallas run every ≤128-row "
+                       help="int8 weights: int8/int8_pallas run every ≤128-row "
                             "matmul through the CUDA dequant-matmul kernel, "
-                            "int8_dequant through plain PyTorch")
+                            "int8_dequant through plain PyTorch, w8a8/int8_w8a8 "
+                            "also quantize activations (int8 x int8 -> int32); "
+                            "int4/nf4 keep 4-bit packed weights")
     serve.add_argument("--device", default="cuda",
                        help="cuda (default) or cpu")
     return parser

@@ -4,10 +4,13 @@
 ``fedml_tpu``'s ``LlamaForCausalLM.init`` makes it, after unboxing and
 ``np.asarray`` on every leaf) into a flat ``{name: tensor}`` dict keyed by
 the port's parameter names. A quantized reference leaf is accepted as a
-``(data, scale)`` pair of numpy arrays (int8 codes and f32 scales) and
-becomes a :class:`~fedml_tpu_torch.ops.quant.QuantizedTensor`, so both
-frameworks can be fed identical codes. ``load_weights`` installs such a
-dict into a model.
+``(data, scale)`` pair of numpy arrays (int8 codes and f32 scales), which
+becomes a :class:`~fedml_tpu_torch.ops.quant.QuantizedTensor`, or as a
+``(data, scale, shape, fmt, block)`` tuple (packed uint8 4-bit codes, f32
+block scales and the geometry), which becomes a
+:class:`~fedml_tpu_torch.ops.quant.QuantizedTensor4`, so both frameworks
+can be fed identical codes. ``load_weights`` installs such a dict into a
+model.
 
 The federated exchange crosses between the frameworks as a flat dict keyed
 by the reference's flax path strings (``params/layer_0/attn/q_proj/lora_a``,
@@ -25,9 +28,13 @@ import torch
 from torch import nn
 
 from fedml_tpu_torch.device import DeviceLike
-from fedml_tpu_torch.ops.quant import QuantizedTensor
+from fedml_tpu_torch.ops.quant import (
+    QuantizedTensor,
+    QuantizedTensor4,
+    named_quantized_weights,
+)
 
-Weight = Union[torch.Tensor, QuantizedTensor]
+Weight = Union[torch.Tensor, QuantizedTensor, QuantizedTensor4]
 
 
 def _to_tensor(a: Any, device) -> torch.Tensor:
@@ -43,12 +50,17 @@ def _is_quant_pair(v: Any) -> bool:
             and np.asarray(v[0]).dtype == np.int8)
 
 
+def _is_quant4(v: Any) -> bool:
+    return (isinstance(v, tuple) and len(v) == 5
+            and np.asarray(v[0]).dtype == np.uint8)
+
+
 def from_jax_params(tree: Dict[str, Any],
                     device: DeviceLike = "cpu") -> Dict[str, Weight]:
     """Flatten a flax params tree into port parameter names
     (``params/layer_0/attn/q_proj/kernel`` → ``layer_0.attn.q_proj.kernel``).
-    Quantized leaves become kernel-mode QuantizedTensors (the reference's
-    ``pallas`` mode)."""
+    int8 pairs become kernel-mode QuantizedTensors (the reference's
+    ``pallas`` mode), 4-bit tuples QuantizedTensor4s."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     out: Dict[str, Weight] = {}
@@ -63,6 +75,11 @@ def from_jax_params(tree: Dict[str, Any],
                 out[name] = QuantizedTensor(_to_tensor(data, device),
                                             _to_tensor(scale, device),
                                             mode="kernel")
+            elif _is_quant4(val):
+                data, scale, shape, fmt, block = val
+                out[name] = QuantizedTensor4(_to_tensor(data, device),
+                                             _to_tensor(scale, device),
+                                             shape, fmt=fmt, block=block)
             else:
                 out[name] = _to_tensor(val, device)
 
@@ -73,10 +90,12 @@ def from_jax_params(tree: Dict[str, Any],
 def load_weights(model: nn.Module, weights: Dict[str, Weight]) -> nn.Module:
     """Install converted weights into ``model`` in place.
 
-    Every parameter of the model must be given. A tensor is copied into the
-    parameter (cast to the parameter's dtype); a QuantizedTensor replaces it.
+    Every parameter and quantized weight of the model must be given. A
+    tensor is copied into its parameter (cast to the parameter's dtype); a
+    quantized weight replaces the parameter or quantized weight of its name.
     """
-    names = {n for n, _ in model.named_parameters()}
+    quantized = {n for n, _ in named_quantized_weights(model)}
+    names = {n for n, _ in model.named_parameters()} | quantized
     missing = names - set(weights)
     extra = set(weights) - names
     if missing or extra:
@@ -84,13 +103,16 @@ def load_weights(model: nn.Module, weights: Dict[str, Weight]) -> nn.Module:
                        f"{sorted(missing)}, unexpected {sorted(extra)}")
     with torch.no_grad():
         for name, w in weights.items():
-            p = model.get_parameter(name)
-            if isinstance(w, QuantizedTensor):
+            if isinstance(w, (QuantizedTensor, QuantizedTensor4)):
                 owner_name, _, leaf = name.rpartition(".")
                 owner = model.get_submodule(owner_name) if owner_name else model
                 delattr(owner, leaf)
                 setattr(owner, leaf, w)
+            elif name in quantized:
+                raise ValueError(f"{name}: the model holds it quantized; give a "
+                                 f"quantized weight")
             else:
+                p = model.get_parameter(name)
                 if tuple(w.shape) != tuple(p.shape):
                     raise ValueError(f"{name}: shape {tuple(w.shape)} != "
                                      f"{tuple(p.shape)}")

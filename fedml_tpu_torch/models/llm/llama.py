@@ -207,8 +207,10 @@ class LoRADense(nn.Module):
     """Dense with an optional additive low-rank adapter:
     ``y = x W + (x A) B * alpha / rank``.
 
-    ``kernel`` is ``[in, out]`` in ``param_dtype`` (or a QuantizedTensor
-    after quantization); ``lora_a`` / ``lora_b`` stay f32.
+    ``kernel`` is ``[in, out]`` in ``param_dtype``, or after quantization
+    a ``QuantizedTensor`` (int8) or ``QuantizedTensor4`` (int4/nf4), which
+    ``matmul_maybe_quantized`` multiplies as a frozen weight;
+    ``lora_a`` / ``lora_b`` stay f32.
     """
 
     def __init__(self, in_features: int, features: int, rank: int,

@@ -19,6 +19,9 @@ import logging
 import threading
 from typing import Any, Callable, Optional
 
+from torch import nn
+
+from fedml_tpu_torch.ops.quant import _shallow_module_copy
 from fedml_tpu_torch.telemetry import get_registry
 
 logger = logging.getLogger(__name__)
@@ -77,8 +80,8 @@ class ModelSlots:
 
     The initial weights are a static deployment (round ``None``); the first
     :meth:`publish` makes it live. ``transform`` (optional) runs on every
-    staged model — the engine installs its int8 quantization here so
-    published weights land in the representation it serves.
+    staged model — the engine installs its quantization here so published
+    weights land in the representation it serves.
     """
 
     def __init__(self, params: Any,
@@ -131,10 +134,16 @@ class ModelSlots:
         """Make a published model ready to serve: run the transform.
 
         The transform may consume (donate) its input, so it runs on a copy
-        and the publisher's own model keeps its tensors.
+        and the publisher's own model keeps its tensors. A model's copy is
+        a new module tree sharing every tensor and quantized weight (a
+        donating transform only drops the copy's references, never the
+        tensors), so staging copies no weights; other payloads are copied
+        deeply.
         """
         if self.transform is None:
             return payload
+        if isinstance(payload, nn.Module):
+            return self.transform(_shallow_module_copy(payload))
         return self.transform(copy.deepcopy(payload))
 
     def publish(self, params: Any, round_idx: int) -> bool:

@@ -16,8 +16,11 @@ Greedy argmax runs on the device and only the ``[B]`` int32 tokens are
 read back. With ``quantize`` set to ``int8`` (or ``int8_pallas`` /
 ``pallas``) every projection and the LM head of a ≤128-row call go through
 the hand-written CUDA dequant-matmul; ``int8_dequant`` is the plain
-PyTorch lowering. The per-request ``req/*`` span tree waits for the
-telemetry item of the ROADMAP (A12).
+PyTorch lowering; ``w8a8`` (or ``int8_w8a8``) quantizes each activation
+row to int8 and multiplies int8 × int8 into int32 (``torch._int_mm`` on
+CUDA); ``int4`` and ``nf4`` keep the weights packed two codes a byte and
+dequantize each per call. The per-request ``req/*`` span tree waits for
+the telemetry item of the ROADMAP (A12).
 """
 from __future__ import annotations
 
@@ -33,13 +36,14 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.device import DeviceLike, resolve_device
-from fedml_tpu_torch.ops.quant import quantize_params_int8
+from fedml_tpu_torch.ops.quant import quantize_params_int4, quantize_params_int8
 from fedml_tpu_torch.serving.live.slots import ModelSlots, SlotLease
 from fedml_tpu_torch.telemetry import get_registry
 
 logger = logging.getLogger(__name__)
 
-_DEFERRED_QUANT = ("w8a8 and 4-bit serving are not ported yet (ROADMAP A6)")
+INT8_MODES = {"int8": "kernel", "int8_pallas": "kernel", "pallas": "kernel",
+              "int8_dequant": "dequant", "int8_w8a8": "w8a8", "w8a8": "w8a8"}
 
 
 class TokenStream(queue.Queue):
@@ -80,10 +84,12 @@ class ContinuousBatchingEngine:
     """Schedules generation requests onto a fixed slot pool.
 
     ``model`` is a ``LlamaForCausalLM`` holding its weights on ``device``.
-    With ``quantize`` set, ``quantize_donate=True`` quantizes that model in
-    place, dropping each full-precision kernel as its int8 twin is built —
-    the caller's model is then the served one. By default the engine serves
-    a quantized copy and the caller's model is untouched.
+    With ``quantize`` set (``int8``, ``int8_pallas``, ``pallas``,
+    ``int8_dequant``, ``w8a8``, ``int8_w8a8``, ``int4`` or ``nf4``),
+    ``quantize_donate=True`` quantizes that model in place, dropping each
+    full-precision kernel as its quantized twin is built — the caller's
+    model is then the served one. By default the engine serves a quantized
+    copy and the caller's model is untouched.
     """
 
     def __init__(
@@ -103,16 +109,20 @@ class ContinuousBatchingEngine:
         self.cfg = model.cfg
         param_transform = None
         min_size = int(quantize_min_size)
-        if quantize in ("int8", "int8_pallas", "pallas", "int8_dequant"):
-            mode = "dequant" if quantize.endswith("dequant") else "kernel"
+        if quantize in INT8_MODES:
+            mode = INT8_MODES[quantize]
             model = quantize_params_int8(model, mode=mode, min_size=min_size,
                                          donate=quantize_donate)
             # published generations land in the same int8 representation;
             # ModelSlots.stage hands the transform a private copy
             param_transform = lambda m: quantize_params_int8(  # noqa: E731
                 m, mode=mode, min_size=min_size, donate=True)
-        elif quantize in ("int8_w8a8", "w8a8", "int4", "nf4"):
-            raise NotImplementedError(_DEFERRED_QUANT)
+        elif quantize in ("int4", "nf4"):
+            fmt = quantize
+            model = quantize_params_int4(model, fmt=fmt, min_size=min_size,
+                                         donate=quantize_donate)
+            param_transform = lambda m: quantize_params_int4(  # noqa: E731
+                m, fmt=fmt, min_size=min_size, donate=True)
         elif quantize is not None:
             raise ValueError(f"unknown quantize mode: {quantize!r}")
         self.model_slots = ModelSlots(model, transform=param_transform)

@@ -2,6 +2,9 @@
 ``fedml_tpu/train/llm/configurations.py``: model selection is a
 ``LlamaConfig`` preset name, and the mesh sizes stay in the experiment
 group (the port runs on one device; ``LLMTrainer`` refuses other sizes).
+The model group also names the QLoRA base format (``base_quantize``:
+``int8``, ``int4``, ``nf4`` or empty), which ``LLMTrainer`` reads from the
+same flat args bag.
 """
 from __future__ import annotations
 
@@ -17,6 +20,9 @@ class ModelArguments:
     use_flash_attention: bool = True
     gradient_checkpointing: bool = True
     dtype: str = "bfloat16"
+    base_quantize: str = ""           # QLoRA frozen base: int8 / int4 / nf4
+    base_quantize_min_size: int = 65536
+    base_quantize_block: int = 64
 
 
 @dataclasses.dataclass

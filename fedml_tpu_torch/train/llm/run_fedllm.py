@@ -31,7 +31,9 @@ class FedLLMAPI:
     """Round loop: sample clients → local LoRA steps → weighted average.
 
     ``device`` defaults to ``"cuda"`` (``None`` means the same); pass
-    ``"cpu"`` to run on the CPU."""
+    ``"cpu"`` to run on the CPU. The trainer reads its settings from the
+    same flat ``args`` bag, QLoRA's ``base_quantize``,
+    ``base_quantize_min_size`` and ``base_quantize_block`` among them."""
 
     def __init__(self, args: Any, device: DeviceLike, dataset: FederatedDataset,
                  cfg: LlamaConfig = None):

@@ -12,15 +12,19 @@ eagerly on one card:
   out by hand (:class:`OptaxAdamW`) so that it matches optax step for step;
 - :meth:`LLMTrainer.compile_federated_round` runs a whole federated round
   (client-switch, local steps, weighted adapter FedAvg) with the semantics
-  of the reference's fused round.
+  of the reference's fused round;
+- QLoRA: ``base_quantize`` (``int8``, ``int4`` or ``nf4``) stores the frozen
+  base quantized (``ops/quant.py``); its products dequantize per call and
+  save no dequantized weight for backward.
 
 The exchange payload is the flat ``{reference path: tensor}`` dict of the
 adapters (``params/layer_0/attn/q_proj/lora_a``), the same keys the JAX
 trainer uses, so payloads cross between the two.
 
-Not ported yet: sharding over a mesh (ROADMAP A11), a quantized base
-(QLoRA, ROADMAP A6) and round checkpoints (ROADMAP A4: orbax does not
-exist on the card's machine and the port's format is not chosen yet).
+Not ported yet: sharding over a mesh (ROADMAP A11; with it the
+reference's sharding rebuild after quantizing the base) and round
+checkpoints (ROADMAP A4: orbax does not exist on the card's machine and the
+port's format is not chosen yet).
 """
 from __future__ import annotations
 
@@ -44,8 +48,10 @@ from fedml_tpu_torch.models.llm.llama import (
     LlamaForCausalLM,
     causal_lm_loss,
 )
+from fedml_tpu_torch.ops.quant import quantize_params_int4, quantize_params_int8
 
 MESH_ARGS = ("mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_sp")
+BASE_FORMATS = ("int8", "int4", "nf4")
 
 
 # -- trainable / exchange selection (keyed by the reference's path strings) --
@@ -174,6 +180,15 @@ class LLMTrainer:
     ``"cuda"``)."""
 
     def __init__(self, cfg: LlamaConfig, args: Any, device: DeviceLike = "cuda"):
+        # QLoRA: the frozen base stored quantized, per-channel int8 or
+        # blockwise 4-bit; it needs LoRA (only the adapters train)
+        self.base_quantize = str(getattr(args, "base_quantize", "") or "").lower()
+        if self.base_quantize and self.base_quantize not in BASE_FORMATS:
+            raise ValueError(f"base_quantize={self.base_quantize!r}: must be one "
+                             f"of 'int8', 'int4', 'nf4'")
+        if self.base_quantize and cfg.lora_rank <= 0:
+            raise ValueError("base_quantize requires lora_rank > 0 (QLoRA trains "
+                             "adapters over a frozen quantized base)")
         if cfg.lora_rank <= 0:
             raise NotImplementedError(
                 "the port fine-tunes LoRA adapters only; full-parameter "
@@ -185,12 +200,6 @@ class LLMTrainer:
         self.seq_len = int(getattr(args, "max_seq_length", 512))
         self.batch_size = int(getattr(args, "per_device_batch_size",
                                       getattr(args, "batch_size", 8)))
-        self.base_quantize = str(getattr(args, "base_quantize", "") or "").lower()
-        if self.base_quantize:
-            raise NotImplementedError(
-                f"base_quantize={self.base_quantize!r}: a quantized frozen base "
-                f"(QLoRA) is not ported yet (ROADMAP A6)")
-
         lr = float(getattr(args, "learning_rate", 1e-4))
         warmup = int(getattr(args, "warmup_steps", 0))
         max_steps = int(getattr(args, "max_steps", 1000))
@@ -218,8 +227,11 @@ class LLMTrainer:
     # -- init -------------------------------------------------------------
     def init(self, seed: int = 0) -> LlamaForCausalLM:
         """Build the model on the trainer's device with weights drawn from
-        ``seed``; only the trainable tensors require grad."""
+        ``seed`` (the base quantized in place under ``base_quantize``); only
+        the trainable tensors require grad."""
         self.model = LlamaForCausalLM(self.cfg, device=self.device, seed=seed)
+        if self.base_quantize:
+            self._quantize_base()
         self._trainable = extract_trainable(self.model)
         for p in self.model.parameters():
             p.requires_grad_(False)
@@ -227,6 +239,19 @@ class LLMTrainer:
             p.requires_grad_(True)
         self.opt_state = self.tx.init(self._trainable)
         return self.model
+
+    def _quantize_base(self) -> None:
+        """Quantize the base kernels in place, each full-precision kernel
+        dropped as its twin lands: int8 in ``dequant`` mode, as the
+        reference, or 4-bit."""
+        min_size = int(getattr(self.args, "base_quantize_min_size", 65536))
+        if self.base_quantize in ("int4", "nf4"):
+            quantize_params_int4(
+                self.model, fmt=self.base_quantize, donate=True, min_size=min_size,
+                block=int(getattr(self.args, "base_quantize_block", 64)))
+        else:
+            quantize_params_int8(self.model, mode="dequant", donate=True,
+                                 min_size=min_size)
 
     # -- stepping ---------------------------------------------------------
     def _tokens(self, a) -> torch.Tensor:

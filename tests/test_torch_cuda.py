@@ -244,3 +244,85 @@ def test_dequant_kernel_is_bit_identical_on_cuda(rows):
     shifted = q.view(-1)[8:8 + 128 * 4096].view(128, 4096)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tq.dequant_matmul_cuda(x[:, :128].contiguous(), shifted, scale)
+
+
+# -- quantized formats: w8a8 and 4-bit on the card against the CPU ----------
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("h,f", [(4096, 1024), (14336, 4096)])
+@pytest.mark.parametrize("rows", [1, 8, 16, 17, 128])
+def test_w8a8_matches_cpu_plain_version_on_cuda(rows, h, f):
+    """w8a8 through ``torch._int_mm`` (fewer than 32 rows padded) against
+    the same formula on the CPU: activation codes and int32 accumulators
+    bit for bit, outputs row by row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch._int_mm's CUDA path")
+    from chip_smoke import DEQUANT_ROW_TOL, row_rel_err
+
+    gen = torch.Generator(device="cuda").manual_seed(rows + h)
+    qt = tq.quantize_int8(torch.randn(h, f, device="cuda", generator=gen), mode="w8a8")
+    assert qt.data.stride() == (1, h)
+    x = torch.randn(rows, h, device="cuda", generator=gen).to(torch.bfloat16)
+    xq, xs = tq.quantize_rows_int8(x)
+    xq_c, xs_c = tq.quantize_rows_int8(x.cpu())
+    assert torch.equal(xq.cpu(), xq_c) and torch.equal(xs.cpu(), xs_c)
+    acc = tq.int8_product(xq, qt.data)
+    acc_c = tq.int8_product(xq_c, qt.data.cpu())
+    assert acc.shape == (rows, f) and acc.dtype == torch.int32
+    assert torch.equal(acc.cpu(), acc_c)
+    got = qt.matmul(x, torch.bfloat16)
+    want = tq.w8a8_matmul(x.cpu(), qt.data.cpu(), qt.scale.cpu(), torch.bfloat16)
+    assert row_rel_err(got.cpu(), want) <= DEQUANT_ROW_TOL
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("fmt", ["int4", "nf4"])
+@pytest.mark.parametrize("h,f", [(4096, 1024), (14336, 4096)])
+def test_4bit_quantize_and_dequant_bit_identical_to_cpu_on_cuda(fmt, h, f):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(h + f)
+    w = (torch.randn(h, f, device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+    q = tq.quantize_int4(w, fmt=fmt)
+    q_c = tq.quantize_int4(w.cpu(), fmt=fmt)
+    assert torch.equal(q.data.cpu(), q_c.data) and torch.equal(q.scale.cpu(), q_c.scale)
+    for dtype in (torch.bfloat16, torch.float32):
+        assert torch.equal(q.dequantize(dtype).cpu(), q_c.dequantize(dtype))
+    x = torch.randn(8, h, device="cuda", generator=gen).to(torch.bfloat16)
+    got = tq.matmul_maybe_quantized(x, q, torch.bfloat16)
+    assert torch.equal(got, x @ q.dequantize(torch.bfloat16))
+
+
+@pytest.mark.requires_cuda
+def test_qlora_nf4_round_trains_through_the_kernels_on_cuda():
+    """A tiny QLoRA round on the card: nf4 base, bf16, head_dim 64; the
+    flash kernels run on every layer, the packed base stays bit-frozen and
+    the adapters move."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from fedml_tpu_torch.data.data_loader import load_synthetic_lm
+    from fedml_tpu_torch.models.llm.llama import LlamaConfig
+    from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
+
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512, num_attention_heads=4,
+                           num_key_value_heads=2, lora_rank=4)
+    args = types.SimpleNamespace(
+        max_seq_length=100, vocab_size=cfg.vocab_size, train_size=16, test_size=2,
+        client_num_in_total=4, client_num_per_round=2, local_steps_per_round=2,
+        comm_round=1, per_device_batch_size=2, on_device_round=True, random_seed=0,
+        learning_rate=1e-3, base_quantize="nf4", base_quantize_min_size=4096)
+    api = FedLLMAPI(args, None, load_synthetic_lm(args), cfg=cfg)
+    model = api.client.engine.model
+    packed = [v for m in model.modules() for v in vars(m).values()
+              if isinstance(v, tq.QuantizedTensor4)]
+    assert len(packed) == 2 * 7 + 1 and packed[0].data.device.type == "cuda"
+    before = [q.data.clone() for q in packed]
+    lora0 = {k: v.clone() for k, v in api.global_exchange.items()}
+    tfa.FLASH_FWD_LAUNCHES = tfa.FLASH_DQ_LAUNCHES = tfa.FLASH_DKV_LAUNCHES = 0
+    out = api.train()
+    layers, steps = cfg.num_hidden_layers, 2 * 2
+    assert (tfa.FLASH_FWD_LAUNCHES, tfa.FLASH_DQ_LAUNCHES, tfa.FLASH_DKV_LAUNCHES) == (
+        layers * (steps + 1), layers * steps, layers * steps)
+    assert torch.isfinite(torch.tensor(out["test_loss"]))
+    assert all(torch.equal(q.data, b) for q, b in zip(packed, before))
+    assert any(not torch.equal(api.global_exchange[k], v) for k, v in lora0.items())

@@ -49,9 +49,14 @@ def test_port_modules_import_with_jax_blocked():
     "fedml_tpu_torch.data.dataset",
     "fedml_tpu_torch.data.data_loader",
     "fedml_tpu_torch.simulation.sampling",
+    "fedml_tpu_torch.compression",
+    "fedml_tpu_torch.compression.codecs",
+    "fedml_tpu_torch.ops.quant",
 ])
 def test_training_slice_modules_are_scanned(module):
-    """The training slice's modules are among those both scans cover."""
+    """The training slice's modules, and the quantized formats' (the NF4
+    codebook's own copy in ``compression``), are among those both scans
+    cover."""
     assert module in PORT_MODULES
 
 

@@ -166,11 +166,15 @@ def test_kernel_wrapper_routes_by_device_and_counts_only_launches():
 
 
 def test_deferred_formats_raise_not_implemented():
-    w = torch.zeros(4, 4, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tq.QuantizedTensor(w, torch.ones(4), mode="w8a8")
+    """The w8a8 mode, deferred until the quantized formats landed, now
+    constructs (its codes stored column-major, the same values); the
+    reference's own name for the kernel mode still raises."""
+    w = torch.arange(32, dtype=torch.int8).reshape(4, 8)
+    qt = tq.QuantizedTensor(w, torch.ones(8), mode="w8a8")
+    assert qt.mode == "w8a8" and qt.data.stride() == (1, 4)
+    assert torch.equal(qt.data, w)
     with pytest.raises(ValueError):
-        tq.QuantizedTensor(w, torch.ones(4), mode="pallas")
+        tq.QuantizedTensor(w, torch.ones(8), mode="pallas")
 
 
 def test_build_names_sm90a_and_source_hash(tmp_path, monkeypatch):

@@ -63,7 +63,7 @@ def _drive(eng, prompts, max_new):
     return streams, list(eng.oplog)
 
 
-@pytest.mark.parametrize("quantize", [None, "int8_dequant"])
+@pytest.mark.parametrize("quantize", [None, "int8_dequant", "w8a8", "int8_w8a8", "int4", "nf4"])
 def test_greedy_streams_identical_to_reference_engine(shared_tiny, quantize):
     jm, params, tm = shared_tiny
     rng = np.random.default_rng(1)
@@ -78,7 +78,11 @@ def test_greedy_streams_identical_to_reference_engine(shared_tiny, quantize):
     assert got_ops == want_ops  # same prefill buckets, same decode batches
     assert all(len(s) == 7 for s in got)
     if quantize:  # the engine served a quantized copy; the caller's model is intact
-        assert isinstance(eng.params.layer_0.mlp.gate_proj.kernel, tq.QuantizedTensor)
+        served = eng.params.layer_0.mlp.gate_proj.kernel
+        if quantize in ("int4", "nf4"):
+            assert isinstance(served, tq.QuantizedTensor4) and served.fmt == quantize
+        else:
+            assert served.mode == ("w8a8" if quantize.endswith("w8a8") else "dequant")
         assert isinstance(tm.layer_0.mlp.gate_proj.kernel, torch.nn.Parameter)
 
 
@@ -95,8 +99,9 @@ def test_engine_thread_serves_and_rejects_bad_modes(shared_tiny):
     assert eng.failure is None
     with pytest.raises(ValueError):
         ContinuousBatchingEngine(tm, quantize="int3", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        ContinuousBatchingEngine(tm, quantize="nf4", device="cpu")
+    nf4 = ContinuousBatchingEngine(tm, quantize="nf4", quantize_min_size=1024,
+                                   device="cpu")  # the 4-bit modes construct
+    assert isinstance(nf4.params.lm_head, tq.QuantizedTensor4)
     with pytest.raises(ValueError):
         eng.submit([1] * 30, max_new_tokens=8)
 
@@ -242,5 +247,7 @@ def test_cli_serve_builds_a_cpu_endpoint():
     finally:
         runner.stop()
         engine.stop()
+    for mode in ("w8a8", "int8_w8a8", "int4", "nf4"):
+        assert build_parser().parse_args(["serve", "--quantize", mode]).quantize == mode
     with pytest.raises(SystemExit):
-        build_parser().parse_args(["serve", "--quantize", "int4"])
+        build_parser().parse_args(["serve", "--quantize", "int3"])

@@ -393,8 +393,10 @@ def test_entry_points_default_to_cuda_and_deferred_paths_raise(monkeypatch):
 
     with pytest.raises(NotImplementedError, match="A10"):
         FedLLMAPI(_data_args(on_device_round=False), "cpu", ds, cfg=cfg)
-    with pytest.raises(NotImplementedError, match="A6"):
-        ttrainer.LLMTrainer(cfg, _data_args(base_quantize="int8"), device="cpu")
+    with pytest.raises(ValueError, match="base_quantize"):
+        ttrainer.LLMTrainer(cfg, _data_args(base_quantize="int3"), device="cpu")
+    assert ttrainer.LLMTrainer(cfg, _data_args(base_quantize="int8"),
+                               device="cpu").base_quantize == "int8"
     with pytest.raises(NotImplementedError, match="A11"):
         ttrainer.LLMTrainer(cfg, _data_args(mesh_fsdp=4), device="cpu")
     with pytest.raises(NotImplementedError, match="A4"):
