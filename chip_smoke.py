@@ -63,12 +63,26 @@ the final ``ok`` line:
     ``quant/base_bytes`` gauge equal to the packed bytes, its round time,
     tokens/s, busy share, device time by class and peak memory beside
     phase (e)'s (the peak at least 5 GB lower); then one round over an int8
-    base.
+    base;
+(h) the single-process FedAvg simulation through ``create_simulator``:
+    ResNet-18 (GroupNorm, 2 groups) at full width on ``load_cifar10``'s
+    stand-in at CIFAR-10's size (50,000 + 10,000 images of 32×32×3), 10 of
+    10 hetero clients (α 0.5), batch 32, one epoch of SGD at lr 0.1, int8
+    uplinks with error feedback, 3 rounds with a test each; it fails unless
+    one client's 4 steps from the run's final weights on the card agree
+    with the CPU's and with a float64 run, ``fused_weighted_sum`` on the card is
+    within 1e-6 of decoding each upload and summing, the int8 and nf4 wire
+    bytes of the run's delta are identical on the card and the CPU, the
+    test loss falls from round 0 to round 2 and every round's parameters
+    are finite and on the card; it prints each round's seconds, test loss
+    and accuracy, encode and fused-aggregation ms, the steady round's
+    training samples/s, the busy share of 20 profiled local steps, the
+    peak memory and the uplink bytes against f32.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with code 2 and prints no result. The full per-shape results also go to
-``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefg``) runs
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefgh``) runs
 (a) and the phases named, and prints no kernels or ok line (phase g sets
 its round beside phase e's only when both run). ``--parent DIR`` builds the dequant and flash-forward kernels of
 another checkout (DIR, e.g. the parent commit unpacked by ``git archive``)
@@ -165,6 +179,41 @@ LAYER0_KERNELS = {
 # Phase (g): the QLoRA round's peak memory must sit at least this far below
 # the bf16 round's (linear weights 15.0 GB in bf16, 4.22 GB in nf4)
 QLORA_PEAK_MARGIN_GB = 5.0
+
+# Phase (h): the single-process FedAvg simulation (ROADMAP A8 + A9):
+# ResNet-18 with GroupNorm (2 groups) at full width on load_cifar10's
+# stand-in at CIFAR-10's size (50,000 train and 10,000 test images of
+# 32x32x3, 10 classes), 10 of 10 clients (hetero, alpha 0.5), batch 32, one
+# local epoch of SGD at lr 0.1 (fedml_tpu/config/cross_silo/fedml_config.yaml),
+# int8 uplinks with error feedback, 3 rounds with a test after each. The
+# simulation runs convolutions and matmuls in full FP32 (TF32 off: the
+# port's default for it). From the run's final weights one client's
+# SP_CPU_STEPS steps run on the card, on the CPU and in float64 on the card;
+# the card's float32 result must lie within SP_PARAM_TOL of each leaf's
+# largest magnitude (floored at 1) of both. Four SGD steps at lr 0.1 on this
+# unnormalized stand-in amplify rounding ~1e4-fold: on an H100's host CPU
+# float32 landed 3.6e-4 to 7.0e-4 from float64 from trained weights, and
+# 4.9e-3 from the initial ones, where the first step lifts the loss from
+# ~3.4 to ~20; the stand-in differs per process (``hash`` in its seed), so
+# the factor does too. TF32 rounds each product's inputs 8192 times coarser
+# (2^-11 against 2^-24), which this amplification would carry to the
+# weights' own scale: 1e-2 sits well above float32's spread and far below
+# TF32's or a wrong kernel's.
+SP_CONFIG = {
+    "common_args": {"training_type": "simulation", "random_seed": 0},
+    "data_args": {"dataset": "cifar10", "train_size": 50_000, "test_size": 10_000,
+                  "partition_method": "hetero", "partition_alpha": 0.5},
+    "model_args": {"model": "resnet18", "group_norm_channels": 2},
+    "train_args": {"federated_optimizer": "FedAvg", "client_num_in_total": 10,
+                   "client_num_per_round": 10, "comm_round": 3, "epochs": 1,
+                   "batch_size": 32, "learning_rate": 0.1, "compression": "int8",
+                   "frequency_of_the_test": 1},
+}
+SP_CPU_STEPS = 4
+SP_PARAM_TOL = 1e-2
+SP_FUSED_REL_TOL = 1e-6
+SP_PROFILE_STEPS = 20
+SP_CODECS = ("int8", "nf4")
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s and bf16 FLOP/s.
 PEAKS = (
@@ -1392,6 +1441,209 @@ def qlora_phase(bf16_round):
     return dict(nf4=nf4, int8=int8)
 
 
+def sp_kernel_class(name: str) -> str:
+    low = name.lower()
+    if any(t in low for t in ("fprop", "dgrad", "wgrad", "conv", "cudnn", "implicit")):
+        return "convolution (cuDNN)"
+    if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "matmul", "nvjet")):
+        return "matmul (cuBLAS)"
+    return "other (elementwise: GroupNorm, ReLU, CE, optimizer, codecs)"
+
+
+def _same_wire(a, b) -> bool:
+    return all(x.dtype == y.dtype and x.shape == y.shape
+               and torch.equal(x.cpu(), y.cpu())
+               for pa, pb in zip(a.arrays, b.arrays) for x, y in zip(pa, pb))
+
+
+def sp_phase(card: str):
+    """Phase (h): the sp FedAvg simulation of ResNet-18 with int8 uplinks
+    through ``create_simulator`` on the card, with its checks (see the
+    module doc)."""
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.compression import derive_key, fused_weighted_sum, get_codec
+    from fedml_tpu_torch.compression import tree_delta
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.ml.aggregator import agg_operator
+    from fedml_tpu_torch.ml.trainer.classification_trainer import ClassificationTrainer
+    from fedml_tpu_torch.models.convert import to_reference_layout
+    from fedml_tpu_torch.models.model_hub import create
+    from fedml_tpu_torch.simulation.simulator import create_simulator
+
+    args = load_arguments_from_dict(SP_CONFIG)
+    t0 = time.perf_counter()
+    ds = load_federated(args)
+    data_s = time.perf_counter() - t0
+    model = create(args, ds.class_num)
+    torch.cuda.reset_peak_memory_stats()
+    sim = create_simulator(args, "cuda", ds, model)
+    api = sim.fl_trainer
+    params0 = {k: v.clone() for k, v in api.global_params.items()}
+    n_params = sum(v.numel() for v in params0.values())
+    sizes = [ds.train_data_local_num_dict[c] for c in range(args.client_num_in_total)]
+    print(f"  {card}: resnet18 (GroupNorm, 2 groups), {n_params} parameters in "
+          f"{len(params0)} leaves; cifar10 stand-in {ds.train_data_num} train / "
+          f"{ds.test_data_num} test images of {ds.train_data_global[0].shape[1:]} made "
+          f"in {data_s:.1f} s; client sizes {sizes}", flush=True)
+
+    # the main path: create_simulator(...).run(), round by round
+    rounds, uplinks = [], {}
+    inner_round = api.train_one_round
+    orig_agg = agg_operator.FedMLAggOperator.agg_compressed
+
+    def capture(args_, raw_list, global_params, **kw):
+        uplinks["pairs"], uplinks["global"] = raw_list, global_params
+        return orig_agg(args_, raw_list, global_params, **kw)
+
+    def recorded(r):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = inner_round(r)
+        torch.cuda.synchronize()
+        rep["round_sec"] = time.perf_counter() - t0
+        rep["on_cuda"] = all(v.is_cuda for v in api.global_params.values())
+        rep["finite"] = all(bool(torch.isfinite(v).all()) for v in api.global_params.values())
+        rounds.append(rep)
+        print(f"  {card}: round {r}: {rep['round_sec']:.3f} s, test loss "
+              f"{rep['test_loss']:.5f}, test acc {rep['test_acc']:.4f}, encode "
+              f"{rep['encode_ms']:.2f} ms, fused aggregation {rep['aggregate_ms']:.2f} ms, "
+              f"params on cuda {rep['on_cuda']}", flush=True)
+        return rep
+
+    api.train_one_round = recorded
+    agg_operator.FedMLAggOperator.agg_compressed = staticmethod(capture)
+    try:
+        summary = sim.run()
+    finally:
+        agg_operator.FedMLAggOperator.agg_compressed = staticmethod(orig_agg)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(r["on_cuda"] and r["finite"] for r in rounds):
+        raise RuntimeError("a round's parameters left the card or are not finite")
+    losses = [r["test_loss"] for r in rounds]
+    if not (len(rounds) == args.comm_round and losses[-1] < losses[0]):
+        raise RuntimeError(f"the test loss did not fall from round 0: {losses}")
+
+    # card against CPU: the largest client's first SP_CPU_STEPS batches,
+    # from the run's final weights; and in float64 on the card
+    x, y = ds.train_data_local_dict[int(np.argmax(sizes))]
+    final = {k: v.clone() for k, v in api.global_params.items()}
+    n = SP_CPU_STEPS * args.batch_size
+    trained = {}
+    for dev, dt in (("cpu", torch.float32), ("cuda", torch.float32),
+                    ("cuda", torch.float64)):
+        tr = ClassificationTrainer(model, args)
+        tr.set_pad_to_batches(SP_CPU_STEPS)
+        t0 = time.perf_counter()
+        w, m = tr.train({k: v.to(dev, dt) for k, v in final.items()}, (x[:n], y[:n]),
+                        dev, args)
+        trained[dev, dt] = ({k: v.cpu().double() for k, v in w.items()}, m,
+                            time.perf_counter() - t0)
+
+    def leaf_err(a, b):
+        return max(float((a[k] - v).abs().max()) / max(1.0, float(v.abs().max()))
+                   for k, v in b.items())
+
+    exact = trained["cuda", torch.float64][0]
+    card32, cpu32 = trained["cuda", torch.float32][0], trained["cpu", torch.float32][0]
+    card_vs_cpu, card_vs_64, cpu_vs_64 = (leaf_err(card32, cpu32), leaf_err(card32, exact),
+                                          leaf_err(cpu32, exact))
+    moved = max(float((cpu32[k] - final[k].cpu()).abs().max()) for k in final)
+    print(f"  one client from the final weights, {SP_CPU_STEPS} steps of batch "
+          f"{args.batch_size} (FP32, TF32 off), "
+          f"worst leaf of its magnitude: card vs CPU {card_vs_cpu:.3g} (limit "
+          f"{SP_PARAM_TOL}); against float64: card {card_vs_64:.3g} (limit "
+          f"{SP_PARAM_TOL}), CPU {cpu_vs_64:.3g}; train loss "
+          + ", ".join(f"{d} {t}: {r[1]['train_loss']:.6f} in {r[2]:.2f} s"
+                      for (d, t), r in trained.items())
+          + f"; the steps moved the weights by up to {moved:.3g}", flush=True)
+    if not (card_vs_cpu <= SP_PARAM_TOL and card_vs_64 <= SP_PARAM_TOL and moved > 0):
+        raise RuntimeError(f"the card's local steps disagree with the CPU's: "
+                           f"{card_vs_cpu}, {card_vs_64} vs {cpu_vs_64}")
+
+    # the fused sum of the last round's uploads against decode-then-sum
+    pairs = uplinks["pairs"]
+    cts = [ct for _, ct in pairs]
+    w = agg_operator.FedMLAggOperator._weights(args, pairs)
+    fused = fused_weighted_sum(cts, w)
+    codec = get_codec(args.compression)
+    decoded = [codec.decode(ct) for ct in cts]
+    fused_err = 0.0
+    for k, v in fused.items():
+        ref = sum(float(wi) * d[k].double() for wi, d in zip(w, decoded))
+        scale = float(ref.abs().max())
+        err = float((v.double() - ref).abs().max())
+        fused_err = max(fused_err, err / scale if scale else err)
+    print(f"  fused_weighted_sum of round {args.comm_round - 1}'s {len(cts)} int8 uploads "
+          f"on the card vs decode-and-sum in float64: worst leaf {fused_err:.3g} of its "
+          f"magnitude (limit {SP_FUSED_REL_TOL})", flush=True)
+    if not fused_err <= SP_FUSED_REL_TOL:
+        raise RuntimeError(f"fused_weighted_sum disagrees with decode-and-sum: {fused_err}")
+
+    # codec bits: the run's delta under the same key, on the card and the CPU
+    delta = to_reference_layout(tree_delta(api.global_params, params0))
+    delta_cpu = {k: v.cpu() for k, v in delta.items()}
+    key = derive_key(args.random_seed, 0, 0)
+    codec_ok = {}
+    for spec in SP_CODECS:
+        c = get_codec(spec)
+        codec_ok[spec] = _same_wire(c.encode(delta, key=key, is_delta=True),
+                                    c.encode(delta_cpu, key=key, is_delta=True))
+    print(f"  codec bits, the run's {n_params}-element delta under derive_key(0, 0, 0), "
+          f"card vs CPU: " + ", ".join(f"{k} {'identical' if v else 'DIFFER'}"
+                                       for k, v in codec_ok.items()), flush=True)
+    if not all(codec_ok.values()):
+        raise RuntimeError(f"codec wire bytes differ between the card and the CPU: {codec_ok}")
+
+    # busy share of local training, the bulk of a round: SP_PROFILE_STEPS
+    # steps of the largest client from the final weights, profiled, over the
+    # unprofiled wall of the same window (a whole round is ~1.2 M kernels,
+    # too many to profile inside the script's time limit)
+    tr = ClassificationTrainer(model, args)
+    tr.set_pad_to_batches(SP_PROFILE_STEPS)
+    window = (x[:SP_PROFILE_STEPS * args.batch_size], y[:SP_PROFILE_STEPS * args.batch_size])
+    tr.train(api.global_params, window, "cuda", args)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train(api.global_params, window, "cuda", args)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.train(api.global_params, window, "cuda", args)
+        torch.cuda.synchronize()
+    by_class = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            c = sp_kernel_class(e.key)
+            by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total / 1e3
+    dev_ms = sum(by_class.values())
+    busy = dev_ms / (window_s * 1e3) if dev_ms else None
+    steady = rounds[-1]["round_sec"]
+    samples = ds.train_data_num
+    raw_bytes = 4 * n_params
+    wire = rounds[-1]["uplink_bytes"]
+    print(f"  {card}: steady round {steady:.3f} s (with its test) = "
+          f"{samples / steady:.1f} training samples/s; {SP_PROFILE_STEPS} local steps: "
+          f"{window_s * 1e3:.1f} ms wall, device time "
+          + ("not measured" if busy is None else
+             f"{dev_ms:.1f} ms (profiler), busy share {busy:.3f}")
+          + f"; peak memory {peak_gb:.3f} GB; encode {rounds[-1]['encode_ms']:.2f} ms and "
+          f"fused aggregation {rounds[-1]['aggregate_ms']:.2f} ms a round; uplink "
+          f"{sum(wire) / len(wire):.0f} B a client (int8) vs {raw_bytes} B (f32), "
+          f"{raw_bytes * len(wire) / sum(wire):.3f}x", flush=True)
+    for c, v in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"    {c}: {v:.1f} ms", flush=True)
+    return dict(rounds=[{k: v for k, v in r.items() if k != "clients"} for r in rounds],
+                summary={k: v for k, v in summary.items() if isinstance(v, (int, float))},
+                n_params=n_params, client_sizes=sizes, card_vs_cpu_err=card_vs_cpu,
+                card_vs_float64_err=card_vs_64, cpu_vs_float64_err=cpu_vs_64,
+                fused_rel_err=fused_err, codec_bits_identical=codec_ok,
+                steady_round_s=steady, samples_per_s=samples / steady,
+                profiled_steps=SP_PROFILE_STEPS, profiled_wall_ms=window_s * 1e3,
+                profiled_device_ms=dev_ms, device_busy_share=busy,
+                device_ms_by_class=by_class, peak_gb=peak_gb,
+                uplink_bytes_per_client=sum(wire) / len(wire), f32_bytes=raw_bytes)
+
+
 def step_sum(results, key, rows=DECODE_ROWS):
     """One pass's total over its 225 launches at ``rows`` rows (None where
     a time was not measured)."""
@@ -1405,7 +1657,7 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="bcdefg",
+    parser.add_argument("--phases", default="bcdefgh",
                         help="phases to run after (a), e.g. 'd' for the flash kernels "
                              "alone (default: all; only a full run prints the kernels "
                              "and ok lines)")
@@ -1445,7 +1697,7 @@ def main(argv=None) -> int:
               f"{info.get('spill_stores')} / loads {info.get('spill_loads')} bytes, stack "
               f"{info.get('stack')} bytes", flush=True)
 
-    results = serve = flash = train = quantized = qlora = None
+    results = serve = flash = train = quantized = qlora = sp = None
     parent_dequant = parent_fwd = None
     if opts.parent:
         t0 = time.perf_counter()
@@ -1476,11 +1728,17 @@ def main(argv=None) -> int:
         print("(g) QLoRA rounds of llama3_8b through FedLLMAPI: nf4 base, then one "
               "round over an int8 base", flush=True)
         qlora = qlora_phase(train)
+        gc.collect()  # the QLoRA rounds' weights are gone
+        torch.cuda.empty_cache()
+    if "h" in phases:
+        print("(h) the sp FedAvg simulation: resnet18 on the cifar10 stand-in, int8 "
+              "uplinks", flush=True)
+        sp = sp_phase(card)
     os.makedirs("results", exist_ok=True)
     record = {"card": card, "torch": torch.__version__, "build_s": build_s, "ptxas": ptxas,
               "shapes": results, "serve": serve, "flash": flash, "train": train,
-              "quantized": quantized, "qlora": qlora}
-    if sorted(phases) != list("bcdefg"):
+              "quantized": quantized, "qlora": qlora, "sp": sp}
+    if sorted(phases) != list("bcdefgh"):
         with open(os.path.join("results", "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
         print(f"phases {phases} passed (a partial run prints no kernels or ok line)")

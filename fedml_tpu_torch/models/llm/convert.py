@@ -93,8 +93,13 @@ def load_weights(model: nn.Module, weights: Dict[str, Weight]) -> nn.Module:
     Every parameter and quantized weight of the model must be given. A
     tensor is copied into its parameter (cast to the parameter's dtype); a
     quantized weight replaces the parameter or quantized weight of its name.
+    An int8 weight that replaces one of the model's int8 weights is rebuilt
+    in that weight's mode (through the constructor, so a ``w8a8`` weight
+    gets its column-major codes); one that replaces a plain parameter keeps
+    its own mode (``kernel`` from :func:`from_jax_params`).
     """
-    quantized = {n for n, _ in named_quantized_weights(model)}
+    held = dict(named_quantized_weights(model))
+    quantized = set(held)
     names = {n for n, _ in model.named_parameters()} | quantized
     missing = names - set(weights)
     extra = set(weights) - names
@@ -104,6 +109,9 @@ def load_weights(model: nn.Module, weights: Dict[str, Weight]) -> nn.Module:
     with torch.no_grad():
         for name, w in weights.items():
             if isinstance(w, (QuantizedTensor, QuantizedTensor4)):
+                if (isinstance(w, QuantizedTensor)
+                        and isinstance(held.get(name), QuantizedTensor)):
+                    w = QuantizedTensor(w.data, w.scale, mode=held[name].mode)
                 owner_name, _, leaf = name.rpartition(".")
                 owner = model.get_submodule(owner_name) if owner_name else model
                 delattr(owner, leaf)

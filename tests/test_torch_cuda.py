@@ -326,3 +326,130 @@ def test_qlora_nf4_round_trains_through_the_kernels_on_cuda():
     assert torch.isfinite(torch.tensor(out["test_loss"]))
     assert all(torch.equal(q.data, b) for q, b in zip(packed, before))
     assert any(not torch.equal(api.global_exchange[k], v) for k, v in lora0.items())
+
+
+# -- the single-process simulation: codecs and a FedAvg round on the card ----
+
+def _sp_delta(seed=0):
+    """A ResNet-20-shaped delta tree (the port's init, scaled), on the CPU."""
+    from fedml_tpu_torch.models.cv.resnet import resnet20
+    from fedml_tpu_torch.models.layers import init
+
+    params = init(resnet20(10, 2), torch.zeros(1, 32, 32, 3), seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    delta = {k: torch.randn(v.shape, generator=gen) * 1e-3 for k, v in params.items()}
+    delta["params/Dense_0/bias"][:5] = 0.0  # exact zeros: top-k ties
+    return delta
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("spec", ["identity", "bf16", "int8", "topk", "int4", "nf4",
+                                  "int4@32", "nf4@16"])
+def test_codec_wire_bits_on_cuda_match_cpu(spec):
+    """Every codec's wire arrays for the same leaves and ``derive_key`` are
+    byte-identical on the card and the CPU; so is their decode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch.compression import derive_key, get_codec
+
+    delta = _sp_delta()
+    codec, key = get_codec(spec), derive_key(3, 7, 11)
+    ct_c = codec.encode(delta, key=key, is_delta=True)
+    ct_g = codec.encode({k: v.cuda() for k, v in delta.items()}, key=key, is_delta=True)
+    assert ct_g.meta == ct_c.meta and ct_g.structure == ct_c.structure
+    for pg, pc in zip(ct_g.arrays, ct_c.arrays):
+        for a, b in zip(pg, pc):
+            assert a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    dec_c, dec_g = codec.decode(ct_c), codec.decode(ct_g)
+    assert all(torch.equal(dec_g[k].cpu(), dec_c[k]) for k in dec_c)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("spec", ["int8", "topk", "nf4"])
+def test_fused_weighted_sum_on_cuda_matches_decode_and_sum(spec):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import SP_FUSED_REL_TOL
+
+    from fedml_tpu_torch.compression import derive_key, fused_weighted_sum, get_codec
+
+    codec = get_codec(spec)
+    cts = [codec.encode({k: v.cuda() for k, v in _sp_delta(i).items()},
+                        key=derive_key(0, 1, i), is_delta=True) for i in range(4)]
+    w = torch.tensor([0.1, 0.2, 0.3, 0.4])
+    fused = fused_weighted_sum(cts, w)
+    decoded = [codec.decode(ct) for ct in cts]
+    for k, v in fused.items():
+        ref = sum(float(wi) * d[k].double() for wi, d in zip(w, decoded))
+        assert v.is_cuda
+        assert float((v.double() - ref).abs().max()) <= SP_FUSED_REL_TOL * max(
+            float(ref.abs().max()), 1e-30)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("compression", ["", "int8"])
+def test_fedavg_round_of_resnet20_on_cuda_matches_cpu(compression):
+    """One FedAvg round of ResNet-20 (2 of 4 clients, one local step each,
+    int8 uplinks or none) from the same weights on the card in FP32, on the
+    CPU in FP32 and on the CPU in float64: the same clients, every parameter
+    on the card, the card's parameters within 1e-5 of each leaf's magnitude
+    of both (plus one int8 step, the leaf's largest update / 127, where
+    float32 rounding crosses a code's boundary), and the test loss within
+    5e-5 of the float64 run's. One step per client keeps float32's own
+    distance from float64 far below those limits; longer rounds amplify
+    rounding through the steps (see chip_smoke's SP_PARAM_TOL). The images
+    are ``synthetic_image``'s, whose seed is fixed (the CIFAR stand-in's is
+    salted per process)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.models.model_hub import create
+    from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI
+
+    args = load_arguments_from_dict({
+        "data_args": {"dataset": "synthetic_image", "image_size": 32,
+                      "image_channels": 3, "train_size": 64, "test_size": 64},
+        "model_args": {"model": "resnet20"},
+        "train_args": {"client_num_in_total": 4, "client_num_per_round": 2,
+                       "comm_round": 1, "batch_size": 16, "learning_rate": 0.02,
+                       "compression": compression}})
+    ds = load_federated(args)
+    model = create(args, ds.class_num)
+    runs = {"cpu": ("cpu", torch.float32), "cuda": ("cuda", torch.float32),
+            "float64": ("cpu", torch.float64)}
+    apis = {name: FedAvgAPI(args, dev, ds, model) for name, (dev, _) in runs.items()}
+    start = {k: v.clone() for k, v in apis["cpu"].global_params.items()}
+    for name, (dev, dt) in runs.items():
+        apis[name].global_params = {k: v.to(dev, dt) for k, v in start.items()}
+    reps = {name: api.train_one_round(0) for name, api in apis.items()}
+    assert reps["cuda"]["clients"] == reps["cpu"]["clients"] == reps["float64"]["clients"]
+    card = apis["cuda"].global_params
+    assert all(v.is_cuda for v in card.values())
+    for ref in ("cpu", "float64"):
+        for k, v in apis[ref].global_params.items():
+            v = v.double()
+            step = (float((v - start[k].double()).abs().max()) / 127) if compression else 0.0
+            err = float((card[k].cpu().double() - v).abs().max())
+            assert err <= step + 1e-5 * max(1.0, float(v.abs().max())), (ref, k)
+    assert abs(reps["cuda"]["test_loss"] - reps["float64"]["test_loss"]) <= (
+        5e-5 * abs(reps["float64"]["test_loss"]))
+
+
+def test_run_simulation_refuses_missing_cuda_here(monkeypatch):
+    """Held on the CPU side, without JAX: the sp entry points default to
+    ``cuda`` and raise without it rather than fall back to the CPU."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.models.model_hub import create
+    from fedml_tpu_torch.simulation.simulator import create_simulator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = load_arguments_from_dict({"train_args": {"comm_round": 1},
+                                     "data_args": {"train_size": 64, "test_size": 16}})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fedml_tpu_torch.run_simulation(args)
+    ds = load_federated(args)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_simulator(args, "cuda", ds, create(args, ds.class_num))

@@ -25,6 +25,7 @@ def test_port_modules_import_with_jax_blocked():
         "import importlib, json, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
+        "sys.modules['optax'] = None\n"
         f"mods = {PORT_MODULES!r}\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
@@ -56,6 +57,39 @@ def test_port_modules_import_with_jax_blocked():
 def test_training_slice_modules_are_scanned(module):
     """The training slice's modules, and the quantized formats' (the NF4
     codebook's own copy in ``compression``), are among those both scans
+    cover."""
+    assert module in PORT_MODULES
+
+
+@pytest.mark.parametrize("module", [
+    "fedml_tpu_torch.compression.threefry",
+    "fedml_tpu_torch.compression.error_feedback",
+    "fedml_tpu_torch.utils.tree",
+    "fedml_tpu_torch.core.data.noniid_partition",
+    "fedml_tpu_torch.core.alg_frame.client_trainer",
+    "fedml_tpu_torch.core.alg_frame.server_aggregator",
+    "fedml_tpu_torch.core.alg_frame.params",
+    "fedml_tpu_torch.models.layers",
+    "fedml_tpu_torch.models.linear.lr",
+    "fedml_tpu_torch.models.cv.cnn",
+    "fedml_tpu_torch.models.cv.resnet",
+    "fedml_tpu_torch.models.nlp.rnn",
+    "fedml_tpu_torch.models.model_hub",
+    "fedml_tpu_torch.models.convert",
+    "fedml_tpu_torch.ml.trainer.local_sgd",
+    "fedml_tpu_torch.ml.trainer.classification_trainer",
+    "fedml_tpu_torch.ml.trainer.trainer_creator",
+    "fedml_tpu_torch.ml.aggregator.agg_operator",
+    "fedml_tpu_torch.ml.aggregator.default_aggregator",
+    "fedml_tpu_torch.ml.aggregator.server_optimizer",
+    "fedml_tpu_torch.simulation.sp.fedavg_api",
+    "fedml_tpu_torch.simulation.simulator",
+    "fedml_tpu_torch.arguments",
+    "fedml_tpu_torch.runner",
+])
+def test_sp_slice_modules_are_scanned(module):
+    """The single-process simulation's modules (the wire codecs, the models,
+    the trainers and aggregators, the engine) are among those both scans
     cover."""
     assert module in PORT_MODULES
 
@@ -101,6 +135,26 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LLMTrainer(LlamaConfig.tiny(dtype=torch.float32, lora_rank=4), object())
+
+
+def test_run_simulation_refuses_missing_cuda(monkeypatch):
+    """``run_simulation`` and the sp engine default to ``cuda`` and raise
+    without it; the YAML reader is not needed for a config built in code."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.models.model_hub import create
+    from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = load_arguments_from_dict({"train_args": {"comm_round": 1},
+                                     "data_args": {"train_size": 64, "test_size": 16}})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fedml_tpu_torch.run_simulation(args)
+    ds = load_federated(args)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FedAvgAPI(args, "cuda", ds, create(args, ds.class_num))
+    assert fedml_tpu_torch.run_simulation(args, device="cpu")["rounds"] == 1
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -59,13 +59,11 @@ def _quantized(model):
     return [q for _, q in tq.named_quantized_weights(model)]
 
 
-def _load_reference_base(ttr, jparams, fmt):
+def _load_reference_base(ttr, jparams):
     """Install the reference trainer's weights (its quantized base as is)
-    into the port trainer; int8 trains in ``dequant`` mode, as there."""
+    into the port trainer; ``load_weights`` keeps the trainer's own int8
+    mode (``dequant``, as there)."""
     load_weights(ttr.model, from_jax_params(_quant_leaves_to_numpy(jparams)))
-    for q in _quantized(ttr.model):
-        if fmt == "int8":
-            q.mode = "dequant"
 
 
 def _qpair(fmt, seed=0, lora_b_seed=7):
@@ -81,7 +79,7 @@ def _qpair(fmt, seed=0, lora_b_seed=7):
     ttr = ttrainer.LLMTrainer(LlamaConfig.tiny(lora_rank=4, dtype=torch.float32),
                               _targs(fmt), device="cpu")
     ttr.init(seed=seed)
-    _load_reference_base(ttr, jtr.params, fmt)
+    _load_reference_base(ttr, jtr.params)
     return jtr, ttr
 
 
@@ -277,7 +275,7 @@ def test_fedllm_api_passes_base_quantize_through_and_matches_jax():
     engine = t_api.client.engine
     qs = _quantized(engine.model)
     assert qs and {(q.fmt, q.block) for q in qs} == {("nf4", 32)}
-    _load_reference_base(engine, j_api.client.engine.params, "nf4")
+    _load_reference_base(engine, j_api.client.engine.params)
     t_api.global_exchange = to_exchange(engine.model)
     base0 = [q.data.clone() for q in _quantized(engine.model)]
     for r in range(2):
@@ -286,3 +284,59 @@ def test_fedllm_api_passes_base_quantize_through_and_matches_jax():
         _close(t_rep["test_loss"], j_rep["test_loss"])
     for d0, q in zip(base0, _quantized(engine.model)):
         assert torch.equal(q.data, d0)
+
+
+def test_jax_int8_base_loads_into_an_int8_trainer_in_its_mode():
+    """A JAX int8 QLoRA base carried into a port trainer with
+    ``base_quantize: int8`` keeps the trainer's ``dequant`` mode (no hand
+    patch after ``load_weights``) and trains: the loss and every LoRA
+    gradient against the JAX trainer's at 1e-4."""
+    jtr, ttr = _qpair("int8")
+    qs = _quantized(ttr.model)
+    assert len(qs) == 15 and {q.mode for q in qs} == {"dequant"}
+    x, y = _batch((BATCH, SEQ), seed=3)
+    m = np.ones((BATCH,), np.float32)
+    params = jtr.params
+    wrt = jtrainer.extract_trainable(params)
+
+    def loss_of(t):
+        return jtr._loss_fn(jtrainer.merge_trainable(params, t), jnp.asarray(x),
+                            jnp.asarray(y), jnp.asarray(m))
+
+    (j_loss, _), j_grads = jax.jit(jax.value_and_grad(loss_of, has_aux=True))(wrt)
+    trainable = ttrainer.extract_trainable(ttr.model)
+    loss, _ = ttr._loss_fn(ttr.model, torch.from_numpy(x).long(),
+                           torch.from_numpy(y).long(), torch.from_numpy(m))
+    t_grads = dict(zip(trainable, torch.autograd.grad(loss, list(trainable.values()))))
+    _close(float(loss.detach()), float(j_loss))
+    assert set(t_grads) == set(j_grads)
+    for k in j_grads:
+        _close(t_grads[k].numpy(), j_grads[k])
+
+
+@pytest.mark.parametrize("quantize,mode", [("int8_dequant", "dequant"), ("w8a8", "w8a8")])
+def test_load_weights_keeps_each_engine_mode(quantize, mode):
+    """``load_weights`` of a JAX int8 tree into an ``int8_dequant`` and a
+    ``w8a8`` engine: every quantized weight stays in its engine's mode, and
+    the ``w8a8`` codes are column-major, as the constructor makes them."""
+    from fedml_tpu_torch.models.llm.llama import LlamaForCausalLM
+    from fedml_tpu_torch.serving import ContinuousBatchingEngine
+
+    jtr = jtrainer.LLMTrainer(JaxLlamaConfig.tiny(lora_rank=4, dtype=jnp.float32),
+                              _jargs("int8"))
+    jtr.init(seed=1)
+    weights = from_jax_params(_quant_leaves_to_numpy(jtr.params))
+    model = LlamaForCausalLM(LlamaConfig.tiny(lora_rank=4, dtype=torch.float32),
+                             device="cpu")
+    eng = ContinuousBatchingEngine(model, batch_slots=2, max_len=32, quantize=quantize,
+                                   quantize_min_size=1024, device="cpu")
+    load_weights(eng.params, weights)
+    qs = _quantized(eng.params)
+    assert len(qs) == 15 and {q.mode for q in qs} == {mode}
+    for name, q in tq.named_quantized_weights(eng.params):
+        assert torch.equal(q.data, weights[name].data)
+        assert torch.equal(q.scale, weights[name].scale)
+        if mode == "w8a8":
+            assert q.data.stride() == (1, q.data.shape[0])
+        else:
+            assert q.data.is_contiguous()
