@@ -77,12 +77,33 @@ the final ``ok`` line:
     are finite and on the card; it prints each round's seconds, test loss
     and accuracy, encode and fused-aggregation ms, the steady round's
     training samples/s, the busy share of 20 profiled local steps, the
-    peak memory and the uplink bytes against f32.
+    peak memory and the uplink bytes against f32;
+(i) cross-silo FedAvg on phase h's model and data (no hand kernel lies on
+    this path either). (i1) ``run_cross_silo_inproc``'s federation over the
+    in-process LOCAL transport on the card: 4 of 4 hetero silos (α 0.5),
+    int8 uplinks with error feedback, 2 rounds; one client's first upload is
+    posted twice. It fails unless the server reports 2 rounds, the test loss
+    falls from round 0 to round 1, every upload that reached the server is
+    an int8 delta at least 3.9x smaller than the f32 tree, and the duplicate
+    was dropped once; it prints each round's seconds, test loss and
+    accuracy, the steady round's training samples/s, the peak memory, and
+    (CUDA events, the last round's work replayed) the encode, the fused
+    aggregation and the layout conversions of a round. (i2) the port's
+    ``PubSubBroker`` on an ephemeral localhost port, an object-store
+    directory under a temp dir, and the server and 2 silos as three OS
+    processes started through ``run_cross_silo_server`` /
+    ``run_cross_silo_client`` with a config file the phase writes (a fixed
+    ``PYTHONHASHSEED``), 1 round; it fails unless every process exits 0
+    within CS_BROKER_TIMEOUT_S, the server reports 1 round and the broadcast
+    went through the store, and prints the bytes published on the broker
+    and written to the store, the ``safe_dumps`` / ``safe_loads`` ms of the
+    broadcast and of one upload, and the round's wall. Each phase prints
+    its seconds.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with code 2 and prints no result. The full per-shape results also go to
-``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefgh``) runs
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghi``) runs
 (a) and the phases named, and prints no kernels or ok line (phase g sets
 its round beside phase e's only when both run). ``--parent DIR`` builds the dequant and flash-forward kernels of
 another checkout (DIR, e.g. the parent commit unpacked by ``git archive``)
@@ -214,6 +235,33 @@ SP_PARAM_TOL = 1e-2
 SP_FUSED_REL_TOL = 1e-6
 SP_PROFILE_STEPS = 20
 SP_CODECS = ("int8", "nf4")
+
+# Phase (i), cross-silo FedAvg: phase h's model, data and training
+# (``fedml_tpu/config/cross_silo/fedml_config.yaml``'s recipe at ResNet-18
+# scale) split over 4 silos, int8 uplinks with error feedback, 2 rounds on
+# the in-process LOCAL transport (i1); then one round of 2 silos over the TCP
+# broker and the object store with the server and each silo in its own OS
+# process (i2), started through the entry points with a config the phase
+# writes. i2's processes share a fixed PYTHONHASHSEED: the stand-in's seed
+# has ``hash("cifar10")`` in it, salted per process, and the three must draw
+# the same data. An int8 upload carries 1 byte an element plus one f32 scale
+# a leaf: 4.00x smaller than f32 for this model, so 3.9x is the floor.
+CS_CONFIG = {
+    "common_args": {"training_type": "cross_silo", "random_seed": 0,
+                    "run_id": "chip_smoke_cross_silo"},
+    "data_args": {"dataset": "cifar10", "train_size": 50_000, "test_size": 10_000,
+                  "partition_method": "hetero", "partition_alpha": 0.5},
+    "model_args": {"model": "resnet18", "group_norm_channels": 2},
+    "train_args": {"federated_optimizer": "FedAvg", "client_num_in_total": 4,
+                   "client_num_per_round": 4, "comm_round": 2, "epochs": 1,
+                   "batch_size": 32, "learning_rate": 0.1, "compression": "int8"},
+    "comm_args": {"comm_backend": "LOCAL"},
+}
+CS_WIRE_RATIO = 3.9
+CS_BROKER_SILOS = 2
+CS_BROKER_TIMEOUT_S = 480        # i2: every process exits 0 within this
+CS_HASHSEED = "0"
+CS_TIMED_REPS = 5
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s and bf16 FLOP/s.
 PEAKS = (
@@ -1644,6 +1692,345 @@ def sp_phase(card: str):
                 uplink_bytes_per_client=sum(wire) / len(wire), f32_bytes=raw_bytes)
 
 
+def _registry_flat(reg) -> dict:
+    """The metrics registry as ``{name{labels}: value or histogram summary}``."""
+    out = {}
+    for m in reg._items():
+        key = m.name + ("{" + ",".join(f"{k}={v}" for k, v in sorted(m.labels.items()))
+                        + "}" if m.labels else "")
+        snap = m.snapshot()
+        out[key] = (snap["value"] if "value" in snap else
+                    {k: snap[k] for k in ("count", "sum", "max")})
+    return out
+
+
+def _events_ms(fn, reps: int = CS_TIMED_REPS) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` calls, CUDA events, after
+    one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _host_ms(fn, reps: int = CS_TIMED_REPS) -> float:
+    """Mean host-clock ms of ``fn()`` over ``reps`` calls after a warm one."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def cross_silo_inproc(card: str):
+    """Phase (i1): ``run_cross_silo_inproc``'s federation over LOCAL on the
+    card, with its checks (see the module doc)."""
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.compression import (
+        CompressedTree,
+        ErrorFeedback,
+        derive_key,
+        get_codec,
+        tree_delta,
+    )
+    from fedml_tpu_torch.core.distributed.communication.local_comm import LocalBroker
+    from fedml_tpu_torch.cross_silo.message_define import MyMessage
+    from fedml_tpu_torch.cross_silo.run_inproc import (
+        build_cross_silo_inproc,
+        run_managers_to_completion,
+    )
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.ml.aggregator.agg_operator import FedMLAggOperator
+    from fedml_tpu_torch.models.convert import (
+        from_reference_layout,
+        from_wire_params,
+        to_reference_layout,
+        to_wire_params,
+    )
+    from fedml_tpu_torch.models.model_hub import create
+    from fedml_tpu_torch.telemetry import get_registry
+    from fedml_tpu_torch.utils.serialization import safe_dumps, safe_loads
+
+    args = load_arguments_from_dict(CS_CONFIG)
+    t0 = time.perf_counter()
+    ds = load_federated(args)
+    data_s = time.perf_counter() - t0
+    model = create(args, ds.class_num)
+    LocalBroker.destroy(args.run_id)
+    torch.cuda.reset_peak_memory_stats()
+    server, clients = build_cross_silo_inproc(args, ds, model, "cuda")
+    agg, smgr = server.fedml_aggregator, server.manager
+    n_params = sum(v.numel() for v in agg.get_global_model_params().values())
+    f32_bytes = 4 * n_params
+
+    # what the run records: each upload as it reaches the aggregator, each
+    # round's test and its end time, and the last round's broadcast and client
+    # updates (for the timed replays below)
+    uploads, rounds, last = [], [], {"updates": {}, "broadcast": None}
+    add, test = agg.add_local_trained_result, agg.test_on_server_for_all_clients
+    bcast = smgr._broadcast_payload
+
+    def recorded_add(index, params, n, local_steps=None):
+        uploads.append(dict(round=int(smgr.args.round_idx), index=index, n=int(n),
+                            compressed=isinstance(params, CompressedTree),
+                            codec=getattr(params, "codec", None),
+                            delta=getattr(params, "is_delta", None),
+                            wire=params.wire_nbytes() if isinstance(params, CompressedTree)
+                            else None))
+        return add(index, params, n, local_steps)
+
+    def recorded_test(r):
+        m = test(r)
+        torch.cuda.synchronize()
+        rounds.append(dict(round=r, end=time.perf_counter(),
+                           test_loss=float(m["test_loss"]), test_acc=float(m["test_acc"])))
+        return m
+
+    def recorded_bcast(params):
+        last["broadcast"] = bcast(params)
+        return last["broadcast"]
+
+    agg.add_local_trained_result, agg.test_on_server_for_all_clients = recorded_add, recorded_test
+    smgr._broadcast_payload = recorded_bcast
+    for c in clients:
+        mgr = c.manager
+        encode = mgr._encode_update
+
+        def recorded_encode(weights, mgr=mgr, encode=encode):
+            last["updates"][mgr.rank] = (weights, mgr._global_ref, mgr.round_idx)
+            return encode(weights)
+
+        mgr._encode_update = recorded_encode
+    # the same upload posted twice: a resend keeps its message id, and the
+    # server's dedup must drop the copy
+    injected = []
+    c1 = clients[0].manager
+    send = c1.send_message
+
+    def send_twice(msg):
+        send(msg)
+        if msg.get_type() == MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER and not injected:
+            injected.append(msg.get("msg_id"))
+            c1.com_manager.broker.post(0, msg)
+
+    c1.send_message = send_twice
+    dups0 = get_registry().counter("resilience/duplicates_dropped").value
+    t_start = time.perf_counter()
+    result = run_managers_to_completion([smgr] + [c.manager for c in clients], args.run_id,
+                                        MyMessage.MSG_TYPE_CONNECTION_IS_READY, timeout=900)
+    wall = time.perf_counter() - t_start
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dups = get_registry().counter("resilience/duplicates_dropped").value - dups0
+    final = agg.get_global_model_params()
+    for i, r in enumerate(rounds):
+        r["round_s"] = r["end"] - (rounds[i - 1]["end"] if i else t_start)
+        r["uploads"] = [u for u in uploads if u["round"] == r["round"]]
+        r["samples"] = sum(u["n"] for u in r["uploads"])
+        print(f"  {card}: round {r['round']}: {r['round_s']:.3f} s"
+              + (" (with the handshake)" if i == 0 else "")
+              + f", {len(r['uploads'])} uploads of {r['samples']} samples, test loss "
+              f"{r['test_loss']:.5f}, test acc {r['test_acc']:.4f}", flush=True)
+    ratios = [f32_bytes / u["wire"] for u in uploads if u["wire"]]
+    bad = [u for u in uploads if not (u["compressed"] and u["codec"] == "int8" and u["delta"])]
+    if result.get("rounds") != 2 or len(rounds) != 2:
+        raise RuntimeError(f"the federation did not run 2 rounds: {result}")
+    if not rounds[1]["test_loss"] < rounds[0]["test_loss"]:
+        raise RuntimeError(f"the test loss did not fall: {[r['test_loss'] for r in rounds]}")
+    if bad or len(ratios) != len(uploads) or min(ratios) < CS_WIRE_RATIO:
+        raise RuntimeError(f"an upload was not an int8 delta at least {CS_WIRE_RATIO}x "
+                           f"smaller than f32: {bad or min(ratios)}")
+    if not (injected and dups == 1 and all(len(r["uploads"]) == 4 for r in rounds)):
+        raise RuntimeError(f"the duplicate upload was not dropped once: injected "
+                           f"{injected}, dropped {dups}, uploads a round "
+                           f"{[len(r['uploads']) for r in rounds]}")
+    if not all(v.is_cuda and bool(torch.isfinite(v).all()) for v in final.values()):
+        raise RuntimeError("the global model left the card or is not finite")
+
+    # the last round's work replayed alone, timed with CUDA events: the four
+    # clients' encodes (delta in the reference's layout + error feedback),
+    # the fused aggregation of their uploads, the layout conversions a round
+    # makes (the decoded broadcast on the server and each client, and the
+    # aggregate: 6 full trees in the port's layout from the reference's), and
+    # the uncompressed message form's round trip
+    codec = get_codec(args.compression)
+    seed, efs = int(args.random_seed), {}
+    updates = sorted(last["updates"].items())
+
+    def encode_round():
+        cts = []
+        for rank, (w, ref, r) in updates:
+            ef = efs.setdefault(rank, ErrorFeedback(codec))
+            cts.append(ef.encode(to_reference_layout(tree_delta(w, ref)),
+                                 key=derive_key(seed, r, rank)))
+        return cts
+
+    cts = encode_round()
+    pairs = [(ds.train_data_local_num_dict[i], ct) for i, ct in enumerate(cts)]
+    base = to_reference_layout(agg.get_upload_base() or final)
+    encode_ms = _events_ms(encode_round)
+    aggregate_ms = _events_ms(lambda: FedMLAggOperator.agg_compressed(args, pairs, base))
+    convert_ms = _events_ms(lambda: from_reference_layout(to_reference_layout(final)))
+    wire_form_ms = _events_ms(lambda: from_wire_params(to_wire_params(final), "cuda"))
+    # the BROKER transport's (de)serialization of the same payloads, warm, on
+    # the host's clock (safe_dumps ends in a device sync, safe_loads is
+    # followed by one)
+    ser = {}
+    for name, obj in (("broadcast", last["broadcast"]), ("upload", cts[0])):
+        blob = safe_dumps(obj)
+        ser[f"{name}_dumps_ms"] = _host_ms(lambda: safe_dumps(obj))
+        ser[f"{name}_loads_ms"] = _host_ms(
+            lambda: (safe_loads(blob, "cuda"), torch.cuda.synchronize()))
+        ser[f"{name}_bytes"] = len(blob)
+    steady = rounds[-1]
+    print(f"  {card}: steady round {steady['round_s']:.3f} s (with its 10,000-image test) = "
+          f"{steady['samples'] / steady['round_s']:.1f} training samples/s; whole run "
+          f"{wall:.3f} s; data made in {data_s:.1f} s; peak memory {peak_gb:.3f} GB",
+          flush=True)
+    print(f"  {card}: a round's encode (4 uploads) {encode_ms:.2f} ms, fused aggregation "
+          f"{aggregate_ms:.2f} ms, layout conversion {convert_ms:.2f} ms a tree x 6 = "
+          f"{6 * convert_ms:.2f} ms, message-form round trip {wire_form_ms:.3f} ms "
+          f"(CUDA events, mean of {CS_TIMED_REPS}); uploads "
+          f"{sum(u['wire'] for u in uploads) / len(uploads):.0f} B vs {f32_bytes} B f32 "
+          f"(min {min(ratios):.3f}x); duplicate dropped {int(dups)}", flush=True)
+    print(f"  {card}: warm safe_dumps / safe_loads onto the card (host clock, mean of "
+          f"{CS_TIMED_REPS}): broadcast ({ser['broadcast_bytes']} B) "
+          f"{ser['broadcast_dumps_ms']:.2f} / {ser['broadcast_loads_ms']:.2f} ms, one upload "
+          f"({ser['upload_bytes']} B) {ser['upload_dumps_ms']:.2f} / "
+          f"{ser['upload_loads_ms']:.2f} ms", flush=True)
+    return dict(rounds=[{k: v for k, v in r.items() if k not in ("end", "uploads")}
+                        for r in rounds], n_params=n_params, f32_bytes=f32_bytes,
+                upload_bytes=[u["wire"] for u in uploads], min_ratio=min(ratios),
+                duplicates_dropped=dups, wall_s=wall, data_s=data_s, peak_gb=peak_gb,
+                steady_round_s=steady["round_s"],
+                samples_per_s=steady["samples"] / steady["round_s"],
+                encode_ms=encode_ms, aggregate_ms=aggregate_ms,
+                layout_convert_ms_per_tree=convert_ms, wire_form_round_trip_ms=wire_form_ms,
+                serialization_ms=ser,
+                result={k: v for k, v in result.items() if isinstance(v, (int, float))})
+
+
+# the code each process of phase (i2) runs: one entry point, as a user starts
+# it with ``--cf config --rank r --role ...``, then its result and registry
+CS_CHILD = r"""
+import json, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import fedml_tpu_torch
+from chip_smoke import _registry_flat
+from fedml_tpu_torch.telemetry import get_registry
+t0 = time.perf_counter()
+role = sys.argv[1]
+fn = {"server": fedml_tpu_torch.run_cross_silo_server,
+      "client": fedml_tpu_torch.run_cross_silo_client}[role]
+result = fn()
+torch.cuda.synchronize()
+print("CHILD " + json.dumps({"role": role, "result": result,
+                             "wall_s": time.perf_counter() - t0,
+                             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                             "metrics": _registry_flat(get_registry())}), flush=True)
+"""
+
+
+def cross_silo_broker(card: str):
+    """Phase (i2): a server and CS_BROKER_SILOS silos as OS processes over
+    the port's broker and a shared object store (see the module doc)."""
+    import shutil
+    import tempfile
+
+    from fedml_tpu_torch.core.distributed.communication.broker import PubSubBroker
+    from fedml_tpu_torch.telemetry import get_registry
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    published0 = get_registry().counter("broker/bytes_in").value
+    work = tempfile.mkdtemp(prefix="chip_smoke_cs_")
+    broker = PubSubBroker("127.0.0.1", 0).start()
+    procs = []
+    try:
+        host, port = broker.address
+        cfg = json.loads(json.dumps(CS_CONFIG))
+        cfg["common_args"]["run_id"] = "chip_smoke_broker"
+        cfg["train_args"].update(client_num_in_total=CS_BROKER_SILOS,
+                                 client_num_per_round=CS_BROKER_SILOS, comm_round=1)
+        cfg["comm_args"] = {"comm_backend": "BROKER", "broker_host": host,
+                            "broker_port": port, "object_store_dir": os.path.join(work, "store"),
+                            "payload_offload_bytes": 65536}
+        path = os.path.join(work, "fedml_config.yaml")
+        with open(path, "w") as f:  # YAML in its JSON form: the card has no PyYAML
+            json.dump(cfg, f, indent=1)
+        env = dict(os.environ, PYTHONHASHSEED=CS_HASHSEED,
+                   PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        for rank in range(CS_BROKER_SILOS + 1):
+            role = "server" if rank == 0 else "client"
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", CS_CHILD, role, "--cf", path, "--rank", str(rank),
+                 "--role", role], cwd=here, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = []
+        for p in procs:
+            left = max(1.0, CS_BROKER_TIMEOUT_S - (time.perf_counter() - t0))
+            try:
+                outs.append(p.communicate(timeout=left))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"a process of the broker federation did not exit within "
+                                   f"{CS_BROKER_TIMEOUT_S} s") from None
+        wall = time.perf_counter() - t0
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            tails = "\n".join(err[-2000:] for _, err in outs)
+            raise RuntimeError(f"the broker federation's processes exited {codes}:\n{tails}")
+        kids = [json.loads(next(ln for ln in out.splitlines() if ln.startswith("CHILD "))[6:])
+                for out, _ in outs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        broker.stop()
+        published = get_registry().counter("broker/bytes_in").value - published0
+        shutil.rmtree(work, ignore_errors=True)
+    server = kids[0]
+    sm = server["metrics"]
+    store_bytes = sum(k["metrics"].get("comm/offload_wire_bytes", 0) for k in kids)
+    bcast_offloads = sm.get("comm/serialize_ms{part=offload}", {}).get("count", 0)
+
+    def hist(m, key):
+        h = m.get(key, {})
+        return h["sum"] / h["count"] if h.get("count") else None
+
+    round_ms = hist(sm, "cross_silo/round_ms")
+    ser = dict(broadcast_dumps_ms=hist(sm, "comm/serialize_ms{part=offload}"),
+               broadcast_loads_ms=hist(kids[1]["metrics"], "comm/deserialize_ms{part=offload}"),
+               upload_dumps_ms=hist(kids[1]["metrics"], "comm/serialize_ms{part=offload}"),
+               upload_loads_ms=hist(sm, "comm/deserialize_ms{part=offload}"))
+    if server["result"].get("rounds") != 1:
+        raise RuntimeError(f"the broker federation's server did not run 1 round: "
+                           f"{server['result']}")
+    if bcast_offloads != CS_BROKER_SILOS or None in ser.values():
+        raise RuntimeError(f"the broadcast did not go through the object store: "
+                           f"{bcast_offloads} offloads, {ser}")
+    print(f"  {card}: {CS_BROKER_SILOS + 1} processes exited 0 in {wall:.3f} s (limit "
+          f"{CS_BROKER_TIMEOUT_S} s); server result {server['result']}", flush=True)
+    print(f"  {card}: the round {round_ms:.1f} ms (broadcast to test, the server's "
+          f"clock); bytes published on the broker {published:.0f}, written to the store "
+          f"{store_bytes:.0f} (the broadcast {CS_BROKER_SILOS}x, each upload once); "
+          f"safe_dumps / safe_loads ms (each process's first, cold): broadcast "
+          f"{ser['broadcast_dumps_ms']:.2f} / {ser['broadcast_loads_ms']:.2f}, one upload "
+          f"{ser['upload_dumps_ms']:.2f} / {ser['upload_loads_ms']:.2f}; process walls "
+          + ", ".join(f"{k['role']} {k['wall_s']:.1f} s" for k in kids), flush=True)
+    return dict(wall_s=wall, round_ms=round_ms, broker_bytes_published=published,
+                store_bytes_written=store_bytes, serialization_ms=ser,
+                result=server["result"], process_walls_s=[k["wall_s"] for k in kids],
+                peak_gb=[k["peak_gb"] for k in kids])
+
+
 def step_sum(results, key, rows=DECODE_ROWS):
     """One pass's total over its 225 launches at ``rows`` rows (None where
     a time was not measured)."""
@@ -1657,7 +2044,7 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="bcdefgh",
+    parser.add_argument("--phases", default="bcdefghi",
                         help="phases to run after (a), e.g. 'd' for the flash kernels "
                              "alone (default: all; only a full run prints the kernels "
                              "and ok lines)")
@@ -1697,48 +2084,61 @@ def main(argv=None) -> int:
               f"{info.get('spill_stores')} / loads {info.get('spill_loads')} bytes, stack "
               f"{info.get('stack')} bytes", flush=True)
 
-    results = serve = flash = train = quantized = qlora = sp = None
+    results = serve = flash = train = quantized = qlora = sp = cross_silo = None
+    phase_s = {}
     parent_dequant = parent_fwd = None
     if opts.parent:
         t0 = time.perf_counter()
         parent_dequant, parent_fwd = parent_kernels(opts.parent)
         print(f"    built the kernels of {opts.parent} in {time.perf_counter() - t0:.2f} s",
               flush=True)
+    def timed(name, fn):
+        """Run one phase and print its seconds; the card is emptied after."""
+        t0 = time.perf_counter()
+        out = fn()
+        gc.collect()  # the phase's models and engines are gone
+        torch.cuda.empty_cache()
+        phase_s[name] = time.perf_counter() - t0
+        print(f"    phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
     if "b" in phases:
         print("(b) dequant_matmul vs plain version", flush=True)
-        results = kernel_phase(peak_bw, peak_flops, parent_dequant)
+        results = timed("b", lambda: kernel_phase(peak_bw, peak_flops, parent_dequant))
     if "c" in phases:
         print("(c) serve llama3_8b int8", flush=True)
-        serve = serve_phase()
-        gc.collect()  # the serve phase's engine and weights are gone
-        torch.cuda.empty_cache()
+        serve = timed("c", serve_phase)
     if "d" in phases:
         print("(d) flash attention kernels vs plain versions", flush=True)
-        flash = flash_phase(peak_bw, peak_flops, parent_fwd)
+        flash = timed("d", lambda: flash_phase(peak_bw, peak_flops, parent_fwd))
     if "e" in phases:
         print("(e) federated LoRA rounds of llama3_8b through FedLLMAPI", flush=True)
-        train = train_phase()
-        gc.collect()  # the bf16 round's model and optimizer are gone
-        torch.cuda.empty_cache()
+        train = timed("e", train_phase)
     if "f" in phases:
         print("(f) quantized formats: w8a8 and 4-bit, then llama3_8b served with "
               "--quantize w8a8 and nf4", flush=True)
-        quantized = quant_phase(peak_bw, peak_flops, results)
+        quantized = timed("f", lambda: quant_phase(peak_bw, peak_flops, results))
     if "g" in phases:
         print("(g) QLoRA rounds of llama3_8b through FedLLMAPI: nf4 base, then one "
               "round over an int8 base", flush=True)
-        qlora = qlora_phase(train)
-        gc.collect()  # the QLoRA rounds' weights are gone
-        torch.cuda.empty_cache()
+        qlora = timed("g", lambda: qlora_phase(train))
     if "h" in phases:
         print("(h) the sp FedAvg simulation: resnet18 on the cifar10 stand-in, int8 "
               "uplinks", flush=True)
-        sp = sp_phase(card)
+        sp = timed("h", lambda: sp_phase(card))
+    if "i" in phases:
+        print("(i1) cross-silo FedAvg in process (LOCAL): resnet18 on the cifar10 "
+              "stand-in, 4 silos, int8 uplinks, 2 rounds", flush=True)
+        inproc = timed("i1", lambda: cross_silo_inproc(card))
+        print(f"(i2) cross-silo FedAvg over the broker: a server and {CS_BROKER_SILOS} "
+              "silos as processes, 1 round", flush=True)
+        cross_silo = dict(inproc=inproc, broker=timed("i2", lambda: cross_silo_broker(card)))
     os.makedirs("results", exist_ok=True)
     record = {"card": card, "torch": torch.__version__, "build_s": build_s, "ptxas": ptxas,
               "shapes": results, "serve": serve, "flash": flash, "train": train,
-              "quantized": quantized, "qlora": qlora, "sp": sp}
-    if sorted(phases) != list("bcdefgh"):
+              "quantized": quantized, "qlora": qlora, "sp": sp, "cross_silo": cross_silo,
+              "phase_s": phase_s}
+    if sorted(phases) != list("bcdefghi"):
         with open(os.path.join("results", "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
         print(f"phases {phases} passed (a partial run prints no kernels or ok line)")

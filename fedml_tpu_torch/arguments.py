@@ -1,15 +1,18 @@
 """Configuration — the part of ``fedml_tpu/arguments.py`` that
-``run_simulation`` needs: a flat attribute bag whose YAML sections
-(``common_args``, ``data_args``, ``train_args``, ...) are flattened onto one
-namespace, the ``--cf`` command-line flag, and the reference's defaults.
+``run_simulation`` and the cross-silo launchers need: a flat attribute bag
+whose YAML sections (``common_args``, ``data_args``, ``train_args``, ...)
+are flattened onto one namespace, the ``--cf``, ``--run_id``, ``--rank``
+and ``--role`` command-line flags, and the reference's defaults.
 
-PyYAML is imported only inside :meth:`Arguments.load_yaml_config`: the
-card's machine has none, so a config built in code
-(:func:`load_arguments_from_dict`) needs no YAML at all.
+PyYAML is imported only inside :meth:`Arguments.load_yaml_config`, and a
+machine without it (the card's has none) reads a config written in YAML's
+JSON form with ``json``; a config built in code
+(:func:`load_arguments_from_dict`) needs neither.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 from typing import Any, Optional, Sequence
 
@@ -37,6 +40,10 @@ _DEFAULTS = dict(
     random_seed=0,
     compression="",
     compression_topk_ratio=0.05,
+    rank=0,
+    run_id="0",
+    role="client",
+    scenario="horizontal",
 )
 
 
@@ -56,10 +63,20 @@ class Arguments:
             self.load_yaml_config(config_file)
 
     def load_yaml_config(self, path: str | os.PathLike) -> None:
-        import yaml  # only here: the card's machine has no PyYAML
-
         with open(path, "r") as f:
-            cfg = yaml.safe_load(f) or {}
+            text = f.read()
+        try:
+            import yaml  # only here: the card's machine has no PyYAML
+        except ImportError:
+            try:  # JSON is YAML: a config in that form needs no PyYAML
+                cfg = json.loads(text)
+            except json.JSONDecodeError as e:
+                raise RuntimeError(
+                    f"{path}: PyYAML is not installed, and the config is not in "
+                    f"YAML's JSON form ({e})") from None
+        else:
+            cfg = yaml.safe_load(text)
+        cfg = cfg or {}
         self.set_attr_from_config(cfg)
         self.yaml_paths = [str(path)]
 
@@ -76,6 +93,9 @@ def add_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="fedml_tpu_torch")
     parser.add_argument("--yaml_config_file", "--cf", help="yaml configuration file",
                         type=str, default="")
+    parser.add_argument("--run_id", type=str, default="0")
+    parser.add_argument("--rank", type=int, default=0)
+    parser.add_argument("--role", type=str, default="client")
     args, _ = parser.parse_known_args(argv)
     return args
 

@@ -1,8 +1,16 @@
-"""Command line of the port (argparse; counterpart of the ``serve`` command
-of ``fedml_tpu/cli.py``).
+"""Command line of the port (argparse; counterpart of the ``serve`` and
+``deploy broker`` commands of ``fedml_tpu/cli.py``).
 
     python -m fedml_tpu_torch.cli serve --model llama3_8b --quantize int8
+    python -m fedml_tpu_torch.cli deploy broker --port 18923
 
+``deploy broker`` runs the federation's TCP pub/sub broker until
+interrupted; a cross-silo server and its clients
+(``run_cross_silo_server`` / ``run_cross_silo_client`` with ``comm_backend:
+BROKER``) dial it, JAX peers included. ``--native`` (the reference's C++
+broker) comes with ROADMAP A10.4.
+
+``serve``
 boots a continuous-batching Llama endpoint on one CUDA device: weights
 are drawn on the device in bf16 from seed 0, quantized in place (int8
 through the dequant-matmul kernel, ``w8a8`` int8 activations and weights,
@@ -16,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 from typing import List, Optional
 
 import torch
@@ -44,7 +53,33 @@ def build_parser() -> argparse.ArgumentParser:
                             "int4/nf4 keep 4-bit packed weights")
     serve.add_argument("--device", default="cuda",
                        help="cuda (default) or cpu")
+    deploy = sub.add_parser("deploy", help="deploy-plane daemons")
+    deploy_sub = deploy.add_subparsers(dest="daemon", required=True)
+    broker = deploy_sub.add_parser("broker", help="run the federation's pub/sub "
+                                                  "broker (blocking)")
+    broker.add_argument("--host", default="127.0.0.1")
+    broker.add_argument("--port", type=int, default=18923)
+    broker.add_argument("--native", action="store_true",
+                        help="the C++ epoll broker (not ported: ROADMAP A10.4)")
     return parser
+
+
+def run_broker(args: argparse.Namespace) -> None:
+    """Serve the pub/sub broker until interrupted."""
+    from fedml_tpu_torch.core.distributed.communication.broker import PubSubBroker
+
+    if args.native:
+        raise NotImplementedError(
+            "deploy broker --native: the C++ epoll broker comes with ROADMAP A10.4")
+    broker = PubSubBroker(args.host, args.port).start()
+    print(f"broker on {broker.address[0]}:{broker.address[1]}", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        broker.stop()
 
 
 def build_endpoint(args: argparse.Namespace):
@@ -80,7 +115,9 @@ def build_endpoint(args: argparse.Namespace):
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.command == "serve":
+    if args.command == "deploy":
+        run_broker(args)
+    elif args.command == "serve":
         engine, runner = build_endpoint(args)
         print(f"serving {args.model_size} on http://{args.host}:{runner.port} "
               f"({args.device}, {torch.__version__})", flush=True)

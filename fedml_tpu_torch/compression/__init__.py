@@ -38,7 +38,7 @@ from fedml_tpu_torch.compression.error_feedback import ErrorFeedback
 
 # The server-side trust stack of the reference (differential privacy, FHE,
 # model attacks, defenses, integrity rings, robust aggregation, contribution
-# assessment): the args that switch each part on, all ported with ROADMAP A10.
+# assessment): the args that switch each part on, all ported with ROADMAP A10.2.
 TRUST_STACK_ARGS = ("enable_dp", "enable_fhe", "enable_attack", "enable_defense",
                     "enable_contribution", "integrity", "integrity_screen",
                     "integrity_rollback", "agg_robust")
@@ -52,7 +52,7 @@ def check_trust_stack(args: Any) -> None:
         raise NotImplementedError(
             f"{', '.join(on)}: the trust stack (DP, FHE, attacks, defenses, "
             "integrity, robust aggregation, contribution assessment) comes "
-            "with ROADMAP A10; the port has not ported it yet")
+            "with ROADMAP A10.2; the port has not ported it yet")
 
 
 def requires_full_trees(codec=None, args: Any = None) -> bool:

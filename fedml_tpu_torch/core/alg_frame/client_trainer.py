@@ -3,7 +3,7 @@
 Parameters are an explicit ``{path: tensor}`` argument and return value,
 never cached in the operator. The reference's hooks around local training
 run the trust stack (data poisoning, FHE, local DP); the port has none of
-it yet (ROADMAP A10), so its arguments are refused when a trainer is built
+it yet (ROADMAP A10.2), so its arguments are refused when a trainer is built
 and the hooks pass their inputs through.
 """
 from __future__ import annotations

@@ -3,7 +3,7 @@
 
 The reference's hooks around aggregation run the trust stack (global-DP
 clipping, model attacks, defenses, FHE, central DP); the port has none of
-it yet (ROADMAP A10), so its arguments are refused when an aggregator is
+it yet (ROADMAP A10.2), so its arguments are refused when an aggregator is
 built and the hooks pass their inputs through. ``aggregate`` is the
 FedAvg family's weighted average (:class:`FedMLAggOperator`).
 """

@@ -49,7 +49,7 @@ class FedMLAggOperator:
         client's delta against ``global_params``; since the weights are
         normalized, x̄ = g + Σ pᵢdᵢ, so only the aggregate is ever built.
         Norm-clip factors and robust statistics are the trust stack's
-        (ROADMAP A10) and raise."""
+        (ROADMAP A10.2) and raise."""
         from fedml_tpu_torch.compression import (
             CompressedTree,
             fused_weighted_sum,
@@ -59,7 +59,7 @@ class FedMLAggOperator:
         if clip_factors is not None or agg_robust:
             raise NotImplementedError(
                 "norm-clip factors and robust aggregation (agg_robust) come with "
-                "the trust stack, ROADMAP A10")
+                "the trust stack, ROADMAP A10.2")
         if len(raw_list) == 0:
             raise ValueError("empty client model list")
         cts = [ct for _, ct in raw_list]

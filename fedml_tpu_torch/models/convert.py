@@ -14,6 +14,10 @@ nested tree of numpy arrays. :func:`to_reference_layout` /
 :func:`from_reference_layout` switch one port tree between the layouts
 without renaming, as views: the wire codecs encode in the reference's
 layout, so a port upload is the reference's, element for element.
+:func:`to_wire_params` / :func:`from_wire_params` carry an uncompressed
+model across a federation message in the reference's own form — nested by
+path, in the reference's layout — so a JAX peer reads a port broadcast or
+upload as its own tree, and the other way round.
 """
 from __future__ import annotations
 
@@ -93,3 +97,35 @@ def to_reference_layout(tree: Tree) -> Tree:
 def from_reference_layout(tree: Tree) -> Tree:
     """The inverse of :func:`to_reference_layout`; every leaf contiguous."""
     return {k: _from_ref(k, v).contiguous() for k, v in tree.items()}
+
+
+def to_wire_params(params: Tree) -> Dict[str, Any]:
+    """A port tree → the reference's message form: a dict nested by path,
+    each leaf a view in the reference's layout (no copy)."""
+    nested: Dict[str, Any] = {}
+    for path in leaf_order(params):
+        node = nested
+        keys = path.split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = _to_ref(path, params[path])
+    return nested
+
+
+def from_wire_params(tree: Dict[str, Any], device: DeviceLike) -> Tree:
+    """The inverse of :func:`to_wire_params` for a tree of tensors: the
+    port's flat dict on ``device``, each leaf contiguous in the port's
+    layout (for a tree that :func:`to_wire_params` made, the views turn
+    back into the original tensors)."""
+    if not isinstance(tree, dict):
+        raise TypeError(f"a model payload must be a nested dict, got "
+                        f"{type(tree).__name__}")
+    flat = flatten_paths(tree)
+    out = {}
+    for path in leaf_order(flat):
+        t = flat[path]
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"model payload leaf {path!r} is a "
+                            f"{type(t).__name__}, not a tensor")
+        out[path] = _from_ref(path, t.to(device)).contiguous()
+    return out

@@ -16,7 +16,7 @@ aggregates the encoded deltas with the dequant-fused weighted sum.
 
 Not ported yet, and refused when their arguments are set: the trust stack
 (DP, FHE, attacks, defenses, integrity screening, quarantine and rollback,
-robust aggregation, contribution assessment: ROADMAP A10), round
+robust aggregation, contribution assessment: ROADMAP A10.2), round
 checkpoints and resume (A4), and trace capture and spans (A12). The
 ``sp/rounds`` counter and the ``sp/client_train_ms``, ``sp/encode_ms`` and
 ``sp/aggregate_ms`` histograms go to the port's metrics registry.

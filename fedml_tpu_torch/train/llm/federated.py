@@ -8,7 +8,7 @@ port keeps the methods the on-device round uses (``get_init_params``,
 ``set_exchange_params``, ``test``, ``train``). The reference's classes
 inherit the trust-stack hook chain (attack, defense, DP, FHE) from
 ``ClientTrainer`` / ``ServerAggregator``; that chain is not ported yet
-(ROADMAP A10), so these classes stand alone.
+(ROADMAP A10.2), so these classes stand alone.
 """
 from __future__ import annotations
 

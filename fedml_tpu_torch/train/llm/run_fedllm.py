@@ -8,7 +8,7 @@ clients, assembles their batches with the reference's seeded draws, runs
 one :meth:`LLMTrainer.compile_federated_round` round and tests the global
 adapters on the reference's cadence. The host-loop round, whose point is
 the trust-stack hooks around each client's payload, waits for those hooks
-(ROADMAP A10).
+(ROADMAP A10.2).
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ class FedLLMAPI:
         if not bool(getattr(args, "on_device_round", False)):
             raise NotImplementedError(
                 "the port runs on_device_round: true only; the host-loop round "
-                "and its trust-stack hooks are not ported yet (ROADMAP A10)")
+                "and its trust-stack hooks are not ported yet (ROADMAP A10.2)")
         device = "cuda" if device is None else device
         self.args = args
         self.dataset = dataset

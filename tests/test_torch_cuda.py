@@ -453,3 +453,75 @@ def test_run_simulation_refuses_missing_cuda_here(monkeypatch):
     ds = load_federated(args)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         create_simulator(args, "cuda", ds, create(args, ds.class_num))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_safe_dumps_and_loads_of_cuda_trees_round_trip_bit_for_bit(dtype):
+    """A tree on the card goes to bytes through one pinned staging pass and
+    comes back on the card (or the CPU) with the same bits; the bytes are
+    those of the same tree on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch.compression import derive_key, get_codec
+    from fedml_tpu_torch.utils.serialization import safe_dumps, safe_loads
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    conv = torch.randn(64, 32, 3, 3, device="cuda", generator=gen).to(dtype)
+    tree = {"params": {"conv": conv.permute(2, 3, 1, 0),  # a strided view
+                       "bias": torch.randn(64, device="cuda", generator=gen).to(dtype),
+                       "empty": torch.zeros(0, 5, device="cuda", dtype=dtype)},
+            "steps": torch.arange(5, device="cuda"), "round": 3,
+            "ct": get_codec("int8").encode({"w": conv.float()}, key=derive_key(0, 1, 2))}
+    wire = safe_dumps(tree)
+    cpu = {"params": {k: v.cpu() for k, v in tree["params"].items()},
+           "steps": tree["steps"].cpu(), "round": 3,
+           "ct": get_codec("int8").encode({"w": conv.float().cpu()}, key=derive_key(0, 1, 2))}
+    assert wire == safe_dumps(cpu)
+    for dev in ("cuda", "cpu"):
+        back = safe_loads(wire, dev)
+        for k, v in tree["params"].items():
+            got = back["params"][k]
+            assert got.device.type == dev and got.dtype == v.dtype and got.shape == v.shape
+            assert torch.equal(got.cpu().view(torch.int16) if dtype == torch.bfloat16
+                               else got.cpu(),
+                               v.cpu().view(torch.int16) if dtype == torch.bfloat16
+                               else v.cpu())
+        assert back["round"] == 3 and torch.equal(back["steps"].cpu(), tree["steps"].cpu())
+        assert all(torch.equal(a.cpu(), b.cpu()) for pa, pb in
+                   zip(back["ct"].arrays, tree["ct"].arrays) for a, b in zip(pa, pb))
+
+
+@pytest.mark.requires_cuda
+def test_inproc_cross_silo_federation_on_cuda():
+    """Two rounds of the in-process cross-silo federation (LR, 3 silos,
+    int8 uplinks) on the card: it finishes, and the global model stays
+    finite and on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.core.distributed.communication.local_comm import LocalBroker
+    from fedml_tpu_torch.cross_silo.message_define import MyMessage
+    from fedml_tpu_torch.cross_silo.run_inproc import (
+        build_cross_silo_inproc,
+        run_managers_to_completion,
+    )
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.models.model_hub import create
+
+    args = load_arguments_from_dict({
+        "common_args": {"training_type": "cross_silo", "run_id": "cuda_cs"},
+        "data_args": {"dataset": "synthetic", "train_size": 400, "test_size": 100,
+                      "class_num": 5, "feature_dim": 16},
+        "model_args": {"model": "lr"},
+        "train_args": {"client_num_in_total": 3, "client_num_per_round": 3,
+                       "comm_round": 2, "learning_rate": 0.3, "compression": "int8"}})
+    ds = load_federated(args)
+    LocalBroker.destroy("cuda_cs")
+    server, clients = build_cross_silo_inproc(args, ds, create(args, ds.class_num))
+    result = run_managers_to_completion([server.manager] + [c.manager for c in clients],
+                                        "cuda_cs", MyMessage.MSG_TYPE_CONNECTION_IS_READY,
+                                        timeout=300)
+    assert result["rounds"] == 2 and 0.0 <= result["test_acc"] <= 1.0
+    final = server.fedml_aggregator.get_global_model_params()
+    assert all(v.is_cuda and bool(torch.isfinite(v).all()) for v in final.values())

@@ -26,6 +26,7 @@ def test_port_modules_import_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
         "sys.modules['optax'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         f"mods = {PORT_MODULES!r}\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
@@ -94,6 +95,36 @@ def test_sp_slice_modules_are_scanned(module):
     assert module in PORT_MODULES
 
 
+@pytest.mark.parametrize("module", [
+    "fedml_tpu_torch.utils.serialization",
+    "fedml_tpu_torch.core.distributed.message",
+    "fedml_tpu_torch.core.distributed.fedml_comm_manager",
+    "fedml_tpu_torch.core.distributed.communication.base_com_manager",
+    "fedml_tpu_torch.core.distributed.communication.local_comm",
+    "fedml_tpu_torch.core.distributed.communication.object_store",
+    "fedml_tpu_torch.core.distributed.communication.broker",
+    "fedml_tpu_torch.core.distributed.communication.broker_comm",
+    "fedml_tpu_torch.resilience",
+    "fedml_tpu_torch.resilience.policy",
+    "fedml_tpu_torch.resilience.dedup",
+    "fedml_tpu_torch.resilience.liveness",
+    "fedml_tpu_torch.resilience.quorum",
+    "fedml_tpu_torch.cross_silo.message_define",
+    "fedml_tpu_torch.cross_silo.run_inproc",
+    "fedml_tpu_torch.cross_silo.server.fedml_aggregator",
+    "fedml_tpu_torch.cross_silo.server.fedml_server_manager",
+    "fedml_tpu_torch.cross_silo.server.server",
+    "fedml_tpu_torch.cross_silo.client.trainer_dist_adapter",
+    "fedml_tpu_torch.cross_silo.client.fedml_client_master_manager",
+    "fedml_tpu_torch.cross_silo.client.client",
+    "fedml_tpu_torch.cli",
+])
+def test_cross_silo_slice_modules_are_scanned(module):
+    """The cross-silo slice's modules (the wire, the message layer and its
+    transports, resilience, the FSMs) are among those both scans cover."""
+    assert module in PORT_MODULES
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -109,7 +140,7 @@ def _imported_roots(path: Path):
 def test_no_jax_flax_or_reference_imports(path):
     for name in _imported_roots(path):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "flax", "optax", "fedml_tpu"), (
+        assert root not in ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "fedml_tpu"), (
             f"{path.relative_to(REPO)} imports {name}")
 
 
@@ -166,3 +197,26 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_cross_silo_entry_points_refuse_missing_cuda(monkeypatch):
+    """The cross-silo launchers and the in-process harness default to
+    ``cuda`` and raise without it, before any transport is opened."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.cross_silo.run_inproc import run_cross_silo_inproc
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.models.model_hub import create
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = load_arguments_from_dict({
+        "common_args": {"training_type": "cross_silo", "run_id": "no_cuda"},
+        "train_args": {"comm_round": 1}, "data_args": {"train_size": 64, "test_size": 16}})
+    for fn in (fedml_tpu_torch.run_cross_silo_server, fedml_tpu_torch.run_cross_silo_client):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(args)
+    ds = load_federated(args)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_cross_silo_inproc(args, ds, create(args, ds.class_num))
+    assert run_cross_silo_inproc(args, ds, create(args, ds.class_num), timeout=60,
+                                 device="cpu")["rounds"] == 1
