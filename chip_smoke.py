@@ -97,13 +97,31 @@ the final ``ok`` line:
     within CS_BROKER_TIMEOUT_S, the server reports 1 round and the broadcast
     went through the store, and prints the bytes published on the broker
     and written to the store, the ``safe_dumps`` / ``safe_loads`` ms of the
-    broadcast and of one upload, and the round's wall. Each phase prints
-    its seconds.
+    broadcast and of one upload, and the round's wall;
+(j) the aggregation-side trust stack on phase h's model and data (no hand
+    kernel on this path). (j1) the sp simulation, 10 of 10 clients, int8,
+    2 rounds, ``integrity: true`` with ``agg_robust: trimmed_mean@0.2``;
+    in round 0 one upload arrives with a NaN scale and one scaled ×100. It
+    fails unless the NaN upload is screened and its sender quarantined out
+    of round 1, the ×100 upload is contained by the trimmed mean (its pull
+    on the aggregate within 0.1 of the plain weighted mean's) and the test
+    loss falls from round 0 to 1; it prints ``screen_stats`` ms an upload,
+    ``fused_robust_sum`` against ``fused_weighted_sum`` ms on the same
+    uploads (CUDA events), the peak memory and the ``integrity/*``
+    counters. (j2) one sp round on the decode fallback, byzantine (random)
+    on 2 of 10 with krum: it fails unless krum keeps a benign update; then
+    every registered defense's three hooks run on that round's 10 ResNet-18
+    updates, each timed with its memory above them. (j3) cross-silo in
+    process, 4 silos over LOCAL, 1 round, ``integrity: true``,
+    norm-difference clipping and local DP: it fails unless the fused path
+    serves with clip factors, at least one upload is clipped
+    (``health/norm_clips_fused``) and the round ends finite; it prints
+    each silo's ε. Each phase prints its seconds.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with code 2 and prints no result. The full per-shape results also go to
-``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghi``) runs
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghij``) runs
 (a) and the phases named, and prints no kernels or ok line (phase g sets
 its round beside phase e's only when both run). ``--parent DIR`` builds the dequant and flash-forward kernels of
 another checkout (DIR, e.g. the parent commit unpacked by ``git archive``)
@@ -262,6 +280,37 @@ CS_BROKER_SILOS = 2
 CS_BROKER_TIMEOUT_S = 480        # i2: every process exits 0 within this
 CS_HASHSEED = "0"
 CS_TIMED_REPS = 5
+
+# Phase (j), the aggregation-side trust stack (ROADMAP A10.2a) on phase h's
+# model and data. j1: the sp simulation, 10 of 10 clients, int8, 2 rounds,
+# ``integrity: true`` with ``agg_robust: trimmed_mean@0.2``
+# (docs/integrity.md's recipe); round 0's upload of TRUST_NAN_CLIENT
+# arrives with a NaN scale and TRUST_SCALED_CLIENT's ×100. The norm and z
+# screens are opened, as the reference's acceptance opens them, so the
+# ×100 upload reaches the robust statistic (the non-finite rule is
+# unconditional): it must be contained, the distance from the honest
+# uploads' weighted mean within TRUST_CONTAIN of the plain weighted mean's.
+# j2: one sp round on the decode fallback, byzantine (random) on 2 of 10
+# with krum, then each registered defense timed on that round's 10 updates.
+# j3: cross-silo in process, 4 silos, 1 round, ``integrity: true`` with
+# norm-difference clipping (bound TRUST_NORM_BOUND) and local DP (ε 8,
+# δ 1e-5, sensitivity 1e-3: noise of σ 6.1e-4, ~2.0 of L2 over the model).
+TRUST_SP_CONFIG = {**SP_CONFIG, "train_args": {
+    **SP_CONFIG["train_args"], "comm_round": 2, "integrity": True,
+    "agg_robust": "trimmed_mean@0.2", "integrity_norm_mult": 1e6,
+    "integrity_z_threshold": 1e6}}
+TRUST_DECODE_CONFIG = {**SP_CONFIG, "train_args": {
+    **SP_CONFIG["train_args"], "comm_round": 1, "enable_attack": True,
+    "attack_type": "byzantine", "attack_mode": "random", "byzantine_client_num": 2,
+    "enable_defense": True, "defense_type": "krum", "krum_param_k": 1}}
+TRUST_NORM_BOUND = 2.0
+TRUST_CS_CONFIG = {**CS_CONFIG, "common_args": {
+    **CS_CONFIG["common_args"], "run_id": "chip_smoke_trust"}, "train_args": {
+    **CS_CONFIG["train_args"], "comm_round": 1, "integrity": True, "enable_defense": True,
+    "defense_type": "norm_diff_clipping", "norm_bound": TRUST_NORM_BOUND, "enable_dp": True,
+    "dp_solution_type": "LDP", "epsilon": 8.0, "delta": 1e-5, "sensitivity": 1e-3}}
+TRUST_NAN_CLIENT, TRUST_SCALED_CLIENT, TRUST_SCALE = 3, 7, 100.0
+TRUST_CONTAIN = 0.1
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s and bf16 FLOP/s.
 PEAKS = (
@@ -2031,6 +2080,317 @@ def cross_silo_broker(card: str):
                 peak_gb=[k["peak_gb"] for k in kids])
 
 
+def _reset_trust():
+    from fedml_tpu_torch.core.alg_frame.params import Context
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import (
+        FedMLDifferentialPrivacy,
+    )
+    from fedml_tpu_torch.core.security.attacker import FedMLAttacker
+    from fedml_tpu_torch.core.security.defender import FedMLDefender
+
+    for singleton in (FedMLAttacker, FedMLDefender, FedMLDifferentialPrivacy, Context):
+        singleton.reset()
+
+
+class _CorruptOnce:
+    """A client's error feedback whose first upload is corrupted after
+    encoding (its residual is the honest one), as a faulty wire would."""
+
+    def __init__(self, inner, corrupt):
+        self.inner, self.corrupt = inner, corrupt
+
+    def __getattr__(self, k):
+        return getattr(self.inner, k)
+
+    def encode(self, tree, key=None):
+        ct = self.inner.encode(tree, key=key)
+        corrupt, self.corrupt = self.corrupt, None
+        return corrupt(ct) if corrupt else ct
+
+
+def _corrupted(ct, fn):
+    from fedml_tpu_torch.compression import CompressedTree
+
+    arrays = [[fn(i, p) for p in parts] for i, parts in enumerate(ct.arrays)]
+    return CompressedTree(ct.codec, ct.version, ct.is_delta, ct.raw_nbytes, ct.meta,
+                          ct.structure, arrays)
+
+
+def _tree_dist(a, b) -> float:
+    return math.sqrt(sum(float(torch.sum((a[k].double() - b[k].double()) ** 2))
+                         for k in a))
+
+
+def _integrity_counts(reg) -> dict:
+    return {k: v for k, v in _registry_flat(reg).items()
+            if k.startswith("integrity/") or k.startswith("health/")}
+
+
+def trust_sp_phase(card: str):
+    """Phase (j1, j2): the integrity rings and the decode fallback in the
+    sp simulation, with their checks (see the module doc)."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.compression import ErrorFeedback, fused_weighted_sum
+    from fedml_tpu_torch.core.security.defender import FedMLDefender
+    from fedml_tpu_torch.core.security.defense import _REGISTRY, available_defenses
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.integrity import fused_robust_sum, screen_stats
+    from fedml_tpu_torch.ml.aggregator import agg_operator
+    from fedml_tpu_torch.models.model_hub import create
+    from fedml_tpu_torch.simulation.simulator import create_simulator
+    from fedml_tpu_torch.telemetry import get_registry
+
+    _reset_trust()
+    args = fedml_tpu_torch.init(load_arguments_from_dict(TRUST_SP_CONFIG))
+    t0 = time.perf_counter()
+    ds = load_federated(args)
+    data_s = time.perf_counter() - t0
+    model = create(args, ds.class_num)
+    reg = get_registry()
+    before = _integrity_counts(reg)
+    torch.cuda.reset_peak_memory_stats()
+    sim = create_simulator(args, "cuda", ds, model)
+    api = sim.fl_trainer
+    nan_scale = lambda i, p: (p.clone().fill_(float("nan"))  # noqa: E731
+                              if i == 0 and p.is_floating_point() else p)
+    scaled = lambda i, p: p * TRUST_SCALE if p.is_floating_point() else p  # noqa: E731
+    for cid, fn in ((TRUST_NAN_CLIENT, nan_scale), (TRUST_SCALED_CLIENT, scaled)):
+        api._ef_by_client[cid] = _CorruptOnce(ErrorFeedback(api._codec),
+                                              lambda ct, fn=fn: _corrupted(ct, fn))
+    rounds, uplinks = [], []
+    orig_agg = agg_operator.FedMLAggOperator.agg_compressed
+
+    def capture(args_, raw_list, global_params, **kw):
+        uplinks.append((raw_list, global_params, kw))
+        return orig_agg(args_, raw_list, global_params, **kw)
+
+    inner_round = api.train_one_round
+
+    def recorded(r):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = inner_round(r)
+        torch.cuda.synchronize()
+        rep["round_sec"] = time.perf_counter() - t0
+        rounds.append(rep)
+        print(f"  {card}: j1 round {r}: {rep['round_sec']:.3f} s, clients "
+              f"{rep['clients']}, test loss {rep['test_loss']:.5f}, test acc "
+              f"{rep['test_acc']:.4f}, screen {rep['screen_ms']:.2f} ms, encode "
+              f"{rep['encode_ms']:.2f} ms, robust aggregation {rep['aggregate_ms']:.2f} ms",
+              flush=True)
+        return rep
+
+    api.train_one_round = recorded
+    agg_operator.FedMLAggOperator.agg_compressed = staticmethod(capture)
+    try:
+        sim.run()
+    finally:
+        agg_operator.FedMLAggOperator.agg_compressed = staticmethod(orig_agg)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = {k: v - before.get(k, 0) for k, v in _integrity_counts(reg).items()
+              if isinstance(v, (int, float))}
+    losses = [r["test_loss"] for r in rounds]
+    if not (len(rounds) == 2 and all(math.isfinite(x) for x in losses)
+            and losses[1] < losses[0]):
+        raise RuntimeError(f"j1: the test loss did not fall from round 0: {losses}")
+    if not (counts.get("integrity/nonfinite_uploads") == 1
+            and counts.get("integrity/quarantined") == 1
+            and api._quarantine.reason(TRUST_NAN_CLIENT) is not None
+            and TRUST_NAN_CLIENT not in rounds[1]["clients"]
+            and len(rounds[1]["clients"]) == args.client_num_per_round - 1):
+        raise RuntimeError(f"j1: the NaN upload was not screened and its sender "
+                           f"quarantined: {counts}, round 1 clients {rounds[1]['clients']}")
+    # containment: round 0's uploads (the NaN one already dropped)
+    pairs, base, kw = uplinks[0]
+    if kw.get("agg_robust") != "trimmed_mean@0.2" or len(pairs) != 9:
+        raise RuntimeError(f"j1: round 0 did not aggregate 9 uploads robustly: {kw}, "
+                           f"{len(pairs)}")
+    cts = [ct for _, ct in pairs]
+    w = agg_operator.FedMLAggOperator._weights(args, pairs)
+    kept = [c for c in rounds[0]["clients"] if c != TRUST_NAN_CLIENT]
+    bad = kept.index(TRUST_SCALED_CLIENT)
+    honest = [i for i in range(len(cts)) if i != bad]
+    hw = w[honest] / w[honest].sum()
+    robust = fused_robust_sum(cts, "trimmed_mean", 0.2)
+    mean = fused_weighted_sum(cts, w)
+    honest_mean = fused_weighted_sum([cts[i] for i in honest], hw)
+    d_robust, d_mean = _tree_dist(robust, honest_mean), _tree_dist(mean, honest_mean)
+    if not d_robust <= TRUST_CONTAIN * d_mean:
+        raise RuntimeError(f"j1: the x{TRUST_SCALE:g} upload was not contained: "
+                           f"{d_robust} vs the weighted mean's {d_mean}")
+    screen_ms = _events_ms(lambda: screen_stats(cts[0]))
+    robust_ms = _events_ms(lambda: fused_robust_sum(cts, "trimmed_mean", 0.2))
+    weighted_ms = _events_ms(lambda: fused_weighted_sum(cts, w))
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_robust_sum(cts, "trimmed_mean", 0.2)
+    torch.cuda.synchronize()
+    robust_extra_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
+    print(f"  {card}: j1 screen_stats {screen_ms:.3f} ms an upload; fused_robust_sum "
+          f"(trimmed_mean@0.2) {robust_ms:.2f} ms vs fused_weighted_sum {weighted_ms:.2f} ms "
+          f"on round 0's {len(cts)} uploads (CUDA events, mean of {CS_TIMED_REPS}); "
+          f"the robust sum's transient {robust_extra_gb:.3f} GB; peak {peak_gb:.3f} GB; "
+          f"x{TRUST_SCALE:g} upload's pull on the aggregate: trimmed mean {d_robust:.4g}, "
+          f"weighted mean {d_mean:.4g} (limit {TRUST_CONTAIN} of it); data made in "
+          f"{data_s:.1f} s", flush=True)
+    print(f"  {card}: j1 counters {json.dumps(counts, sort_keys=True)}", flush=True)
+    j1 = dict(rounds=[{k: v for k, v in r.items() if k != "uplink_bytes"} for r in rounds],
+              counters=counts, screen_ms=screen_ms, robust_ms=robust_ms,
+              weighted_ms=weighted_ms, robust_extra_gb=robust_extra_gb, peak_gb=peak_gb,
+              contained=d_robust, weighted_pull=d_mean)
+    del sim, api, uplinks, cts, pairs, robust, mean, honest_mean
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # j2: the decode fallback (a model attack needs the decoded models)
+    _reset_trust()
+    args = fedml_tpu_torch.init(load_arguments_from_dict(TRUST_DECODE_CONFIG))
+    sim = create_simulator(args, "cuda", ds, model)
+    defender = FedMLDefender.get_instance()
+    chosen, cohort = [], []
+    before_hook = defender.defend_before_aggregation
+
+    def recording(raw_client_grad_list, extra_auxiliary_info=None):
+        out = before_hook(raw_client_grad_list, extra_auxiliary_info)
+        chosen.append([next(i for i, p in enumerate(raw_client_grad_list) if p is o)
+                       for o in out])
+        cohort.append(list(raw_client_grad_list))
+        return out
+
+    defender.defend_before_aggregation = recording
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = sim.run()
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    if not (chosen and len(chosen[0]) == 1 and chosen[0][0] >= args.byzantine_client_num
+            and math.isfinite(rep["test_loss"])):
+        raise RuntimeError(f"j2: krum did not select a benign update: {chosen}, {rep}")
+    print(f"  {card}: j2 round {round_s:.3f} s (decode fallback, byzantine on the first "
+          f"{args.byzantine_client_num} of {len(cohort[0])}): krum kept update "
+          f"{chosen[0][0]}; test loss {rep['test_loss']:.5f}, acc {rep['test_acc']:.4f}",
+          flush=True)
+    updates = cohort[0]
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    defenses = {}
+    names = {}
+    for name in available_defenses():
+        names.setdefault(_REGISTRY[name], []).append(name)
+    import types
+
+    for cls, aliases in names.items():
+        _reset_trust()
+        dargs = types.SimpleNamespace(**vars(args))
+        dargs.defense_type = aliases[0]
+        FedMLDefender.get_instance().init(dargs)
+        d = FedMLDefender.get_instance()
+
+        def chain():
+            kept = d.defend_before_aggregation(updates, None)
+            agg = d.defend_on_aggregation(kept, agg_operator.FedMLAggOperator.agg, None)
+            return d.defend_after_aggregation(agg)
+
+        chain()  # warm
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = chain()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        extra = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+        defenses["/".join(aliases)] = dict(ms=ms, extra_gb=extra, finite=finite)
+        print(f"    {'/'.join(aliases)}: {ms:.2f} ms (before + on + after aggregation, "
+              f"host clock after a warm call), {extra:.3f} GB above the 10 updates, "
+              f"finite {finite}", flush=True)
+        if not finite:
+            raise RuntimeError(f"j2: defense {aliases} gave a non-finite aggregate")
+    _reset_trust()
+    return dict(j1=j1, j2=dict(round_s=round_s, krum_kept=chosen[0],
+                               test_loss=rep["test_loss"], defenses=defenses))
+
+
+def trust_cross_silo_phase(card: str):
+    """Phase (j3): norm-difference clipping and local DP on the fused path
+    of an in-process cross-silo federation, with its checks (see the module
+    doc)."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.compression import CompressedTree, get_codec, requires_full_trees
+    from fedml_tpu_torch.core.distributed.communication.local_comm import LocalBroker
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import (
+        FedMLDifferentialPrivacy,
+    )
+    from fedml_tpu_torch.cross_silo.message_define import MyMessage
+    from fedml_tpu_torch.cross_silo.run_inproc import (
+        build_cross_silo_inproc,
+        run_managers_to_completion,
+    )
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.ml.aggregator import agg_operator
+    from fedml_tpu_torch.models.model_hub import create
+    from fedml_tpu_torch.telemetry import get_registry
+
+    _reset_trust()
+    args = fedml_tpu_torch.init(load_arguments_from_dict(TRUST_CS_CONFIG))
+    ds = load_federated(args)
+    model = create(args, ds.class_num)
+    LocalBroker.destroy(args.run_id)
+    reg = get_registry()
+    before = _integrity_counts(reg)
+    fused_calls = []
+    orig_agg = agg_operator.FedMLAggOperator.agg_compressed
+
+    def capture(args_, raw_list, global_params, **kw):
+        fused_calls.append(dict(n=len(raw_list), clip=kw.get("clip_factors"),
+                                robust=kw.get("agg_robust"),
+                                int8=all(isinstance(ct, CompressedTree) and ct.codec == "int8"
+                                         and ct.is_delta for _, ct in raw_list)))
+        return orig_agg(args_, raw_list, global_params, **kw)
+
+    full = requires_full_trees(get_codec(args.compression), args)
+    server, clients = build_cross_silo_inproc(args, ds, model, "cuda")
+    agg_operator.FedMLAggOperator.agg_compressed = staticmethod(capture)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        result = run_managers_to_completion([server.manager] + [c.manager for c in clients],
+                                            args.run_id, MyMessage.MSG_TYPE_CONNECTION_IS_READY,
+                                            timeout=900)
+    finally:
+        agg_operator.FedMLAggOperator.agg_compressed = staticmethod(orig_agg)
+    wall = time.perf_counter() - t0
+    counts = {k: v - before.get(k, 0) for k, v in _integrity_counts(reg).items()
+              if isinstance(v, (int, float))}
+    dp = FedMLDifferentialPrivacy.get_instance()
+    eps = {rank: dp.epsilon_spent(stream=rank) for rank in range(1, len(clients) + 1)}
+    final = server.fedml_aggregator.get_global_model_params()
+    print(f"  {card}: j3 {len(clients)} silos, 1 round in {wall:.3f} s; result {result}; "
+          f"requires_full_trees {full}; fused calls {fused_calls}", flush=True)
+    print(f"  {card}: j3 LDP ε per silo after its release: "
+          + ", ".join(f"rank {r} {e:.4f}" for r, e in eps.items())
+          + f" (δ {args.delta}, σ {dp.frame.mechanism.sigma:.4g}); counters "
+          f"{json.dumps(counts, sort_keys=True)}", flush=True)
+    if full or not (fused_calls and fused_calls[0]["clip"] is not None
+                    and fused_calls[0]["int8"] and not fused_calls[0]["robust"]):
+        raise RuntimeError(f"j3: the fused path with clip factors did not serve: "
+                           f"{full}, {fused_calls}")
+    if not counts.get("health/norm_clips_fused", 0) > 0:
+        raise RuntimeError(f"j3: no update was clipped on the fused path: {counts}")
+    if not (result and result.get("rounds") == 1 and all(e > 0 for e in eps.values())
+            and all(v.is_cuda and bool(torch.isfinite(v).all()) for v in final.values())):
+        raise RuntimeError(f"j3: the federation did not end in a finite round: {result}, "
+                           f"{eps}")
+    _reset_trust()
+    return dict(wall_s=wall, result=result, fused_calls=fused_calls, counters=counts,
+                epsilon=eps)
+
+
 def step_sum(results, key, rows=DECODE_ROWS):
     """One pass's total over its 225 launches at ``rows`` rows (None where
     a time was not measured)."""
@@ -2044,7 +2404,7 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="bcdefghi",
+    parser.add_argument("--phases", default="bcdefghij",
                         help="phases to run after (a), e.g. 'd' for the flash kernels "
                              "alone (default: all; only a full run prints the kernels "
                              "and ok lines)")
@@ -2084,7 +2444,7 @@ def main(argv=None) -> int:
               f"{info.get('spill_stores')} / loads {info.get('spill_loads')} bytes, stack "
               f"{info.get('stack')} bytes", flush=True)
 
-    results = serve = flash = train = quantized = qlora = sp = cross_silo = None
+    results = serve = flash = train = quantized = qlora = sp = cross_silo = trust = None
     phase_s = {}
     parent_dequant = parent_fwd = None
     if opts.parent:
@@ -2133,12 +2493,20 @@ def main(argv=None) -> int:
         print(f"(i2) cross-silo FedAvg over the broker: a server and {CS_BROKER_SILOS} "
               "silos as processes, 1 round", flush=True)
         cross_silo = dict(inproc=inproc, broker=timed("i2", lambda: cross_silo_broker(card)))
+    if "j" in phases:
+        print("(j1) the trust stack in the sp simulation: integrity + trimmed_mean@0.2, a NaN "
+              f"and a x{TRUST_SCALE:g} upload, 2 rounds; (j2) the decode fallback: "
+              "byzantine + krum, 1 round, then every defense timed", flush=True)
+        trust = timed("j1+j2", lambda: trust_sp_phase(card))
+        print("(j3) the trust stack in cross-silo: 4 silos over LOCAL, norm-difference "
+              "clipping + local DP on the fused path, 1 round", flush=True)
+        trust["j3"] = timed("j3", lambda: trust_cross_silo_phase(card))
     os.makedirs("results", exist_ok=True)
     record = {"card": card, "torch": torch.__version__, "build_s": build_s, "ptxas": ptxas,
               "shapes": results, "serve": serve, "flash": flash, "train": train,
               "quantized": quantized, "qlora": qlora, "sp": sp, "cross_silo": cross_silo,
-              "phase_s": phase_s}
-    if sorted(phases) != list("bcdefghi"):
+              "trust": trust, "phase_s": phase_s}
+    if sorted(phases) != list("bcdefghij"):
         with open(os.path.join("results", "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
         print(f"phases {phases} passed (a partial run prints no kernels or ok line)")

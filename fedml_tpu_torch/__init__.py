@@ -16,8 +16,10 @@ with compressed uplinks (:func:`run_simulation`: ``simulation``,
 synchronous cross-silo FedAvg over the in-process and TCP-broker
 transports (:func:`run_cross_silo_server` / :func:`run_cross_silo_client`:
 ``cross_silo``, ``core.distributed``, ``resilience``, the reference's wire
-in ``utils.serialization``). Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+in ``utils.serialization``), and the aggregation-side trust stack of both
+engines: the integrity rings (``integrity``), differential privacy
+(``core.dp``), attacks and defenses (``core.security``). Entry points run
+on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 import random
 from typing import Any, Optional
@@ -25,6 +27,29 @@ from typing import Any, Optional
 import numpy as np
 
 from fedml_tpu_torch.device import DeviceLike, resolve_device
+
+
+def init(args: Any) -> Any:
+    """Counterpart of ``fedml_tpu.init`` for an args namespace: seed
+    Python's and numpy's generators and configure the trust-stack
+    singletons (``FedMLAttacker``, ``FedMLDefender``,
+    ``FedMLDifferentialPrivacy``) from ``args``. They are per process:
+    ``reset()`` them between in-process runs."""
+    from fedml_tpu_torch.compression import check_trust_stack
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import (
+        FedMLDifferentialPrivacy,
+    )
+    from fedml_tpu_torch.core.security.attacker import FedMLAttacker
+    from fedml_tpu_torch.core.security.defender import FedMLDefender
+
+    check_trust_stack(args)
+    seed = int(getattr(args, "random_seed", 0))
+    random.seed(seed)
+    np.random.seed(seed)
+    FedMLAttacker.get_instance().init(args)
+    FedMLDefender.get_instance().init(args)
+    FedMLDifferentialPrivacy.get_instance().init(args)
+    return args
 
 
 def run_simulation(args: Optional[Any] = None, device: DeviceLike = "cuda"):
@@ -39,10 +64,7 @@ def run_simulation(args: Optional[Any] = None, device: DeviceLike = "cuda"):
     from fedml_tpu_torch.runner import FedMLRunner
 
     dev = resolve_device(device)
-    args = load_arguments("simulation") if args is None else apply_defaults(args)
-    seed = int(getattr(args, "random_seed", 0))
-    random.seed(seed)
-    np.random.seed(seed)
+    args = init(load_arguments("simulation") if args is None else apply_defaults(args))
     dataset = load_federated(args)
     model = create(args, dataset.class_num)
     return FedMLRunner(args, dev, dataset, model).run()
@@ -57,9 +79,7 @@ def _run_cross_silo(role: str, args: Optional[Any], device: DeviceLike):
     dev = resolve_device(device)
     args = load_arguments("cross_silo") if args is None else apply_defaults(args)
     args.role = role
-    seed = int(getattr(args, "random_seed", 0))
-    random.seed(seed)
-    np.random.seed(seed)
+    init(args)
     dataset = load_federated(args)
     model = create(args, dataset.class_num)
     return FedMLRunner(args, dev, dataset, model).run()
@@ -80,5 +100,5 @@ def run_cross_silo_client(args: Optional[Any] = None, device: DeviceLike = "cuda
     return _run_cross_silo("client", args, device)
 
 
-__all__ = ["resolve_device", "run_cross_silo_client", "run_cross_silo_server",
+__all__ = ["init", "resolve_device", "run_cross_silo_client", "run_cross_silo_server",
            "run_simulation"]

@@ -36,33 +36,46 @@ from fedml_tpu_torch.compression.codecs import (
 )
 from fedml_tpu_torch.compression.error_feedback import ErrorFeedback
 
-# The server-side trust stack of the reference (differential privacy, FHE,
-# model attacks, defenses, integrity rings, robust aggregation, contribution
-# assessment): the args that switch each part on, all ported with ROADMAP A10.2.
-TRUST_STACK_ARGS = ("enable_dp", "enable_fhe", "enable_attack", "enable_defense",
-                    "enable_contribution", "integrity", "integrity_screen",
-                    "integrity_rollback", "agg_robust")
+# The parts of the reference's trust stack the port has not ported yet:
+# the argument that switches each on → the ROADMAP item that brings it
+# (secure aggregation is refused by the cross-silo FSMs, naming A10.2b).
+TRUST_STACK_ARGS = {
+    "enable_fhe": "FHE aggregation (ROADMAP A13)",
+    "enable_contribution": "contribution assessment (ROADMAP A10.2c)",
+}
 
 
 def check_trust_stack(args: Any) -> None:
-    """Raise if ``args`` switches on any part of the trust stack: the port
-    has none of it yet, and a run must not silently go without it."""
+    """Raise if ``args`` switches on a part of the trust stack the port has
+    not ported: a run must not silently go without it."""
     on = [k for k in TRUST_STACK_ARGS if args is not None and getattr(args, k, None)]
     if on:
-        raise NotImplementedError(
-            f"{', '.join(on)}: the trust stack (DP, FHE, attacks, defenses, "
-            "integrity, robust aggregation, contribution assessment) comes "
-            "with ROADMAP A10.2; the port has not ported it yet")
+        raise NotImplementedError("; ".join(
+            f"{k}: {TRUST_STACK_ARGS[k]} is not ported yet" for k in on))
 
 
 def requires_full_trees(codec=None, args: Any = None) -> bool:
     """True when a server-side hook needs every client's full model instead
-    of the dequant-fused aggregate. In the reference that is the trust stack
-    (FHE, model attacks, list defenses, central DP); the port has none of
-    it, so a trust-stack argument raises (:func:`check_trust_stack`) and
-    otherwise the fused path always serves."""
+    of the dequant-fused aggregate: a model attack, a list defense or
+    central DP (the reference's answer). Norm-only defenses are exempt
+    (their clip factors come off the compressed blocks), and so are the
+    fused robust defenses when ``codec`` is dense and broadcast-safe. The
+    parts still to port raise (:func:`check_trust_stack`)."""
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import (
+        FedMLDifferentialPrivacy,
+    )
+    from fedml_tpu_torch.core.security.attacker import FedMLAttacker
+    from fedml_tpu_torch.core.security.defender import FedMLDefender
+
     check_trust_stack(args)
-    return False
+    dp = FedMLDifferentialPrivacy.get_instance()
+    defender = FedMLDefender.get_instance()
+    fused_capable = (codec is not None and getattr(codec, "broadcast_safe", False)
+                     and not getattr(codec, "maskable", False))
+    return (FedMLAttacker.get_instance().is_model_attack()
+            or (defender.is_defense_enabled() and not defender.is_norm_only_defense()
+                and not (defender.is_fused_defense() and fused_capable))
+            or (dp.is_dp_enabled() and dp.is_global_dp_enabled()))
 
 
 __all__ = [

@@ -26,7 +26,7 @@ traced value stays a division, which here is a tensor / tensor division on
 every device (CUDA turns a division by a Python scalar into a product).
 
 The masked secure-aggregation codec and the federated-analytics sketch
-codecs are legal wire tags but come with ROADMAP A10.2 (secure aggregation)
+codecs are legal wire tags but come with ROADMAP A10.2b (secure aggregation)
 and A10.5 (the sketches); resolving one raises.
 """
 from __future__ import annotations
@@ -40,7 +40,7 @@ from fedml_tpu_torch.compression import threefry
 from fedml_tpu_torch.utils.tree import Tree, tree_flatten
 
 WIRE_VERSION = 1
-# the masked secure-aggregation wire (ROADMAP A10.2): a legal version for
+# the masked secure-aggregation wire (ROADMAP A10.2b): a legal version for
 # maskable codecs only
 WIRE_VERSION_MASKED = 2
 
@@ -589,7 +589,7 @@ _CODEC_CLASSES: Dict[str, type] = {
 _INSTANCES: Dict[Tuple, Codec] = {}
 
 # tags of codecs that arrive later: the masked secure-aggregation codec
-# (ROADMAP A10.2) and the federated-analytics sketch family (A10.5)
+# (ROADMAP A10.2b) and the federated-analytics sketch family (A10.5)
 _SECAGG_NAME = "secagg_int8"
 MASKABLE_CODECS = (_SECAGG_NAME,)
 _SKETCH_NAMES = ("cms", "csk", "votevec", "bloom", "hist")
@@ -597,7 +597,7 @@ _SKETCH_NAMES = ("cms", "csk", "votevec", "bloom", "hist")
 
 def available_codecs() -> Tuple[str, ...]:
     # the masked codec and the sketch family are legal wire tags, as in the
-    # reference, though resolving one raises until A10.2 / A10.5 port them
+    # reference, though resolving one raises until A10.2b / A10.5 port them
     return tuple(sorted(set(_CODEC_CLASSES) | {_SECAGG_NAME} | set(_SKETCH_NAMES)))
 
 
@@ -619,7 +619,7 @@ def get_codec(name: str, args: Any = None) -> Optional[Codec]:
     base, _, param = name.partition("@")
     if base not in _CODEC_CLASSES and (
             base == _SECAGG_NAME or base in _SKETCH_NAMES):
-        part = "A10.2" if base == _SECAGG_NAME else "A10.5"
+        part = "A10.2b" if base == _SECAGG_NAME else "A10.5"
         raise NotImplementedError(
             f"codec {base!r} comes with secure aggregation and federated "
             f"analytics (ROADMAP {part}); the port has not ported it yet")

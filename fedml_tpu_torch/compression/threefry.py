@@ -16,7 +16,14 @@ codecs use, for ``jax_default_prng_impl = threefry2x32`` with
   hash of the row-major element index, split into its high and low words,
   gives ``(bits1, bits2)``, and the draw is ``bits1 ^ bits2``; a float32
   uniform keeps the top 23 bits as the mantissa of a number in [1, 2) and
-  subtracts 1.
+  subtracts 1;
+* :func:`split` — ``jax.random.split(key, n)``: key ``i`` is the hash of
+  the counter pair ``(0, i)``, the same as ``fold_in(key, i)``;
+* :func:`normal` / :func:`laplace` — ``jax.random.normal`` /
+  ``jax.random.laplace`` in float32, from the uniform on
+  ``(nextafter(-1, 0), 1)`` the reference builds them on. The uniform is
+  bit-equal; ``torch.erfinv`` and ``torch.log1p`` are not XLA's
+  polynomials, so a draw agrees with the reference's within a few ulp.
 
 A key is an int64 tensor of shape ``[2]`` holding the two uint32 words.
 Every word is held in an int64 tensor and masked to 32 bits after each
@@ -100,3 +107,39 @@ def uniform(k: Key, shape: Sequence[int],
     bits = random_bits(k, shape, device)
     mant = (bits >> 9) | 0x3F800000  # < 2^30: fits int32
     return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
+def split(k: Key, n: int) -> torch.Tensor:
+    """``jax.random.split(k, n)``: an ``[n, 2]`` tensor of keys, row ``i``
+    the hash of the counter pair ``(0, i)`` under ``k``."""
+    idx = torch.arange(int(n), dtype=torch.int64)
+    b1, b2 = threefry2x32(k[0], k[1], torch.zeros_like(idx), idx)
+    return torch.stack([b1, b2], dim=1)
+
+
+# the open lower end of the reference's normal and laplace draws:
+# nextafter(-1, 0) in float32, and the width hi - lo as float32 rounds it
+_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_WIDTH = float(np.float32(1.0) - np.float32(_LO))
+
+
+def _symmetric_uniform(k: Key, shape: Sequence[int], device) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, minval=nextafter(-1, 0), maxval=1)``:
+    ``max(lo, u * (hi - lo) + lo)`` with ``u`` the [0, 1) draw."""
+    u = uniform(k, shape, device)
+    return torch.clamp_min(u * _WIDTH + _LO, _LO)
+
+
+def normal(k: Key, shape: Sequence[int],
+           device: Optional[Union[str, torch.device]] = None) -> torch.Tensor:
+    """``jax.random.normal(k, shape)`` in float32: ``sqrt(2)·erfinv(u)``."""
+    u = _symmetric_uniform(k, shape, device)
+    return torch.erfinv(u) * float(np.float32(np.sqrt(2.0)))
+
+
+def laplace(k: Key, shape: Sequence[int],
+            device: Optional[Union[str, torch.device]] = None) -> torch.Tensor:
+    """``jax.random.laplace(k, shape)`` in float32:
+    ``sign(u)·log1p(-|u|)``."""
+    u = _symmetric_uniform(k, shape, device)
+    return torch.sign(u) * torch.log1p(-torch.abs(u))

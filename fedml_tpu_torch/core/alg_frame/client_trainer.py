@@ -1,10 +1,15 @@
 """ClientTrainer — counterpart of ``fedml_tpu/core/alg_frame/client_trainer.py``.
 
 Parameters are an explicit ``{path: tensor}`` argument and return value,
-never cached in the operator. The reference's hooks around local training
-run the trust stack (data poisoning, FHE, local DP); the port has none of
-it yet (ROADMAP A10.2), so its arguments are refused when a trainer is built
-and the hooks pass their inputs through.
+never cached in the operator. The hooks around local training run the
+client side of the trust stack, as the reference's: data poisoning before
+(``FedMLAttacker``), local DP noise after (``FedMLDifferentialPrivacy``).
+FHE comes with ROADMAP A13 and is refused when a trainer is built.
+
+``trust_stream`` keys this trainer's attacker and DP state: None in the sp
+simulation (one process-wide stream, as the reference's sequential loop),
+the silo's rank in cross-silo, so in-process silos each draw what their
+own process would.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ class ClientTrainer(abc.ABC):
         self.args = args
         self.id = 0
         self.local_sample_number = 0
+        self.trust_stream = None
 
     def set_id(self, trainer_id: int) -> None:
         self.id = trainer_id
@@ -41,10 +47,24 @@ class ClientTrainer(abc.ABC):
 
     def on_before_local_training(self, params: Tree, train_data: Any,
                                  device: Any, args: Any) -> Tuple[Tree, Any]:
+        """Data poisoning (reference ``client_trainer.py:59-69``)."""
+        from fedml_tpu_torch.core.security.attacker import FedMLAttacker
+
+        attacker = FedMLAttacker.get_instance()
+        if attacker.is_data_poisoning_attack() and attacker.is_to_poison_data():
+            train_data = attacker.poison_data(train_data, stream=self.trust_stream)
         return params, train_data
 
     def on_after_local_training(self, params: Tree, train_data: Any,
                                 device: Any, args: Any) -> Tree:
+        """Local-DP noise (reference ``:71-85``)."""
+        from fedml_tpu_torch.core.dp.fedml_differential_privacy import (
+            FedMLDifferentialPrivacy,
+        )
+
+        dp = FedMLDifferentialPrivacy.get_instance()
+        if dp.is_local_dp_enabled():
+            params = dp.add_local_noise(params, stream=self.trust_stream)
         return params
 
     @abc.abstractmethod

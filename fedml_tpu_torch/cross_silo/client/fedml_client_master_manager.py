@@ -17,8 +17,12 @@ numbers.
 
 The client draws no global random state: its batches are seeded by (seed,
 rank, round) and its codec keys by ``derive_key``, so clients training on
-threads of one process stay deterministic. SecAgg comes with ROADMAP A10.2
-and the live telemetry streamers with A12.
+threads of one process stay deterministic. The trainer's trust hooks
+(data poisoning, local DP) are keyed by this client's rank
+(``ClientTrainer.trust_stream``), so in-process silos draw what each
+silo's own process would. An ``agg_robust`` header is checked: a spec this
+client cannot parse means the federation disagrees about its aggregation.
+SecAgg comes with ROADMAP A10.2b and the live telemetry streamers with A12.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ from fedml_tpu_torch.core.distributed.message import Message
 from fedml_tpu_torch.cross_silo.message_define import MyMessage
 from fedml_tpu_torch.cross_silo.server.fedml_server_manager import refuse_unported
 from fedml_tpu_torch.device import DeviceLike
+from fedml_tpu_torch.integrity import parse_robust_spec
 from fedml_tpu_torch.models.convert import (
     from_reference_layout,
     from_wire_params,
@@ -57,7 +62,7 @@ from fedml_tpu_torch.utils.tree import Tree
 logger = logging.getLogger(__name__)
 
 _NOT_PORTED = {
-    "secure_aggregation": "secure aggregation (ROADMAP A10.2)",
+    "secure_aggregation": "secure aggregation (ROADMAP A10.2b)",
     "live_telemetry": "the live telemetry plane (ROADMAP A12)",
 }
 
@@ -144,10 +149,11 @@ class ClientMasterManager(FedMLCommManager):
                              from_reference_layout(decoded).items()}
         else:
             global_params = from_wire_params(payload, self.device)
-        if msg.get(Message.MSG_ARG_KEY_AGG_ROBUST) is not None:
-            raise NotImplementedError(
-                "agg_robust header: robust aggregation comes with the trust stack "
-                "(ROADMAP A10.2); this client cannot check the federation's spec")
+        robust = msg.get(Message.MSG_ARG_KEY_AGG_ROBUST)
+        if robust is not None:
+            # informational for a flat client (the server aggregates), but an
+            # unparsable spec must fail loudly
+            parse_robust_spec(robust)
         negotiated = msg.get(Message.MSG_ARG_KEY_COMPRESSION)
         if negotiated is not None:
             # the server's spec wins over local config, so every peer encodes

@@ -29,6 +29,8 @@ class TrainerDistAdapter:
         self.dataset = dataset
         self.trainer = client_trainer or create_model_trainer(model, args)
         self.trainer.set_id(self.client_rank)
+        # the silo's own attacker and DP streams (its process's, in the reference)
+        self.trainer.trust_stream = self.client_rank
         self.client_index = self.client_rank - 1
         max_n = max(dataset.train_data_local_num_dict.values())
         self.trainer.set_pad_to_batches(

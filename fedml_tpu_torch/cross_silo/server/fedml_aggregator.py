@@ -6,9 +6,12 @@ round's clients and silos, and test the global model.
 Uploads are kept as they arrive: an uncompressed model as a port tree on
 the server's device, a compressed one as its ``CompressedTree`` (in the
 reference's layout). Compressed deltas aggregate through the dequant-fused
-sum (``FedMLAggOperator.agg_compressed``) without clip factors; the trust
-stack that would need every client's full model is refused when the args
-are read (``compression.check_trust_stack``, ROADMAP A10.2).
+sum (``FedMLAggOperator.agg_compressed``) — with a norm-only defense's clip
+factors, or as the robust statistic under ``agg_robust`` or a fused defense
+— unless a trust-stack hook needs every client's full model
+(``compression.requires_full_trees``: a model attack, a list defense,
+central DP), in which case each delta is decoded and the
+``ServerAggregator`` hook chain runs.
 """
 from __future__ import annotations
 
@@ -24,7 +27,10 @@ from fedml_tpu_torch.compression import (
     requires_full_trees,
     tree_undelta,
 )
+from fedml_tpu_torch.core.alg_frame.params import Context
 from fedml_tpu_torch.core.alg_frame.server_aggregator import ServerAggregator
+from fedml_tpu_torch.core.security.defender import FedMLDefender
+from fedml_tpu_torch.integrity import resolve_agg_robust
 from fedml_tpu_torch.ml.aggregator.agg_operator import FedMLAggOperator
 from fedml_tpu_torch.ml.aggregator.server_optimizer import ServerOptimizer
 from fedml_tpu_torch.models.convert import from_reference_layout, to_reference_layout
@@ -118,9 +124,10 @@ class FedMLAggregator:
 
     def _resolve_compressed(self, raw_list: List[Tuple[int, Any]]
                             ) -> Tuple[List[Tuple[int, Any]], Optional[Tree]]:
-        """Compressed uploads: all delta-encoded → the dequant-fused sum
-        (no per-client f32 tree is built), returned as ``w_agg``; otherwise
-        each is decoded back to a full port tree for the plain average."""
+        """Compressed uploads: all delta-encoded and no hook needing full
+        models → the dequant-fused sum (no per-client f32 tree is built),
+        returned as ``w_agg``; otherwise each is decoded back to a full port
+        tree for the hook chain."""
         if not any(isinstance(m, CompressedTree) for _, m in raw_list):
             return raw_list, None
         base = self.get_upload_base()
@@ -128,8 +135,12 @@ class FedMLAggregator:
                      if isinstance(m, CompressedTree))
         if all(isinstance(m, CompressedTree) and m.is_delta for _, m in raw_list) \
                 and not requires_full_trees(codec, self.args):
+            agg_robust = resolve_agg_robust(self.args, codec=codec)
+            clip = None if agg_robust else FedMLDefender.get_instance(
+                ).fused_clip_factors([m for _, m in raw_list])
             return raw_list, from_reference_layout(FedMLAggOperator.agg_compressed(
-                self.args, raw_list, to_reference_layout(base)))
+                self.args, raw_list, to_reference_layout(base), clip_factors=clip,
+                agg_robust=agg_robust))
         decoded = []
         for n, m in raw_list:
             if isinstance(m, CompressedTree):
@@ -143,6 +154,7 @@ class FedMLAggregator:
         # in cannot change the sum
         order = sorted(self.model_dict)
         raw_list = [(self.sample_num_dict[i], self.model_dict[i]) for i in order]
+        Context().add("global_model_for_defense", self.global_params)
         raw_list, w_agg = self._resolve_compressed(raw_list)
         if w_agg is None:
             w_list, _ = self.aggregator.on_before_aggregation(raw_list)

@@ -18,16 +18,29 @@ and probes them each round; a returning client is re-synced and re-enters
 at the next selection. A round stuck below quorum re-arms a bounded number
 of times, then aborts the federation through ``handler_error``.
 
+The integrity rings are the reference's (``integrity: true``,
+``agg_robust``): quarantined clients sit out the selection; each upload is
+screened on receipt (under the round lock, as the reference admits it; the
+quarantine that follows a drop runs outside it), a screened sender counts
+as missing and the round closes over the rest, with the per-block z pass
+at the close; ``agg_robust`` rides the round-config header and swaps the
+fused weighted mean for the robust statistic; and the acceptance guard may
+reject the aggregate (non-finite, before anything else sees it) or the
+eval (a loss spike), which rolls the round back to its round-open state
+and re-runs it with a fresh cohort. Attacks, defenses and DP are the
+singletons' and run in the aggregator's and the trainers' hooks.
+
 Not ported yet, and refused when their arguments are set: secure
-aggregation, the integrity rings, robust aggregation and the rest of the
-trust stack (ROADMAP A10.2), the durability journal and chaos (A10.3),
-round checkpoints and resume (A4), and the live telemetry plane, spans and
-the flight recorder (A12). ``cross_silo/round_ms`` (broadcast to the test
-after aggregation) and the reference's ``resilience/*`` counters go to the
-port's metrics registry.
+aggregation (ROADMAP A10.2b), FHE (A13), contribution assessment (A10.2c),
+the durability journal and chaos (A10.3), round checkpoints and resume
+(A4), and the live telemetry plane, spans and the flight recorder (A12).
+``cross_silo/round_ms`` (broadcast to the test after aggregation) and the
+reference's ``resilience/*`` and ``integrity/*`` counters go to the port's
+metrics registry.
 """
 from __future__ import annotations
 
+import copy
 import logging
 import math
 import threading
@@ -43,6 +56,15 @@ from fedml_tpu_torch.core.distributed.message import Message
 from fedml_tpu_torch.cross_silo.message_define import MyMessage
 from fedml_tpu_torch.cross_silo.server.fedml_aggregator import FedMLAggregator
 from fedml_tpu_torch.device import DeviceLike
+from fedml_tpu_torch.integrity import (
+    AcceptanceGuard,
+    IntegrityConfig,
+    QuarantineList,
+    RollbackBudgetExceeded,
+    UpdateScreen,
+    parse_robust_spec,
+    resolve_agg_robust,
+)
 from fedml_tpu_torch.models.convert import (
     from_reference_layout,
     from_wire_params,
@@ -62,7 +84,7 @@ logger = logging.getLogger(__name__)
 
 # arguments of features the port's server does not have yet → the item
 _NOT_PORTED = {
-    "secure_aggregation": "secure aggregation (ROADMAP A10.2)",
+    "secure_aggregation": "secure aggregation (ROADMAP A10.2b)",
     "resume": "resume from a round checkpoint (ROADMAP A4)",
     "checkpoint_dir": "round checkpoints (ROADMAP A4)",
     "live_telemetry": "the live telemetry plane (ROADMAP A12)",
@@ -138,6 +160,35 @@ class FedMLServerManager(FedMLCommManager):
         self._deadline = RoundDeadline(self._on_round_deadline)
         self._m_round_ms = get_registry().histogram("cross_silo/round_ms")
 
+        # the integrity rings (parity: fedml_server_manager.py:197-262)
+        self._agg_robust = resolve_agg_robust(args, codec=self._codec)
+        if parse_robust_spec(getattr(args, "agg_robust", "")) is not None:
+            if self._codec is None:
+                raise ValueError(
+                    "agg_robust rides the compressed fused aggregation path; set "
+                    "compression (int8/bf16/identity), or use enable_defense + "
+                    "defense_type for uncompressed runs")
+            if not self._codec.broadcast_safe:
+                raise ValueError(
+                    f"agg_robust needs dense per-coordinate uploads; codec "
+                    f"{self._codec.spec!r} is sparse — use int8/bf16/identity")
+        icfg = IntegrityConfig.from_args(args)
+        self._screen: Optional[UpdateScreen] = None
+        self._quarantine: Optional[QuarantineList] = None
+        self._guard: Optional[AcceptanceGuard] = None
+        if icfg is not None:
+            self._quarantine = QuarantineList(icfg.quarantine_rounds)
+            if icfg.screen_enabled:
+                self._screen = UpdateScreen(icfg.norm_mult, icfg.z_threshold)
+            if icfg.rollback_enabled:
+                self._guard = AcceptanceGuard(icfg.loss_mult, icfg.loss_min_history,
+                                              icfg.max_rollbacks)
+        # senders screened out this round: they never re-upload, so the
+        # close counts them as missing
+        self._screened_out: set = set()
+        # ring 3's restore point: the round-open state
+        self._pre_round_state: Optional[dict] = None
+
     # -- broadcast ------------------------------------------------------------
     def _broadcast_payload(self, global_params):
         """The round's broadcast, encoded once and fanned out to the cohort."""
@@ -168,6 +219,9 @@ class FedMLServerManager(FedMLCommManager):
             msg.add_params(MyMessage.MSG_ARG_KEY_ROUND, int(self.args.round_idx))
             if self._codec is not None:
                 msg.add_params(Message.MSG_ARG_KEY_COMPRESSION, self._codec.spec)
+            if self._agg_robust:
+                # negotiated like the codec spec
+                msg.add_params(Message.MSG_ARG_KEY_AGG_ROBUST, self._agg_robust)
             self._bcast_ts[client_id] = time.time()
             self.send_message(msg)
 
@@ -175,11 +229,13 @@ class FedMLServerManager(FedMLCommManager):
         """Broadcast the current round to its cohort and arm its deadline."""
         self._round_t0 = time.perf_counter()
         payload = self._broadcast_payload(global_params)
+        self._capture_round_state()
         with self._round_lock:
             self._round_closed = False
             self._deadline_expired = False
             self._deadline_extensions_used = 0
             self._completing = False
+            self._screened_out = set()
             cohort = list(self.client_id_list_in_this_round)
         self._send_round_config(cohort, payload, init)
         self._arm_round_deadline()
@@ -221,6 +277,15 @@ class FedMLServerManager(FedMLCommManager):
 
     def _select_round_clients(self) -> None:
         client_ids = list(range(1, self.client_num + 1))
+        # quarantined clients sit out until their rounds elapse, whether or
+        # not they are evicted
+        if self._quarantine is not None:
+            client_ids = self._quarantine.filter_selection(client_ids,
+                                                           int(self.args.round_idx))
+            if not client_ids:
+                raise RuntimeError(
+                    "every client is quarantined; the federation has no "
+                    "trustworthy cohort left (see the integrity/* counters)")
         # evicted clients sit out until they rejoin; each round probes them,
         # so a revived client has a deterministic way back in
         evicted = set(self.liveness.evicted())
@@ -246,6 +311,7 @@ class FedMLServerManager(FedMLCommManager):
         model_params = msg.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS)
         msg_round = msg.get(MyMessage.MSG_ARG_KEY_ROUND)
         missing = None
+        screened = None
         with self._round_lock:
             cohort = list(self.client_id_list_in_this_round or [])
             stale = (self._round_closed or sender not in cohort
@@ -254,14 +320,30 @@ class FedMLServerManager(FedMLCommManager):
             if not stale:
                 if not isinstance(model_params, CompressedTree):
                     model_params = from_wire_params(model_params, self.device)
-                sent = self._bcast_ts.get(sender)
-                if sent:
-                    self._latency.observe(sender, self.args.round_idx, time.time() - sent)
-                self.aggregator.add_local_trained_result(
-                    cohort.index(sender), model_params,
-                    msg.get(MyMessage.MSG_ARG_KEY_NUM_SAMPLES),
-                    local_steps=msg.get("local_steps"))
+                if self._screen is not None:
+                    # ring 1 admission: a dropped upload never reaches the
+                    # aggregator; its sender counts as missing
+                    screened = self._screen.admit(
+                        sender, int(self.args.round_idx), model_params,
+                        base=self._screen_base(model_params))
+                if screened is not None:
+                    self._screened_out.add(sender)
+                else:
+                    sent = self._bcast_ts.get(sender)
+                    if sent:
+                        self._latency.observe(sender, self.args.round_idx,
+                                              time.time() - sent)
+                    self.aggregator.add_local_trained_result(
+                        cohort.index(sender), model_params,
+                        msg.get(MyMessage.MSG_ARG_KEY_NUM_SAMPLES),
+                        local_steps=msg.get("local_steps"))
                 missing = self._try_close_round(cohort)
+        if screened is not None:
+            # outside the lock: the sender loses its trust; the close evicts
+            # it and quarantine keeps a readmitted sender out of selection
+            self._quarantine.quarantine(sender, int(self.args.round_idx), screened)
+            logger.warning("dropping screened upload from client %s: %s", sender,
+                           screened)
         if stale:
             # a closed round's upload, or one from outside the cohort: never
             # applied; from an evicted client it is also its sign of life
@@ -274,16 +356,52 @@ class FedMLServerManager(FedMLCommManager):
         if missing is not None:
             self._finish_round(missing)
 
+    def _screen_base(self, payload):
+        """What a non-delta upload is screened against: the round's upload
+        base, in the payload's layout."""
+        if isinstance(payload, CompressedTree):
+            if payload.is_delta:
+                return None
+            return to_reference_layout(self.aggregator.get_upload_base())
+        return self.aggregator.get_upload_base()
+
     def _try_close_round(self, cohort: List[int]) -> Optional[List[int]]:
-        """Under the round lock: close the round if every upload arrived, or
+        """Under the round lock: close the round if every upload arrived,
+        or every unscreened sender arrived (a screened one never re-uploads;
+        with the quorum still held, or under the all-received contract), or
         the deadline expired with a quorum in. Returns the missing cohort
-        ids once closed, else None."""
+        ids once closed, else None (parity: fedml_server_manager.py:653-744)."""
         expected = len(cohort)
         received = self.aggregator.n_received()
-        if received < expected and not (
-                self._deadline_expired
-                and received >= quorum_size(expected, self.resilience.round_quorum)):
-            return None
+        need = quorum_size(expected, self.resilience.round_quorum)
+        if received < expected:
+            quorum_ok = received >= need or self.resilience.round_quorum >= 1.0
+            screened_complete = (
+                self._screened_out
+                and received >= max(1, expected - len(self._screened_out))
+                and quorum_ok)
+            if not (screened_complete or (self._deadline_expired and received >= need)):
+                return None
+        if self._screen is not None:
+            # ring 1's cohort pass: z outliers are dropped from the staged
+            # uploads and quarantined, and close as missing
+            for cid, reason in self._screen.close_round(int(self.args.round_idx)).items():
+                if cid in cohort:
+                    self.aggregator.drop_client_upload(cohort.index(cid))
+                    self._screened_out.add(cid)
+                    self._quarantine.quarantine(cid, int(self.args.round_idx), reason)
+                    logger.warning("dropping z-outlier upload from client %s: %s",
+                                   cid, reason)
+            received = self.aggregator.n_received()
+            if received == 0:
+                return None  # nothing trustworthy: the deadline machinery aborts
+            if received < need:
+                # the honest subset still aggregates, but never silently
+                logger.warning(
+                    "round %d closing BELOW quorum after z-outlier drops: %d/%d "
+                    "honest uploads (quorum %d)", int(self.args.round_idx), received,
+                    expected, need)
+                get_registry().counter("integrity/below_quorum_closes").inc()
         missing_idx = self.aggregator.close_round_quorum(expected)
         self._round_closed = True
         self._deadline.cancel()
@@ -360,8 +478,22 @@ class FedMLServerManager(FedMLCommManager):
                 return
             self._completing = True
         global_params = self.aggregator.aggregate()
+        if self._guard is not None:
+            # ring 3, first gate: a non-finite aggregate is rejected before
+            # anything else sees it
+            reason = self._guard.check(global_params)
+            if reason is not None:
+                self._rollback_round(reason)
+                return
         self._latency.finish_round(self.args.round_idx)
         metrics = self.aggregator.test_on_server_for_all_clients(self.args.round_idx)
+        if self._guard is not None:
+            # ring 3, second gate: the eval-loss spike
+            reason = self._guard.check(None, metrics.get("test_loss"))
+            if reason is not None:
+                self._rollback_round(reason)
+                return
+            self._guard.accept(metrics.get("test_loss"))
         self._m_round_ms.observe((time.perf_counter() - self._round_t0) * 1e3)
         self.args.round_idx += 1
         if self.args.round_idx >= self.round_num:
@@ -374,6 +506,60 @@ class FedMLServerManager(FedMLCommManager):
             return
         self._select_round_clients()
         self._open_round(global_params, init=False)
+
+    # -- ring 3: rollback ------------------------------------------------------
+    def _capture_round_state(self) -> None:
+        """Snapshot the round-open state: the global model (the aggregator
+        replaces it, never mutates it) and the server optimizer's state."""
+        if self._guard is None:
+            return
+        state = {"global_params": self.aggregator.get_global_model_params(),
+                 "opt_state": copy.deepcopy(self.aggregator.server_opt._opt_state)}
+        with self._round_lock:
+            self._pre_round_state = state
+
+    def _rollback_round(self, reason: str) -> None:
+        """The aggregated round was rejected: restore the round-open state,
+        quarantine the suspects (ring 1's ranking, else the whole cohort,
+        unless that would leave no cohort) and re-run the same round index
+        with a fresh cohort; past ``max_rollbacks`` consecutive rollbacks
+        the federation aborts (parity: fedml_server_manager.py:1117-1190)."""
+        round_idx = int(self.args.round_idx)
+        try:
+            self._guard.record_rollback(round_idx, reason)
+        except RollbackBudgetExceeded as e:
+            self._abort_federation(str(e))
+            return
+        state = self._pre_round_state
+        if state is None:
+            self._abort_federation(f"round {round_idx} rejected ({reason}) with no "
+                                   "state to roll back to")
+            return
+        self.aggregator.set_global_model_params(state["global_params"])
+        self.aggregator.server_opt._opt_state = copy.deepcopy(state["opt_state"])
+        with self._round_lock:
+            cohort = list(self.client_id_list_in_this_round or [])
+        suspects = []
+        if self._screen is not None:
+            suspects = [c for c in self._screen.suspects() if c in cohort]
+        if not suspects:
+            suspects = cohort
+        if self._quarantine is not None:
+            pool = self._quarantine.filter_selection(
+                [c for c in range(1, self.client_num + 1) if c not in set(suspects)],
+                round_idx)
+            if pool:
+                for cid in suspects:
+                    self._quarantine.quarantine(
+                        cid, round_idx, f"round {round_idx} rolled back: {reason}")
+            else:
+                logger.warning("rollback suspects %s cover every remaining client — "
+                               "re-running unquarantined (bounded by max_rollbacks)",
+                               suspects)
+        logger.warning("round %d rolled back to the round-open state; suspects %s — "
+                       "re-running the round with a fresh cohort", round_idx, suspects)
+        self._select_round_clients()
+        self._open_round(self.aggregator.get_global_model_params(), init=False)
 
     # -- resilience -----------------------------------------------------------
     def _probe_evicted(self, client_ids: List[int]) -> None:

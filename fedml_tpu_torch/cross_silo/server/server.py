@@ -3,7 +3,7 @@
 global model on the server's device, and the synchronous server FSM.
 
 The asynchronous server (``async_aggregation`` / ``AsyncFedAvg``) comes
-with ROADMAP A10.3 and the SecAgg server with A10.2: asking for either
+with ROADMAP A10.3 and the SecAgg server with A10.2b: asking for either
 raises (the latter in the server FSM).
 """
 from __future__ import annotations

@@ -48,18 +48,19 @@ class FedMLAggOperator:
         ``raw_list`` is ``[(n_samples, CompressedTree), ...]``, each the
         client's delta against ``global_params``; since the weights are
         normalized, x̄ = g + Σ pᵢdᵢ, so only the aggregate is ever built.
-        Norm-clip factors and robust statistics are the trust stack's
-        (ROADMAP A10.2) and raise."""
+
+        ``clip_factors`` (a norm-only defense's ``min(1, bound/‖dᵢ‖)``)
+        multiply the weights without renormalizing: clipping shrinks
+        updates, it does not redistribute their mass. ``agg_robust`` (a
+        spec like ``trimmed_mean@0.1``) swaps the weighted mean for the
+        unweighted coordinate-wise robust statistic of the deltas
+        (``integrity.fused_robust_sum``); the two together raise."""
         from fedml_tpu_torch.compression import (
             CompressedTree,
             fused_weighted_sum,
             tree_undelta,
         )
 
-        if clip_factors is not None or agg_robust:
-            raise NotImplementedError(
-                "norm-clip factors and robust aggregation (agg_robust) come with "
-                "the trust stack, ROADMAP A10.2")
         if len(raw_list) == 0:
             raise ValueError("empty client model list")
         cts = [ct for _, ct in raw_list]
@@ -67,5 +68,17 @@ class FedMLAggOperator:
             raise ValueError("agg_compressed requires CompressedTree updates")
         if not all(ct.is_delta for ct in cts):
             raise ValueError("agg_compressed requires delta-encoded updates")
+        if agg_robust:
+            from fedml_tpu_torch.integrity import fused_robust_sum, parse_robust_spec
+
+            if clip_factors is not None:
+                raise ValueError(
+                    "agg_robust cannot compose with norm-clip factors — the robust "
+                    "statistic is unweighted, so there is no weight to fold the "
+                    "clip into; pick one defense")
+            mode, trim = parse_robust_spec(agg_robust)
+            return tree_undelta(global_params, fused_robust_sum(cts, mode, trim))
         weights = FedMLAggOperator._weights(args, raw_list)
+        if clip_factors is not None:
+            weights = weights * torch.as_tensor(clip_factors, dtype=torch.float32)
         return tree_undelta(global_params, fused_weighted_sum(cts, weights))

@@ -14,15 +14,28 @@ the reference's layout (``models/convert.to_reference_layout``), so the
 wire arrays are the reference's element for element — and the server
 aggregates the encoded deltas with the dequant-fused weighted sum.
 
-Not ported yet, and refused when their arguments are set: the trust stack
-(DP, FHE, attacks, defenses, integrity screening, quarantine and rollback,
-robust aggregation, contribution assessment: ROADMAP A10.2), round
-checkpoints and resume (A4), and trace capture and spans (A12). The
-``sp/rounds`` counter and the ``sp/client_train_ms``, ``sp/encode_ms`` and
+The trust stack runs as in the reference. Attacks, defenses and DP are
+the singletons' (``fedml_tpu_torch.init`` configures them) and run through
+the trainer's and the aggregator's hooks. The three integrity rings
+(``integrity: true``, ``agg_robust``) are this engine's: quarantined
+clients sit out the selection; each upload is screened as encoded (or as
+its raw displacement without a codec), and a screened upload is dropped,
+its sender quarantined and its error-feedback residual reset; with a codec
+the aggregate is the fused weighted mean, with a norm-only defense's clip
+factors, or the fused robust statistic, unless a hook needs the decoded
+client models (``compression.requires_full_trees``); after the eval the
+acceptance guard may reject the round, which is rolled back to its
+round-open state and re-run with a fresh cohort.
+
+Not ported yet, and refused when their arguments are set: FHE (ROADMAP
+A13), contribution assessment (A10.2c), round checkpoints and resume (A4),
+and trace capture and spans (A12). The ``sp/rounds`` counter and the
+``sp/client_train_ms``, ``sp/encode_ms``, ``sp/screen_ms`` and
 ``sp/aggregate_ms`` histograms go to the port's metrics registry.
 """
 from __future__ import annotations
 
+import copy
 import logging
 import math
 import time
@@ -36,18 +49,29 @@ from fedml_tpu_torch.compression import (
     check_trust_stack,
     derive_key,
     get_codec,
+    requires_full_trees,
     tree_delta,
+    tree_undelta,
 )
 from fedml_tpu_torch.core.alg_frame.params import Context
+from fedml_tpu_torch.core.security.defender import FedMLDefender
 from fedml_tpu_torch.data.dataset import FederatedDataset
 from fedml_tpu_torch.device import resolve_device
 from fedml_tpu_torch.ml.aggregator.agg_operator import FedMLAggOperator
 from fedml_tpu_torch.ml.aggregator.default_aggregator import create_server_aggregator
 from fedml_tpu_torch.ml.aggregator.server_optimizer import ServerOptimizer
+from fedml_tpu_torch.integrity import (
+    AcceptanceGuard,
+    IntegrityConfig,
+    QuarantineList,
+    UpdateScreen,
+    parse_robust_spec,
+    resolve_agg_robust,
+)
 from fedml_tpu_torch.ml.trainer.trainer_creator import create_model_trainer
 from fedml_tpu_torch.models import model_hub
 from fedml_tpu_torch.models.convert import from_reference_layout, to_reference_layout
-from fedml_tpu_torch.simulation.sampling import sample_clients
+from fedml_tpu_torch.simulation.sampling import sample_clients, sample_from_list
 from fedml_tpu_torch.telemetry import get_registry
 from fedml_tpu_torch.utils.tree import (
     Tree,
@@ -133,39 +157,156 @@ class FedAvgAPI:
         reg = get_registry()
         self._m_client_ms = reg.histogram("sp/client_train_ms")
         self._m_encode_ms = reg.histogram("sp/encode_ms")
+        self._m_screen_ms = reg.histogram("sp/screen_ms")
         self._m_aggregate_ms = reg.histogram("sp/aggregate_ms")
         self._m_rounds = reg.counter("sp/rounds")
         self._codec = get_codec(getattr(args, "compression", ""), args)
         self._ef_by_client: Dict[int, ErrorFeedback] = {}
 
-    # -- client sampling (parity: fedavg_api.py:198) -------------------------
+        # the integrity rings (parity: fedavg_api.py:101-136)
+        self._agg_robust = resolve_agg_robust(args, codec=self._codec)
+        if parse_robust_spec(getattr(args, "agg_robust", "")) is not None and (
+                self._codec is None):
+            raise ValueError(
+                "agg_robust rides the compressed fused aggregation path; set "
+                "compression (int8/bf16/identity), or use enable_defense + "
+                "defense_type for uncompressed runs")
+        icfg = IntegrityConfig.from_args(args)
+        self._screen: Optional[UpdateScreen] = None
+        self._quarantine: Optional[QuarantineList] = None
+        self._guard: Optional[AcceptanceGuard] = None
+        self._round_snapshot: Optional[dict] = None
+        if icfg is not None:
+            self._quarantine = QuarantineList(icfg.quarantine_rounds)
+            if icfg.screen_enabled:
+                self._screen = UpdateScreen(icfg.norm_mult, icfg.z_threshold)
+            if icfg.rollback_enabled:
+                self._guard = AcceptanceGuard(icfg.loss_mult, icfg.loss_min_history,
+                                              icfg.max_rollbacks)
+
+    # -- ring 3's restore point -------------------------------------------------
+    def _round_state(self) -> dict:
+        """The round-open state: the global model, the server optimizer's
+        state, SCAFFOLD's control variate and Mime's momentum (every round
+        replaces these trees, so references suffice; the optimizer state is
+        copied)."""
+        return {"global_params": self.global_params,
+                "opt_state": copy.deepcopy(self.server_opt._opt_state),
+                "c_global": self._c_global, "mime_s": self._mime_s}
+
+    def _apply_round_state(self, state: dict) -> None:
+        self.global_params = state["global_params"]
+        self.server_opt._opt_state = copy.deepcopy(state["opt_state"])
+        self._c_global = state["c_global"]
+        self._mime_s = state["mime_s"]
+
+    # -- client sampling (parity: fedavg_api.py:198-210) ---------------------
     def _client_sampling(self, round_idx: int) -> List[int]:
+        if self._quarantine is not None:
+            quarantined = set(self._quarantine.active(round_idx))
+            if quarantined:
+                allowed = [c for c in range(int(self.args.client_num_in_total))
+                           if c not in quarantined]
+                if not allowed:
+                    raise RuntimeError(
+                        "every client is quarantined; the federation has no "
+                        "trustworthy cohort left (see the integrity/* counters)")
+                return sample_from_list(
+                    allowed, min(int(self.args.client_num_per_round), len(allowed)),
+                    round_idx, int(getattr(self.args, "random_seed", 0)))
         return sample_clients(self.args, round_idx)
 
-    # -- compressed uplink simulation ----------------------------------------
+    def _drop_screened(self, cid: int, round_idx: int, reason: str) -> None:
+        """A screened upload: its sender quarantined, its residual reset."""
+        self._quarantine.quarantine(cid, round_idx, reason)
+        self._ef_by_client.pop(cid, None)
+
+    # -- compressed uplink simulation (parity: fedavg_api.py:224-292) ---------
     def _compress_uplinks(self, round_idx: int, client_ids: List[int],
-                          w_locals: List[Tuple[int, Tree]], enc_watch: _Stopwatch,
-                          agg_watch: _Stopwatch) -> Tuple[Tree, List[int]]:
+                          w_locals: List[Tuple[int, Tree]], watches: Dict[str, _Stopwatch]):
         """Each client's update through the wire: its delta against the
         global model plus its error-feedback residual, encoded with
-        ``derive_key(seed, round, client)``. Returns the dequant-fused
-        aggregate and each client's uplink bytes."""
+        ``derive_key(seed, round, client)`` in the reference's layout, then
+        screened as encoded. Returns ``(w_kept, w_agg, kept, wire)``:
+        ``w_agg`` is the fused aggregate, or None when a hook needs the
+        decoded client models, which ``w_kept`` then holds."""
         seed = int(getattr(self.args, "random_seed", 0))
-        started = enc_watch.start()
-        pairs = []
-        for cid, (n_k, w) in zip(client_ids, w_locals):
+        kept = [True] * len(client_ids)
+        enc = []  # (cid, position, n_k, ct)
+        for i, (cid, (n_k, w)) in enumerate(zip(client_ids, w_locals)):
+            started = watches["encode"].start()
             ef = self._ef_by_client.setdefault(cid, ErrorFeedback(self._codec))
             delta = to_reference_layout(tree_delta(w, self.global_params))
-            pairs.append((n_k, ef.encode(delta, key=derive_key(seed, round_idx, cid))))
-        enc_watch.stop(started)
-        started = agg_watch.start()
-        w_agg = from_reference_layout(FedMLAggOperator.agg_compressed(
-            self.args, pairs, to_reference_layout(self.global_params)))
-        agg_watch.stop(started)
-        return w_agg, [ct.wire_nbytes() for _, ct in pairs]
+            ct = ef.encode(delta, key=derive_key(seed, round_idx, cid))
+            watches["encode"].stop(started)
+            if self._screen is not None:
+                started = watches["screen"].start()
+                reason = self._screen.admit(cid, round_idx, ct)
+                watches["screen"].stop(started)
+                if reason is not None:
+                    kept[i] = False
+                    self._drop_screened(cid, round_idx, reason)
+                    continue
+            enc.append((cid, i, n_k, ct))
+        wire = [ct.wire_nbytes() for _, _, _, ct in enc]
+        if self._screen is not None:
+            flagged = self._screen.close_round(round_idx)
+            for cid, i, _, _ in enc:
+                if cid in flagged:
+                    kept[i] = False
+                    self._drop_screened(cid, round_idx, flagged[cid])
+            enc = [e for e in enc if e[0] not in flagged]
+        if not enc:
+            raise RuntimeError(
+                f"round {round_idx}: every upload was screened out — nothing "
+                "trustworthy to aggregate (see the integrity/* counters)")
+        pairs = [(n_k, ct) for _, _, n_k, ct in enc]
+        w_kept = [w_locals[i] for _, i, _, _ in enc]
+        started = watches["aggregate"].start()
+        if not requires_full_trees(self._codec, self.args):
+            # a norm-only defense's clip factors come off the blocks; an
+            # agg_robust spec swaps the weighted mean for the robust statistic
+            clip = None if self._agg_robust else (
+                FedMLDefender.get_instance().fused_clip_factors([ct for _, ct in pairs]))
+            w_agg = from_reference_layout(FedMLAggOperator.agg_compressed(
+                self.args, pairs, to_reference_layout(self.global_params),
+                clip_factors=clip, agg_robust=self._agg_robust))
+            watches["aggregate"].stop(started)
+            return w_kept, w_agg, kept, wire
+        decoded = [(n, tree_undelta(self.global_params,
+                                    from_reference_layout(self._codec.decode(ct))))
+                   for n, ct in pairs]
+        watches["aggregate"].stop(started)
+        return decoded, None, kept, wire
+
+    def _screen_plain(self, round_idx: int, client_ids: List[int],
+                      w_locals: List[Tuple[int, Tree]], watch: _Stopwatch):
+        """Without a codec the raw displacement is screened against the
+        round's global model (parity: fedavg_api.py:392-414)."""
+        kept = [True] * len(client_ids)
+        for i, (cid, (_, w)) in enumerate(zip(client_ids, w_locals)):
+            started = watch.start()
+            reason = self._screen.admit(cid, round_idx, w, base=self.global_params)
+            watch.stop(started)
+            if reason is not None:
+                kept[i] = False
+                self._quarantine.quarantine(cid, round_idx, reason)
+        flagged = self._screen.close_round(round_idx)
+        for i, cid in enumerate(client_ids):
+            if cid in flagged:
+                kept[i] = False
+                self._quarantine.quarantine(cid, round_idx, flagged[cid])
+        w_locals = [p for p, k in zip(w_locals, kept) if k]
+        if not w_locals:
+            raise RuntimeError(
+                f"round {round_idx}: every upload was screened out — nothing "
+                "trustworthy to aggregate (see the integrity/* counters)")
+        return w_locals, kept
 
     # -- round ----------------------------------------------------------------
     def train_one_round(self, round_idx: int) -> dict:
+        if self._guard is not None:
+            self._round_snapshot = self._round_state()
         client_ids = self._client_sampling(round_idx)
         ctx = Context()
         ctx.add(Context.KEY_CLIENT_ID_LIST_IN_THIS_ROUND, client_ids)
@@ -202,17 +343,29 @@ class FedAvgAPI:
             taus.append(float(metrics.get("local_steps", 0.0)))
             w_locals.append((n_k, w))
 
-        enc_watch, agg_watch = _Stopwatch(self.device), _Stopwatch(self.device)
-        wire = None
+        watches = {k: _Stopwatch(self.device) for k in ("encode", "screen", "aggregate")}
+        ctx.add("global_model_for_defense", self.global_params)
+        w_agg, wire = None, None
+        kept = [True] * len(client_ids)
         if self._codec is not None:
-            w_agg, wire = self._compress_uplinks(round_idx, client_ids, w_locals,
-                                                 enc_watch, agg_watch)
-        else:
-            started = agg_watch.start()
+            w_locals, w_agg, kept, wire = self._compress_uplinks(
+                round_idx, client_ids, w_locals, watches)
+        elif self._screen is not None:
+            w_locals, kept = self._screen_plain(round_idx, client_ids, w_locals,
+                                                watches["screen"])
+        if not all(kept):
+            # screened clients' optimizer side channels drop with them
+            taus = [t for t, k in zip(taus, kept) if k]
+            if len(c_deltas) == len(kept):
+                c_deltas = [c for c, k in zip(c_deltas, kept) if k]
+            if len(mime_grads) == len(kept):
+                mime_grads = [g for g, k in zip(mime_grads, kept) if k]
+        if w_agg is None:
+            started = watches["aggregate"].start()
             w_list, _ = self.aggregator.on_before_aggregation(w_locals)
             w_agg = self.aggregator.aggregate(w_list)
             w_agg = self.aggregator.on_after_aggregation(w_agg)
-            agg_watch.stop(started)
+            watches["aggregate"].stop(started)
         tau_eff = None
         if str(getattr(self.args, "federated_optimizer", "")) == "FedNova" and taus:
             counts = np.asarray([float(n) for n, _ in w_locals])
@@ -248,11 +401,22 @@ class FedAvgAPI:
                                            self.dataset.test_data_global,
                                            self.device, self.args)
         if self._codec is not None:
-            report["encode_ms"] = enc_watch.total_ms()
+            report["encode_ms"] = watches["encode"].total_ms()
             self._m_encode_ms.observe(report["encode_ms"])
             report["uplink_bytes"] = wire
-        report["aggregate_ms"] = agg_watch.total_ms()
+        if self._screen is not None:
+            report["screen_ms"] = watches["screen"].total_ms()
+            self._m_screen_ms.observe(report["screen_ms"])
+        report["aggregate_ms"] = watches["aggregate"].total_ms()
         self._m_aggregate_ms.observe(report["aggregate_ms"])
+        if self._guard is not None:
+            # ring 3: non-finite params every round, the loss spike on eval
+            # rounds
+            loss = (metrics or {}).get("test_loss")
+            reason = self._guard.check(self.global_params, loss)
+            if reason is not None:
+                return self._rollback_round(round_idx, reason, client_ids)
+            self._guard.accept(loss)
         if metrics is not None:
             report.update(metrics)
             self.test_history.append(report)
@@ -260,10 +424,46 @@ class FedAvgAPI:
                         metrics.get("test_acc", -1), metrics.get("test_loss", -1))
         return report
 
+    def _rollback_round(self, round_idx: int, reason: str,
+                        client_ids: List[int]) -> dict:
+        """Ring 3: the round was rejected — restore the round-open state,
+        quarantine the suspects (ring 1's ranking, else the whole cohort,
+        unless that would leave no cohort), reset the cohort's residuals,
+        and have :meth:`train` re-run the round. Raises past the consecutive
+        ``max_rollbacks`` budget."""
+        self._guard.record_rollback(round_idx, reason)
+        suspects = []
+        if self._screen is not None:
+            suspects = [c for c in self._screen.suspects() if c in client_ids]
+        if not suspects:
+            suspects = list(client_ids)
+        if self._quarantine is not None:
+            pool = self._quarantine.filter_selection(
+                [c for c in range(int(self.args.client_num_in_total))
+                 if c not in set(suspects)], round_idx)
+            if pool:
+                for cid in suspects:
+                    self._quarantine.quarantine(
+                        cid, round_idx, f"round {round_idx} rolled back: {reason}")
+            else:
+                logger.warning("rollback suspects %s cover every remaining client — "
+                               "re-running unquarantined (bounded by max_rollbacks)",
+                               suspects)
+        for cid in client_ids:
+            self._ef_by_client.pop(cid, None)
+        self._apply_round_state(self._round_snapshot)
+        logger.warning("round %d rolled back (%s); suspects %s — re-running with a "
+                       "fresh cohort", round_idx, reason, suspects)
+        return {"round": round_idx, "clients": client_ids, "rolled_back": True,
+                "reason": reason}
+
     def train(self) -> dict:
         t0 = time.time()
-        for round_idx in range(int(self.args.comm_round)):
-            self.train_one_round(round_idx)
+        round_idx = 0
+        while round_idx < int(self.args.comm_round):
+            if self.train_one_round(round_idx).get("rolled_back"):
+                continue  # the same round again, the quarantine applied
+            round_idx += 1
         wall = time.time() - t0
         final = self.test_history[-1] if self.test_history else {}
         return {

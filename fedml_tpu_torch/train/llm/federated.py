@@ -7,8 +7,9 @@ only the adapter dict (``{reference path: tensor}``) is exchanged. The
 port keeps the methods the on-device round uses (``get_init_params``,
 ``set_exchange_params``, ``test``, ``train``). The reference's classes
 inherit the trust-stack hook chain (attack, defense, DP, FHE) from
-``ClientTrainer`` / ``ServerAggregator``; that chain is not ported yet
-(ROADMAP A10.2), so these classes stand alone.
+``ClientTrainer`` / ``ServerAggregator``. The on-device round runs no
+hook, so these classes stand alone until the host-loop round comes (its
+last missing hook, contribution assessment, with ROADMAP A10.2c).
 """
 from __future__ import annotations
 

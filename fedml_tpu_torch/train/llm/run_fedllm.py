@@ -7,8 +7,9 @@ the on-device round (``on_device_round: true``): each round samples the
 clients, assembles their batches with the reference's seeded draws, runs
 one :meth:`LLMTrainer.compile_federated_round` round and tests the global
 adapters on the reference's cadence. The host-loop round, whose point is
-the trust-stack hooks around each client's payload, waits for those hooks
-(ROADMAP A10.2).
+the trust-stack hooks around each client's payload, is not ported: the
+attack, defense and DP hooks exist (ROADMAP A10.2a), and its contribution
+hook comes with A10.2c.
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ class FedLLMAPI:
         if not bool(getattr(args, "on_device_round", False)):
             raise NotImplementedError(
                 "the port runs on_device_round: true only; the host-loop round "
-                "and its trust-stack hooks are not ported yet (ROADMAP A10.2)")
+                "and its contribution-assessment hook are not ported yet (ROADMAP "
+                "A10.2c)")
         device = "cuda" if device is None else device
         self.args = args
         self.dataset = dataset

@@ -308,8 +308,8 @@ def _decode_codec(node: dict, blobs: List[memoryview]) -> Any:
             raise ValueError(f"codec {codec!r} is not maskable; v2 wire nodes "
                              "carry masked payloads only")
         raise NotImplementedError(
-            "masked secure-aggregation payloads come with the trust stack "
-            "(ROADMAP A10.2); the port has not ported it yet")
+            "masked secure-aggregation payloads come with secure aggregation "
+            "(ROADMAP A10.2b); the port has not ported it yet")
     if "sa" in node:
         raise ValueError("v1 compressed payload carries a masked sa field")
     meta = node.get("meta")

@@ -263,11 +263,25 @@ def test_a10_codecs_raise_naming_their_item():
 
 
 def test_trust_stack_arguments_raise_naming_a10():
+    """The trust stack's parts still to port raise naming their item
+    (contribution assessment A10.2c, FHE A13); the ported ones (DP, attacks,
+    defenses, integrity) no longer raise, and with none of them on the fused
+    path serves."""
     class A:
-        enable_dp = True
+        enable_contribution = True
 
-    with pytest.raises(NotImplementedError, match="A10"):
+    class F:
+        enable_fhe = True
+
+    class D:
+        enable_dp = True
+        integrity = True
+
+    with pytest.raises(NotImplementedError, match=r"A10\.2c"):
         tc.requires_full_trees(tc.get_codec("int8"), A())
+    with pytest.raises(NotImplementedError, match="A13"):
+        tc.requires_full_trees(tc.get_codec("int8"), F())
+    assert tc.requires_full_trees(tc.get_codec("int8"), D()) is False
     assert tc.requires_full_trees(tc.get_codec("int8"), object()) is False
 
 

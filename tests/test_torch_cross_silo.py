@@ -15,7 +15,14 @@ CPU, on the same seed and from the same initial weights
   stalled, with the reference's missing list and aggregate; the silo then
   rejoins and its error feedback resets;
 * the options the slice leaves out raise naming their ROADMAP item, and the
-  entry points refuse a missing CUDA device and run on the CPU when asked.
+  entry points refuse a missing CUDA device and run on the CPU when asked;
+* the integrity rings in an in-process int8 federation of 4 silos over 5
+  rounds — a NaN upload in round 1 and a ×100 upload in round 3 — beside
+  the reference's: the same drops, quarantines and rollback, the same silos
+  every round, and the global model within 1e-5 (the same uploads are
+  aggregated, so the int8 wire is the reference's); and mixed federations
+  under ``agg_robust: median`` with ``integrity: true`` over the broker,
+  held to the all-JAX run by the int8 bound.
 """
 import copy
 import threading
@@ -372,12 +379,16 @@ def test_stale_upload_is_dropped_and_readmits_an_evicted_sender():
     assert sent[0].get("rejoin") is True and sent[0].get(MyMessage.MSG_ARG_KEY_ROUND) == 0
 
 
+# item None: the option is ported and the role builds; an exception type:
+# the reference's own refusal
 REFUSALS = {
-    "secure aggregation": ({"secure_aggregation": True}, 0, r"A10\.2"),
-    "integrity": ({"integrity": True}, 0, r"A10\.2"),
-    "agg_robust": ({"agg_robust": "median"}, 0, r"A10\.2"),
-    "defense": ({"enable_defense": True, "defense_type": "krum"}, 0, r"A10\.2"),
-    "differential privacy": ({"enable_dp": True}, 1, r"A10\.2"),
+    "secure aggregation": ({"secure_aggregation": True}, 0, r"A10\.2b"),
+    "integrity": ({"integrity": True}, 0, None),
+    "agg_robust": ({"agg_robust": "median"}, 0, (ValueError, "agg_robust rides")),
+    "defense": ({"enable_defense": True, "defense_type": "krum"}, 0, None),
+    "differential privacy": ({"enable_dp": True}, 1, None),
+    "FHE": ({"enable_fhe": True}, 0, r"A13"),
+    "contribution": ({"enable_contribution": True}, 0, r"A10\.2c"),
     "async server": ({"async_aggregation": True}, 0, r"A10\.3"),
     "AsyncFedAvg": ({"federated_optimizer": "AsyncFedAvg"}, 0, r"A10\.3"),
     "hierarchical scenario": ({"scenario": "hierarchical"}, 0, r"A10\.3"),
@@ -402,7 +413,11 @@ def test_unported_options_raise_naming_their_item(case):
         setattr(args, k, v)
     args.rank = rank
     ds = tdl.load_federated(args)
-    with pytest.raises(NotImplementedError, match=item):
+    if item is None:
+        FedMLRunner(args, "cpu", ds, thub.create(args, ds.class_num))
+        return
+    exc, match = item if isinstance(item, tuple) else (NotImplementedError, item)
+    with pytest.raises(exc, match=match):
         FedMLRunner(args, "cpu", ds, thub.create(args, ds.class_num))
 
 
@@ -455,13 +470,30 @@ def test_entry_points_run_a_broker_federation_on_the_cpu(tmp_path):
                 fn(args)
 
 
+def _wait_subscribed(broker, topics, timeout=30.0):
+    """Until the broker has registered a subscriber on every topic."""
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        with broker._lock:
+            if all(broker._subs.get(t) for t in topics):
+                return
+        time.sleep(0.005)
+    raise AssertionError(f"the broker registered no subscriber on {topics} in {timeout}s")
+
+
 @pytest.mark.parametrize("store", ["local", "cas"])
 def test_offload_goes_through_the_store(store, tmp_path):
     """A payload above ``payload_offload_bytes`` rides the object store: the
     frames carry only its key and each receiver gets the tensors back. The
     shared directory deletes a blob once fetched; the content-addressed
     store keeps one blob for a broadcast's identical payloads (a receiver
-    never deletes: a sibling may still fetch it)."""
+    never deletes: a sibling may still fetch it).
+
+    The broker registers each connection's subscription on that
+    connection's own thread, so the sends wait until both receivers'
+    topics are registered (a publish that beats a subscription is
+    dropped, and its receiver would wait forever), and the receive loops
+    run under a deadline."""
     from fedml_tpu_torch.core.distributed.communication.broker_comm import BrokerCommManager
     from fedml_tpu_torch.core.distributed.communication.object_store import (
         create_object_store,
@@ -492,16 +524,151 @@ def test_offload_goes_through_the_store(store, tmp_path):
 
         for rx in rxs:
             rx.add_observer(Obs(rx))
+        _wait_subscribed(broker, ["fedml/off/1", "fedml/off/2"])
         for r in (1, 2):
             tx.send_message(Message("M", 0, r).add_params("model_params", big))
+        loops = [threading.Thread(target=rx.handle_receive_message, daemon=True)
+                 for rx in rxs]
+        for t in loops:
+            t.start()
+        end = time.monotonic() + 30.0
+        for t in loops:
+            t.join(max(0.0, end - time.monotonic()))
+        alive = [t.is_alive() for t in loops]
         for rx in rxs:
-            rx.handle_receive_message()
+            rx.stop_receive_message()
         tx.stop_receive_message()
     finally:
         broker.stop()
+    assert not any(alive), "a receiver got no frame within its deadline"
     assert len(got) == 2
     for m in got:
         assert torch.equal(m.get("model_params")["params"]["w"], big["params"]["w"])
     assert reg.counter("comm/offload_wire_bytes").value - before > 2 * 4096 * 4
     blobs = [p for p in tmp_path.rglob("*") if p.is_file()]
     assert len(blobs) == (0 if store.content_addressed is False else 1)
+
+
+# -- the integrity rings -------------------------------------------------------
+INTEGRITY_TRAIN = {"compression": "int8", "round_deadline_s": 30.0, "round_quorum": 0.5,
+                   "integrity": True, "quarantine_rounds": 2,
+                   # the round-3 poison must reach ring 3: open the norm and z
+                   # screens (the NaN rule still guards round 1)
+                   "integrity_norm_mult": 1e6, "integrity_z_threshold": 1e6,
+                   "client_num_in_total": 4, "client_num_per_round": 4, "comm_round": 5}
+CORRUPT = {(2, 1): ("nan", 50.0), (3, 3): ("scale", 100.0)}
+INTEGRITY_COUNTERS = ("integrity/screened_uploads", "integrity/nonfinite_uploads",
+                      "integrity/quarantined", "integrity/rollbacks",
+                      "resilience/clients_evicted", "resilience/rejoin_syncs")
+
+
+def _corrupt_uploads(fed, corrupt, upload_type):
+    """Each silo's upload of a ``CORRUPT`` (rank, round) window is corrupted
+    after encoding, before the wire — the reference's chaos seam."""
+    for client in fed.clients:
+        mgr = client.manager
+        send = mgr.send_message
+
+        def corrupting(msg, mgr=mgr, send=send):
+            window = CORRUPT.get((mgr.rank, msg.get("round")))
+            if msg.get_type() == upload_type and window:
+                msg.add_params("model_params", corrupt(msg.get("model_params"), *window))
+            return send(msg)
+
+        mgr.send_message = corrupting
+
+
+@pytest.fixture
+def reset_trust():
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import (
+        FedMLDifferentialPrivacy,
+    )
+    from fedml_tpu_torch.core.security.attacker import FedMLAttacker
+    from fedml_tpu_torch.core.security.defender import FedMLDefender
+
+    yield
+    for singleton in (FedMLAttacker, FedMLDefender, FedMLDifferentialPrivacy):
+        singleton.reset()
+
+
+def test_integrity_federation_matches_reference(reset_trust):
+    """The reference's integrity acceptance at small size: round 1's NaN
+    upload (rank 2) is screened and its sender quarantined, evicted and
+    rejoined; round 3's ×100 upload (rank 3) slips the opened screens, spikes
+    the eval loss and is rolled back, its sender quarantined; the run ends
+    finite, and matches the reference's round for round."""
+    from fedml_tpu.resilience.chaos import corrupt_model_payload
+    from fedml_tpu.telemetry import get_registry as jreg
+    from fedml_tpu_torch.telemetry import get_registry as treg
+    from test_torch_integrity import port_corrupt
+
+    cfg = _cfg(**INTEGRITY_TRAIN)
+    jb = {n: jreg().counter(n).value for n in INTEGRITY_COUNTERS}
+    ref = _jax_fed(cfg)
+    init = _jax_init(ref)
+    _corrupt_uploads(ref, corrupt_model_payload, JMyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER)
+    ref_result = _run_local(ref)
+    jd = {n: jreg().counter(n).value - jb[n] for n in INTEGRITY_COUNTERS}
+    tb = {n: treg().counter(n).value for n in INTEGRITY_COUNTERS}
+    port = _port_fed(cfg, init)
+    _corrupt_uploads(port, port_corrupt, MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER)
+    port_result = _run_local(port)
+    td = {n: treg().counter(n).value - tb[n] for n in INTEGRITY_COUNTERS}
+    assert td == jd
+    assert td["integrity/nonfinite_uploads"] == 1 and td["integrity/rollbacks"] == 1
+    assert td["integrity/quarantined"] == 2 and td["resilience/rejoin_syncs"] >= 1
+    mgr = port.server.manager
+    assert "rolled back" in mgr._quarantine.reason(3)
+    assert mgr.liveness.evicted() == []
+    assert port.silos == ref.silos
+    assert len(port.metrics) == len(ref.metrics) == 6  # 5 rounds and the rejected one
+    for r, (pm, rm, pg, rg) in enumerate(zip(port.metrics, ref.metrics, port.globals,
+                                             ref.globals)):
+        for k in pm:
+            _close(pm[k], rm[k], TOL, f"eval {r} {k}")
+        for k in rg:
+            _close(pg[k], rg[k], TOL, f"eval {r} {k}")
+    assert port_result["rounds"] == ref_result["rounds"] == 5
+    assert np.isfinite(port_result["test_loss"])
+
+
+@pytest.mark.parametrize("server_side", ["jax", "port"])
+def test_mixed_federation_with_integrity_over_the_broker(server_side, tmp_path,
+                                                         reset_trust):
+    """``agg_robust: median`` and ``integrity: true`` under int8 over one TCP
+    broker, the server of one package and the silos of the other: the
+    header is negotiated, every round closes with the fused median, and the
+    run is held to the all-JAX one by the int8 bound."""
+    train = {"compression": "int8", "agg_robust": "median", "integrity": True}
+    ref = _jax_fed(_cfg(**train))
+    init = _jax_init(ref)
+    assert _run_local(ref)["rounds"] == 3
+    broker = (JBroker if server_side == "port" else PubSubBroker)().start()
+    try:
+        host, bport = broker.address
+        cfg = _cfg(**train, comm={"comm_backend": "BROKER", "broker_host": host,
+                                  "broker_port": bport, "object_store_dir": str(tmp_path),
+                                  "payload_offload_bytes": 64})
+        jargs = fedml_tpu.init(jarguments.load_arguments_from_dict(copy.deepcopy(cfg)))
+        targs = fedml_tpu_torch.init(targuments.load_arguments_from_dict(copy.deepcopy(cfg)))
+        jds, tds = jdl.load_federated(jargs), tdl.load_federated(targs)
+        jm, tm = jhub.create(jargs, jds.class_num), thub.create(targs, tds.class_num)
+        if server_side == "jax":
+            server = JServer(jargs, None, jds, jm)
+        else:
+            server = Server(targs, "cpu", tds, tm)
+            server.fedml_aggregator.set_global_model_params(
+                from_flax_params(jax.tree.map(np.asarray, init)))
+        clients = []
+        for rank in (1, 2, 3):
+            a = copy.copy(targs if server_side == "jax" else jargs)
+            a.rank = rank
+            clients.append(Client(a, "cpu", tds, tm) if server_side == "jax"
+                           else JClient(a, None, jds, jm))
+        fed = Fed(server, clients, jax_side=server_side == "jax")
+        _run_threads(fed.managers)
+    finally:
+        broker.stop()
+    assert fed.server.manager._agg_robust == "median"
+    assert fed.server.manager.result["rounds"] == 3
+    _hold(fed, ref, "int8")

@@ -525,3 +525,63 @@ def test_inproc_cross_silo_federation_on_cuda():
     assert result["rounds"] == 2 and 0.0 <= result["test_acc"] <= 1.0
     final = server.fedml_aggregator.get_global_model_params()
     assert all(v.is_cuda and bool(torch.isfinite(v).all()) for v in final.values())
+
+
+# -- the trust stack on the card -------------------------------------------------
+def _trust_deltas(n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [{"params/Conv_0/kernel": torch.randn(16, 8, 3, 3, generator=gen) * 1e-2,
+             "params/Dense_0/bias": torch.randn(10, generator=gen) * 1e-2,
+             "params/Dense_0/kernel": torch.randn(10, 300, generator=gen) * 1e-2}
+            for _ in range(n)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("codec", ["identity", "int8", "nf4"])
+@pytest.mark.parametrize("spec", ["median", "trimmed_mean@0.2"])
+@pytest.mark.parametrize("n", [4, 5])
+def test_fused_robust_sum_and_screen_on_cuda_match_cpu(codec, spec, n):
+    """The card's ``fused_robust_sum`` within 1e-6 of the CPU's on the same
+    wire trees (bit-identical wire: the same keys), and ``screen_stats``
+    within 1e-6 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch import compression as tc
+    from fedml_tpu_torch import integrity as ti
+
+    c = tc.get_codec(codec)
+    cpu = [c.encode(d, key=tc.derive_key(0, 1, i), is_delta=True)
+           for i, d in enumerate(_trust_deltas(n, n))]
+    gpu = [c.encode({k: v.cuda() for k, v in d.items()}, key=tc.derive_key(0, 1, i),
+                    is_delta=True) for i, d in enumerate(_trust_deltas(n, n))]
+    mode, trim = ti.parse_robust_spec(spec)
+    want = ti.fused_robust_sum(cpu, mode, trim)
+    got = ti.fused_robust_sum(gpu, mode, trim)
+    for k in want:
+        assert got[k].device.type == "cuda"
+        assert (got[k].cpu() - want[k]).abs().max().item() <= 1e-6 * max(
+            1e-2, want[k].abs().max().item()), k
+    for a, b in zip(gpu, cpu):
+        sa, sb = ti.screen_stats(a), ti.screen_stats(b)
+        assert sa.finite and sb.finite
+        assert abs(sa.norm - sb.norm) <= 1e-6 * sb.norm
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("block", [1000, 1 << 22])
+def test_blockwise_krum_on_cuda_matches_cpu(block):
+    """The streamed gram and krum's choice on the card equal the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from fedml_tpu_torch.core.security.defense import blockwise as bw
+    from fedml_tpu_torch.core.security.defense.krum import select_krum
+
+    trees = _trust_deltas(6, 7)
+    trees[0] = {k: v * 50.0 for k, v in trees[0].items()}
+    want = bw.pairwise_sq_dists_blockwise(bw.iter_blocks(bw.flatten_clients(trees), block), 6)
+    gpu = [{k: v.cuda() for k, v in t.items()} for t in trees]
+    got = bw.pairwise_sq_dists_blockwise(bw.iter_blocks(bw.flatten_clients(gpu), block), 6)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(np.abs(want).max()))
+    assert select_krum(got, 1, 1) == select_krum(want, 1, 1) != [0]

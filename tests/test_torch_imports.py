@@ -125,6 +125,72 @@ def test_cross_silo_slice_modules_are_scanned(module):
     assert module in PORT_MODULES
 
 
+@pytest.mark.parametrize("module", [
+    "fedml_tpu_torch.telemetry.health",
+    "fedml_tpu_torch.integrity",
+    "fedml_tpu_torch.integrity.quarantine",
+    "fedml_tpu_torch.integrity.screen",
+    "fedml_tpu_torch.integrity.robust_agg",
+    "fedml_tpu_torch.integrity.rollback",
+    "fedml_tpu_torch.core.dp.mechanisms",
+    "fedml_tpu_torch.core.dp.frames",
+    "fedml_tpu_torch.core.dp.frames.dp_clip",
+    "fedml_tpu_torch.core.dp.budget_accountant",
+    "fedml_tpu_torch.core.dp.fedml_differential_privacy",
+    "fedml_tpu_torch.core.security.attacker",
+    "fedml_tpu_torch.core.security.defender",
+    "fedml_tpu_torch.core.security.attack",
+    "fedml_tpu_torch.core.security.attack.base",
+    "fedml_tpu_torch.core.security.attack.byzantine",
+    "fedml_tpu_torch.core.security.attack.label_flipping",
+    "fedml_tpu_torch.core.security.attack.backdoor",
+    "fedml_tpu_torch.core.security.attack.lazy_worker",
+    "fedml_tpu_torch.core.security.attack.model_replacement",
+    "fedml_tpu_torch.core.security.defense",
+    "fedml_tpu_torch.core.security.defense.base",
+    "fedml_tpu_torch.core.security.defense.blockwise",
+] + [f"fedml_tpu_torch.core.security.defense.{m}" for m in (
+    "bulyan", "cclip", "cross_round", "coord_median", "crfl", "foolsgold",
+    "geometric_median", "krum", "norm_diff_clipping", "outlier_detection",
+    "residual_reweight", "robust_learning_rate", "slsgd", "soteria", "three_sigma",
+    "trimmed_mean", "weak_dp", "wbc")])
+def test_trust_slice_modules_are_scanned(module):
+    """The trust stack's modules (integrity rings, DP, attacks, the eighteen
+    defenses) are among those both scans cover."""
+    assert module in PORT_MODULES
+
+
+def _refusal(case):
+    import types
+
+    from fedml_tpu_torch import compression, init
+    from fedml_tpu_torch.cross_silo.server import fedml_server_manager as sm
+    from fedml_tpu_torch.integrity import fused_robust_sum
+    from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
+
+    ns = types.SimpleNamespace
+    return {
+        "secagg codec": lambda: compression.get_codec("secagg_int8"),
+        "secure aggregation": lambda: sm.refuse_unported(ns(secure_aggregation=True),
+                                                         sm._NOT_PORTED),
+        "contribution": lambda: init(ns(enable_contribution=True)),
+        "reconstruction attack": lambda: init(ns(enable_attack=True, attack_type="dlg")),
+        "FHE": lambda: init(ns(enable_fhe=True)),
+        "robust mesh": lambda: fused_robust_sum([object()], "median", mesh=object()),
+        "host-loop FedLLM": lambda: FedLLMAPI(ns(on_device_round=False), "cpu", None),
+    }[case]
+
+
+@pytest.mark.parametrize("case,item", [
+    ("secagg codec", r"A10\.2b"), ("secure aggregation", r"A10\.2b"),
+    ("contribution", r"A10\.2c"), ("reconstruction attack", r"A10\.2c"),
+    ("host-loop FedLLM", r"A10\.2c"), ("robust mesh", "A11"), ("FHE", "A13")])
+def test_trust_refusals_name_their_items(case, item):
+    """What the trust slice leaves out raises naming where it comes."""
+    with pytest.raises(NotImplementedError, match=item):
+        _refusal(case)()
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -331,5 +331,5 @@ def test_masked_wire_is_refused_naming_its_item():
     the port cannot open yet: it raises naming its ROADMAP part."""
     node = {"__codec__": "secagg_int8", "v": 2, "meta": [], "structure": [],
             "state": [], "sa": {}}
-    with pytest.raises(NotImplementedError, match=r"A10\.2"):
+    with pytest.raises(NotImplementedError, match=r"A10\.2b"):
         T.safe_loads(_raw(node, []))

@@ -5,7 +5,13 @@ loss and accuracy, the test loss and accuracy, and at the end the global
 parameters agree — within 1e-5 for the uncompressed runs (of each value's
 magnitude, floored at 1), and within one quantization step for the
 compressed ones. The port starts from the reference's initial weights,
-carried across by ``from_flax_params``."""
+carried across by ``from_flax_params``.
+
+The trust stack's rounds (integrity with robust aggregation and a NaN
+upload, krum under a byzantine attack, norm-difference clipping with local
+DP) run CNNCifar on the CIFAR-10 stand-in at 100 images, each round beside
+the reference's with the singletons of both configured from the same
+args."""
 import types
 
 import jax
@@ -247,11 +253,20 @@ def test_run_simulation_on_cpu_and_cuda_refusal():
 
 
 def test_unported_options_raise_naming_their_item():
+    """The parts still to port raise naming their item; the trust stack's
+    ported parts build (robust aggregation without a codec is refused as
+    the reference refuses it)."""
     base = _lr_cfg()
     tds = tdl.load_federated(targuments.load_arguments_from_dict(base))
-    for train, item in [({"enable_dp": True}, "A10"), ({"integrity": True}, "A10"),
-                        ({"agg_robust": "median"}, "A10"),
-                        ({"enable_contribution": True}, "A10"),
+    for train in ({"enable_dp": True}, {"integrity": True},
+                  {"enable_defense": True, "defense_type": "krum"}):
+        targs = targuments.load_arguments_from_dict(_lr_cfg(**train))
+        create_simulator(targs, "cpu", tds, thub.create(targs, tds.class_num))
+    targs = targuments.load_arguments_from_dict(_lr_cfg(agg_robust="median"))
+    with pytest.raises(ValueError, match="agg_robust rides the compressed"):
+        create_simulator(targs, "cpu", tds, thub.create(targs, tds.class_num))
+    for train, item in [({"enable_contribution": True}, r"A10\.2c"),
+                        ({"enable_fhe": True}, "A13"),
                         ({"checkpoint_dir": "/x"}, "A4"), ({"trace_rounds": [1]}, "A12"),
                         ({"backend": "mesh"}, "A11"),
                         ({"federated_optimizer": "fedgkt"}, "A13")]:
@@ -261,3 +276,288 @@ def test_unported_options_raise_naming_their_item():
             create_simulator(targs, "cpu", tds, thub.create(targs, tds.class_num))
     with pytest.raises(NotImplementedError, match="A13"):
         thub.create(types.SimpleNamespace(model="vgg11"), 10)
+
+
+# -- the trust stack in the sp engine ----------------------------------------
+@pytest.fixture
+def reset_trust():
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import (
+        FedMLDifferentialPrivacy,
+    )
+    from fedml_tpu_torch.core.security.attacker import FedMLAttacker
+    from fedml_tpu_torch.core.security.defender import FedMLDefender
+
+    yield
+    for singleton in (FedMLAttacker, FedMLDefender, FedMLDifferentialPrivacy):
+        singleton.reset()
+
+
+# CNNCifar's convolutions round differently in XLA and PyTorch (~1e-6 a
+# step); over a few local steps a round the uncompressed parameters and
+# metrics agree within 1e-4 of their magnitude (floored at 1)
+CNN_TOL = 1e-4
+
+
+def _cnn_cfg(partition="hetero", **train):
+    cfg = {
+        "common_args": {"training_type": "simulation", "random_seed": 0},
+        "data_args": {"dataset": "cifar10", "train_size": 100, "test_size": 20,
+                      "partition_method": partition},
+        "model_args": {"model": "cnn"},
+        "train_args": {"federated_optimizer": "FedAvg", "client_num_in_total": 5,
+                       "client_num_per_round": 5, "comm_round": 3, "epochs": 1,
+                       "batch_size": 20, "learning_rate": 0.05},
+    }
+    cfg["train_args"].update(train)
+    return cfg
+
+
+def _trust_pair(cfg):
+    japi, tapi = _pair(cfg)
+    fedml_tpu_torch.init(tapi.args)
+    return japi, tapi
+
+
+class _CorruptingEF:
+    """A client's error feedback whose next upload arrives with its first
+    scale NaN (the reference's ``corrupt_model_payload``), on either side."""
+
+    def __init__(self, inner, corrupt):
+        self._inner, self._corrupt = inner, corrupt
+
+    def __getattr__(self, k):
+        return getattr(self._inner, k)
+
+    def encode(self, tree, key=None):
+        return self._corrupt(self._inner.encode(tree, key=key))
+
+
+def _record_steps(monkeypatch):
+    """Each leaf's quantization steps so far: every fused aggregation adds
+    the largest int8 scale among its uploads (one step of the coarsest
+    client; a round's flipped codes move the aggregate by at most that, and
+    the next round starts from the moved model)."""
+    from fedml_tpu_torch.ml.aggregator.agg_operator import FedMLAggOperator
+
+    steps = {}
+    agg = FedMLAggOperator.agg_compressed
+
+    def recording(args, raw_list, global_params, **kw):
+        for j, key in enumerate(raw_list[0][1].structure):
+            scales = [float(ct.arrays[j][1]) for _, ct in raw_list
+                      if len(ct.arrays[j]) == 2]
+            steps[key] = steps.get(key, 0.0) + max(scales, default=0.0)
+        return agg(args, raw_list, global_params, **kw)
+
+    monkeypatch.setattr(FedMLAggOperator, "agg_compressed", staticmethod(recording))
+    return steps
+
+
+def _hold_round(r, tapi, japi, trep, jrep, steps=None, noise=0.0):
+    """The same clients; each leaf within its accumulated quantization
+    steps, widened by the scales' own drift — a client's scale moves with
+    its float32 training, up to CNN_TOL of it, and a code of up to 127
+    carries that 127-fold — plus ``noise`` (quantized: ``steps`` given), or
+    CNN_TOL uncompressed; the test loss within 1e-2 (quantized) or CNN_TOL,
+    and the test accuracy within two of the 20 test images (quantized: a
+    step's difference can move an image that sits on a decision boundary)
+    or CNN_TOL."""
+    quant = steps is not None
+    assert trep["clients"] == jrep["clients"], r
+    want = from_flax_params(jax.tree.map(np.asarray, japi.global_params))
+    for k, v in tapi.global_params.items():
+        err = float((v - want[k]).abs().max())
+        if quant:
+            bound = max(steps[k], 1e-6) * (1.0 + 127 * CNN_TOL) + noise
+            assert err <= bound, (r, k, err, steps[k])
+        else:
+            _close(v, want[k], CNN_TOL, f"round {r} {k}")
+    for key, quant_tol in (("test_loss", 1e-2), ("test_acc", 2.0 / jrep["test_total"])):
+        tol = quant_tol if quant else CNN_TOL * max(1.0, abs(jrep[key]))
+        assert abs(trep[key] - jrep[key]) <= tol, (r, key, trep[key], jrep[key])
+
+
+def test_integrity_with_robust_median_matches_reference(reset_trust, monkeypatch):
+    """int8 uplinks, ``integrity: true``, ``agg_robust: median``; client 2's
+    round-1 upload arrives with a NaN scale: both engines screen it,
+    quarantine client 2 out of round 2, and aggregate the rest with the
+    fused median. The partition is IID: on the hetero one the z pass also
+    drops honest clients whose bias leaves stand out (in both engines
+    alike), which would leave round 1 without client 2."""
+    from fedml_tpu.resilience.chaos import corrupt_model_payload
+    from fedml_tpu.telemetry import get_registry as jreg
+    from fedml_tpu_torch.telemetry import get_registry as treg
+    from test_torch_integrity import port_corrupt
+
+    names = ("integrity/nonfinite_uploads", "integrity/quarantined")
+    japi, tapi = _trust_pair(_cnn_cfg("homo", compression="int8", integrity=True,
+                                      agg_robust="median"))
+    assert tapi._agg_robust == japi._agg_robust == "median"
+    tb = {n: treg().counter(n).value for n in names}
+    jb = {n: jreg().counter(n).value for n in names}
+    steps = _record_steps(monkeypatch)
+    for r in range(3):
+        if r == 1:
+            japi._ef_by_client[2] = _CorruptingEF(
+                japi._ef_by_client[2], lambda ct: corrupt_model_payload(ct, "nan"))
+            tapi._ef_by_client[2] = _CorruptingEF(
+                tapi._ef_by_client[2], lambda ct: port_corrupt(ct, "nan"))
+        jrep, trep = japi.train_one_round(r), tapi.train_one_round(r)
+        _hold_round(r, tapi, japi, trep, jrep, steps)
+    assert trep["clients"] == [0, 1, 3, 4]  # client 2 sat out round 2
+    for n in names:
+        assert treg().counter(n).value - tb[n] == jreg().counter(n).value - jb[n] == 1
+    assert tapi._quarantine.reason(2) == japi._quarantine.reason(2)
+
+
+def test_krum_under_a_byzantine_attack_matches_reference(reset_trust):
+    """Uncompressed: the attack replaces client 0's model with N(0, 1) noise;
+    krum keeps one benign model a round, the same one as the reference."""
+    from fedml_tpu_torch.core.security.defender import FedMLDefender
+
+    japi, tapi = _trust_pair(_cnn_cfg(
+        enable_attack=True, attack_type="byzantine", byzantine_client_num=1,
+        attack_mode="random", enable_defense=True, defense_type="krum"))
+    defender = FedMLDefender.get_instance()
+    kept = []
+    before = defender.defend_before_aggregation
+
+    def recording(raw_client_grad_list, extra_auxiliary_info=None):
+        out = before(raw_client_grad_list, extra_auxiliary_info)
+        kept.append([next(i for i, p in enumerate(raw_client_grad_list) if p is o)
+                     for o in out])
+        return out
+
+    defender.defend_before_aggregation = recording
+    for r in range(3):
+        jrep, trep = japi.train_one_round(r), tapi.train_one_round(r)
+        _hold_round(r, tapi, japi, trep, jrep)
+    assert len(kept) == 3 and all(len(k) == 1 and k[0] != 0 for k in kept), kept
+
+
+def test_norm_clipping_with_local_dp_matches_reference(reset_trust, monkeypatch):
+    """int8 uplinks under norm-difference clipping (the fused clip factors)
+    and local DP (each client clips and noises its model): the same rounds,
+    within one quantization step plus the noise bound, and the same clip
+    count."""
+    from fedml_tpu.telemetry import get_registry as jreg
+    from fedml_tpu_torch.compression import requires_full_trees
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import (
+        FedMLDifferentialPrivacy,
+    )
+    from fedml_tpu_torch.telemetry import get_registry as treg
+
+    japi, tapi = _trust_pair(_cnn_cfg(
+        compression="int8", enable_defense=True, defense_type="norm_diff_clipping",
+        norm_bound=0.5, enable_dp=True, dp_solution_type="LDP", epsilon=50.0,
+        clipping_norm=20.0))
+    assert requires_full_trees(tapi._codec, tapi.args) is False
+    sigma = FedMLDifferentialPrivacy.get_instance().frame.mechanism.sigma
+    name = "health/norm_clips_fused"
+    tb, jb = treg().counter(name).value, jreg().counter(name).value
+    steps = _record_steps(monkeypatch)
+    for r in range(3):
+        jrep, trep = japi.train_one_round(r), tapi.train_one_round(r)
+        _hold_round(r, tapi, japi, trep, jrep, steps, noise=2e-5 * sigma)
+    clips = treg().counter(name).value - tb
+    assert clips == jreg().counter(name).value - jb > 0
+    assert FedMLDifferentialPrivacy.get_instance().epsilon_spent() > 0
+
+
+class _PoisonTrainer:
+    """Wraps a trainer; client ``cid``'s model from round ``rnd`` on becomes
+    ``fn(global, model)`` (either package's trees)."""
+
+    def __init__(self, inner, cid, rnd, fn):
+        self._inner, self._pc, self._pr, self._fn = inner, cid, rnd, fn
+        self._cid = self._rnd = None
+
+    def __getattr__(self, k):
+        return getattr(self._inner, k)
+
+    def set_id(self, cid):
+        self._cid = cid
+        self._inner.set_id(cid)
+
+    def set_round(self, r):
+        self._rnd = r
+        self._inner.set_round(r)
+
+    def run_local_training(self, params, data, device, args):
+        w, m = self._inner.run_local_training(params, data, device, args)
+        if self._cid == self._pc and self._rnd >= self._pr:
+            w = self._fn(params, w)
+        return w, m
+
+
+def _poison_pair(cfg, cid, rnd, jfn, tfn):
+    japi, tapi = _trust_pair(cfg)
+    japi.trainer = _PoisonTrainer(japi.trainer, cid, rnd, jfn)
+    tapi.trainer = _PoisonTrainer(tapi.trainer, cid, rnd, tfn)
+    return japi, tapi
+
+
+def _lr_integrity_cfg(**train):
+    return _lr_cfg(**{"client_num_in_total": 5, "client_num_per_round": 5,
+                      "comm_round": 5, **train})
+
+
+def test_rollback_and_quarantine_match_reference(reset_trust):
+    """Ring 3 (identity uplinks, the screens opened): client 3's round-2
+    model is pushed 200× away from the global, the eval loss spikes, and
+    both engines roll the round back, quarantine client 3 and re-run it —
+    the same reports round by round, parameters within TOL."""
+    cfg = _lr_integrity_cfg(compression="identity", integrity=True,
+                            integrity_norm_mult=1e9, integrity_z_threshold=1e9)
+    japi, tapi = _poison_pair(
+        cfg, 3, 2, lambda g, w: jax.tree.map(lambda gg, xx: gg + 200.0 * (gg - xx), g, w),
+        lambda g, w: {k: g[k] + 200.0 * (g[k] - w[k]) for k in w})
+    r = 0
+    while r < 5:
+        jrep, trep = japi.train_one_round(r), tapi.train_one_round(r)
+        assert trep["clients"] == jrep["clients"]
+        assert trep.get("rolled_back") == jrep.get("rolled_back")
+        if not jrep.get("rolled_back"):
+            for k in ("test_loss", "test_acc"):
+                _close(trep[k], jrep[k], TOL, f"round {r} {k}")
+            r += 1
+    assert tapi._guard.total_rollbacks == japi._guard.total_rollbacks == 1
+    assert "rolled back" in tapi._quarantine.reason(3)
+    want = from_flax_params(jax.tree.map(np.asarray, japi.global_params))
+    for k in want:
+        _close(tapi.global_params[k], want[k], TOL, k)
+
+
+def test_rollback_budget_aborts_like_reference(reset_trust):
+    """Ring 3 alone: a NaN model from round 1 on cannot be pinned on anyone
+    (no screen), so the round is rolled back until the budget is spent, and
+    both engines raise on the same round."""
+    from fedml_tpu.integrity import RollbackBudgetExceeded as JBudget
+    from fedml_tpu_torch.integrity import RollbackBudgetExceeded
+
+    cfg = _lr_integrity_cfg(compression="identity", integrity_rollback=True,
+                            max_rollbacks=1)
+    japi, tapi = _poison_pair(
+        cfg, 1, 1, lambda g, w: jax.tree.map(lambda x: x * np.float32("nan"), w),
+        lambda g, w: {k: v * float("nan") for k, v in w.items()})
+    with pytest.raises(JBudget):
+        japi.train()
+    with pytest.raises(RollbackBudgetExceeded):
+        tapi.train()
+    assert tapi._guard.total_rollbacks == japi._guard.total_rollbacks == 2
+
+
+def test_uncompressed_screen_matches_reference(reset_trust):
+    """Ring 1 without a codec: the raw displacement is screened against the
+    global; client 2's 200× model is dropped (the z pass at round 0, the
+    norm overflow later) and quarantined, in both engines alike."""
+    cfg = _lr_integrity_cfg(integrity=True, comm_round=4)
+    japi, tapi = _poison_pair(cfg, 2, 0, lambda g, w: jax.tree.map(lambda x: x * 200.0, w),
+                              lambda g, w: {k: v * 200.0 for k, v in w.items()})
+    for r in range(4):
+        jrep, trep = japi.train_one_round(r), tapi.train_one_round(r)
+        assert trep["clients"] == jrep["clients"]
+        for k in ("test_loss", "test_acc"):
+            _close(trep[k], jrep[k], TOL, f"round {r} {k}")
+    assert tapi._quarantine.reason(2) is not None
+    assert tapi._quarantine.reason(2) == japi._quarantine.reason(2)
