@@ -116,12 +116,32 @@ the final ``ok`` line:
     norm-difference clipping and local DP: it fails unless the fused path
     serves with clip factors, at least one upload is clipped
     (``health/norm_clips_fused``) and the round ends finite; it prints
-    each silo's ε. Each phase prints its seconds.
+    each silo's ε;
+(k) secure aggregation on phase h's model and data (no hand kernel on this
+    path; the finite-field work is host numpy and the port's C++ LCC
+    library). (k1) ``secagg: int8`` (clip 0.1, mod_bits 8) on 4 silos over
+    LOCAL, 2 rounds, quorum 0.75 with a deadline; one silo stalls in round
+    1. It fails unless every upload the server holds is a v2 masked tree and
+    decoding one raises, each round's aggregate is bit-identical to the
+    unmasked sum of the same quantized words (the same deltas, keys and
+    residuals encoded on the card with zero masks), round 1 closes through
+    one recovery with 3 seeds revealed, and the test loss stays finite and
+    ends below the untrained model's; it prints the masked encode against
+    the plain int8 encode of the same delta and ``unmask_finalize``
+    against ``fused_weighted_sum`` (CUDA events), the host ms of the Philox
+    masks and of one X25519 agreement, and the masked, int8 and f32 wire
+    bytes. (k2) the same recipe with a server and 2 silos as processes over
+    the broker, 1 round: every process exits 0. (k3) the Bonawitz FSM
+    (``secure_aggregation: true``) on 3 silos with rank 3 dropping after the
+    share exchange, and (k4) LightSecAgg on 3 silos, 1 round each: each
+    fails unless the server's unmasked field sum equals the survivors' plain
+    field sum and the global model is that sum dequantized and averaged; it
+    prints the server's finite-field host ms. Each phase prints its seconds.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with code 2 and prints no result. The full per-shape results also go to
-``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghij``) runs
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijk``) runs
 (a) and the phases named, and prints no kernels or ok line (phase g sets
 its round beside phase e's only when both run). ``--parent DIR`` builds the dequant and flash-forward kernels of
 another checkout (DIR, e.g. the parent commit unpacked by ``git archive``)
@@ -311,6 +331,38 @@ TRUST_CS_CONFIG = {**CS_CONFIG, "common_args": {
     "dp_solution_type": "LDP", "epsilon": 8.0, "delta": 1e-5, "sensitivity": 1e-3}}
 TRUST_NAN_CLIENT, TRUST_SCALED_CLIENT, TRUST_SCALE = 3, 7, 100.0
 TRUST_CONTAIN = 0.1
+
+# Phase (k), secure aggregation (ROADMAP A10.2b) on phase h's model and data:
+# ResNet-18 GroupNorm at full width on the CIFAR-10 stand-in, split as phase
+# h splits it (10 hetero parts, alpha 0.5), each silo training one part a
+# round. k1: docs/privacy.md's recipe (secagg: int8, clip 0.1, mod_bits 8)
+# on 4 silos over LOCAL, 2 rounds, round_quorum 0.75 and a deadline (the
+# static ceiling for round 0, twice the median latency after); silo
+# SECAGG_STALL_RANK's trainer stalls in round 1 until the server has closed
+# it, so round 1 closes at quorum through the seed-reveal recovery. k2: the
+# same recipe, a server and 2 silos as processes over the broker, 1 round.
+# k3: the Bonawitz FSM (secure_aggregation: true, the example's
+# secagg_threshold: 2) on 3 silos, rank 3 dropping after the share exchange,
+# 1 round; sa_q_bits 12, because the 31-bit field leaves |x| < 0.33 at the
+# reference's 16 bits for CIFAR-10's 50,000 samples (sa_q_bits 12: < 5.2).
+# k4: LightSecAgg on 3 silos, 1 round (the reference's defaults).
+SECAGG_TRAIN = dict(client_num_in_total=10, compression="", secagg="int8",
+                    secagg_clip=0.1, secagg_mod_bits=8)
+SECAGG_CONFIG = {**CS_CONFIG, "common_args": {
+    **CS_CONFIG["common_args"], "run_id": "chip_smoke_secagg"}, "train_args": {
+    **CS_CONFIG["train_args"], **SECAGG_TRAIN, "comm_round": 2, "round_quorum": 0.75,
+    "round_deadline_s": 240.0, "round_deadline_multiplier": 2.0}}
+SECAGG_STALL_RANK = 4
+SECAGG_BROKER_SILOS = 2
+MPC_TRAIN = dict(client_num_in_total=10, client_num_per_round=3, comm_round=1,
+                 compression="")
+BONAWITZ_CONFIG = {**CS_CONFIG, "common_args": {
+    **CS_CONFIG["common_args"], "run_id": "chip_smoke_bonawitz"}, "train_args": {
+    **CS_CONFIG["train_args"], **MPC_TRAIN, "secure_aggregation": True,
+    "secagg_threshold": 2, "sa_simulate_dropout_rank": 3, "sa_q_bits": 12}}
+LSA_CONFIG = {**CS_CONFIG, "common_args": {
+    **CS_CONFIG["common_args"], "run_id": "chip_smoke_lightsecagg"}, "train_args": {
+    **CS_CONFIG["train_args"], **MPC_TRAIN}}
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s and bf16 FLOP/s.
 PEAKS = (
@@ -1987,9 +2039,13 @@ print("CHILD " + json.dumps({"role": role, "result": result,
 """
 
 
-def cross_silo_broker(card: str):
-    """Phase (i2): a server and CS_BROKER_SILOS silos as OS processes over
-    the port's broker and a shared object store (see the module doc)."""
+def _broker_federation(run_id: str, n_silos: int, **train):
+    """A server and ``n_silos`` silos as OS processes over the port's broker
+    and a shared object store, started through the entry points with a
+    config this writes (phase h's model and data, ``train`` over
+    CS_CONFIG's training arguments). Returns each process's CHILD record,
+    the wall and the bytes published on the broker; fails unless every
+    process exits 0 within CS_BROKER_TIMEOUT_S."""
     import shutil
     import tempfile
 
@@ -2004,9 +2060,10 @@ def cross_silo_broker(card: str):
     try:
         host, port = broker.address
         cfg = json.loads(json.dumps(CS_CONFIG))
-        cfg["common_args"]["run_id"] = "chip_smoke_broker"
-        cfg["train_args"].update(client_num_in_total=CS_BROKER_SILOS,
-                                 client_num_per_round=CS_BROKER_SILOS, comm_round=1)
+        cfg["common_args"]["run_id"] = run_id
+        cfg["train_args"].update(client_num_in_total=n_silos, client_num_per_round=n_silos,
+                                 comm_round=1)
+        cfg["train_args"].update(train)
         cfg["comm_args"] = {"comm_backend": "BROKER", "broker_host": host,
                             "broker_port": port, "object_store_dir": os.path.join(work, "store"),
                             "payload_offload_bytes": 65536}
@@ -2016,7 +2073,7 @@ def cross_silo_broker(card: str):
         env = dict(os.environ, PYTHONHASHSEED=CS_HASHSEED,
                    PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
         t0 = time.perf_counter()
-        for rank in range(CS_BROKER_SILOS + 1):
+        for rank in range(n_silos + 1):
             role = "server" if rank == 0 else "client"
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", CS_CHILD, role, "--cf", path, "--rank", str(rank),
@@ -2045,6 +2102,13 @@ def cross_silo_broker(card: str):
         broker.stop()
         published = get_registry().counter("broker/bytes_in").value - published0
         shutil.rmtree(work, ignore_errors=True)
+    return kids, wall, published
+
+
+def cross_silo_broker(card: str):
+    """Phase (i2): a server and CS_BROKER_SILOS silos as OS processes over
+    the port's broker and a shared object store (see the module doc)."""
+    kids, wall, published = _broker_federation("chip_smoke_broker", CS_BROKER_SILOS)
     server = kids[0]
     sm = server["metrics"]
     store_bytes = sum(k["metrics"].get("comm/offload_wire_bytes", 0) for k in kids)
@@ -2391,6 +2455,312 @@ def trust_cross_silo_phase(card: str):
                 epsilon=eps)
 
 
+def _leaves_equal(a, b) -> bool:
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def secagg_inproc(card: str):
+    """Phase (k1): a ``secagg: int8`` federation of 4 silos over LOCAL on
+    the card, round 1 closing through the seed-reveal recovery, with its
+    checks and timings (see the module doc)."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.compression import (
+        CompressedTree,
+        derive_key,
+        fused_weighted_sum,
+        get_codec,
+    )
+    from fedml_tpu_torch.compression.codecs import _tree_meta
+    from fedml_tpu_torch.core.distributed.communication.local_comm import LocalBroker
+    from fedml_tpu_torch.cross_silo.message_define import MyMessage
+    from fedml_tpu_torch.cross_silo.run_inproc import (
+        build_cross_silo_inproc,
+        run_managers_to_completion,
+    )
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.models.model_hub import create
+    from fedml_tpu_torch.privacy import secagg
+    from fedml_tpu_torch.privacy.secagg import keys
+    from fedml_tpu_torch.telemetry import get_registry
+    from fedml_tpu_torch.utils.serialization import safe_dumps
+    from fedml_tpu_torch.utils.tree import tree_flatten
+
+    _reset_trust()
+    args = fedml_tpu_torch.init(load_arguments_from_dict(SECAGG_CONFIG))
+    ds = load_federated(args)
+    model = create(args, ds.class_num)
+    LocalBroker.destroy(args.run_id)
+    torch.cuda.reset_peak_memory_stats()
+    server, clients = build_cross_silo_inproc(args, ds, model, "cuda")
+    agg, smgr = server.fedml_aggregator, server.manager
+    session = smgr._secagg
+    n_params = sum(v.numel() for v in agg.get_global_model_params().values())
+    untrained = agg.test_on_server_for_all_clients(-1)
+    reg = get_registry()
+    names = ("secagg/rounds", "secagg/masked_uploads", "secagg/recoveries",
+             "secagg/seeds_revealed", "secagg/invalid_uploads", "resilience/quorum_rounds")
+    before = {n: reg.counter(n).value for n in names}
+
+    # what the run records: each upload as the server holds it, each client's
+    # encode inputs, each unmask's inputs and output, each round's end
+    uploads, encodes, unmasks, rounds = [], {}, [], []
+    add, test = agg.add_local_trained_result, agg.test_on_server_for_all_clients
+    unmask = session.aggregate
+
+    def recorded_add(index, params, n, local_steps=None):
+        uploads.append((int(smgr.args.round_idx), params))
+        return add(index, params, n, local_steps)
+
+    def recorded_test(r):
+        m = test(r)
+        torch.cuda.synchronize()
+        rounds.append(dict(round=r, end=time.perf_counter(), test_loss=float(m["test_loss"]),
+                           test_acc=float(m["test_acc"])))
+        return m
+
+    def recorded_unmask(cts, base):
+        out = unmask(cts, base)
+        unmasks.append(dict(round=int(session.round_idx), cts=list(cts), base=base, out=out,
+                            evicted=list(session.evicted)))
+        return out
+
+    agg.add_local_trained_result, agg.test_on_server_for_all_clients = recorded_add, recorded_test
+    session.aggregate = recorded_unmask
+    for c in clients:
+        mgr = c.manager
+        sess = mgr._secagg
+
+        def recorded_encode(delta, key, mgr=mgr, sess=sess, enc=sess.encode_update):
+            encodes[(mgr.round_idx, mgr.rank)] = dict(
+                delta=delta, key=key, residual=sess._residual, peers=dict(sess._peer_seeds))
+            return enc(delta, key)
+
+        sess.encode_update = recorded_encode
+        if mgr.rank == SECAGG_STALL_RANK:
+            trainer = mgr.trainer_dist_adapter.trainer
+            train = trainer.run_local_training
+
+            def stalled(params, *a, mgr=mgr, train=train, **kw):
+                if mgr.round_idx != 1:
+                    return train(params, *a, **kw)
+                end = time.monotonic() + 900
+                while smgr.result is None and smgr.handler_error is None:
+                    if time.monotonic() > end:
+                        raise TimeoutError("k1: round 1 never closed at quorum")
+                    time.sleep(0.05)
+                return {k: v.clone() for k, v in params.items()}, {}
+
+            trainer.run_local_training = stalled
+    t_start = time.perf_counter()
+    result = run_managers_to_completion([smgr] + [c.manager for c in clients], args.run_id,
+                                        MyMessage.MSG_TYPE_CONNECTION_IS_READY, timeout=900)
+    wall = time.perf_counter() - t_start
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = {n: reg.counter(n).value - before[n] for n in names}
+    for i, r in enumerate(rounds):
+        r["round_s"] = r["end"] - (rounds[i - 1]["end"] if i else t_start)
+
+    # the checks: masked uploads only, and a masked tree never decodes
+    bad = [(r, type(u).__name__) for r, u in uploads
+           if not (isinstance(u, CompressedTree) and u.codec == "secagg_int8"
+                   and u.version == 2 and u.sa and u.sa.get("rank") is not None)]
+    if bad or len(uploads) != 7:
+        raise RuntimeError(f"k1: the server held {len(uploads)} uploads (want 4 + 3), "
+                           f"not all masked: {bad}")
+    try:
+        get_codec(uploads[0][1].codec).decode(uploads[0][1])
+        raise RuntimeError("k1: a masked upload decoded")
+    except ValueError:
+        pass
+    if not (result and result.get("rounds") == 2 and len(unmasks) == 2):
+        raise RuntimeError(f"k1: the federation did not run 2 unmasked rounds: {result}")
+    # each round's aggregate against the never-masked sum of the same words:
+    # the same deltas, keys and residuals encoded on the card with zero masks
+    zero_ref = []
+    codec = session.codec  # both rounds' roster is the 4 silos
+    for u in unmasks:
+        ranks = [int(ct.sa["rank"]) for ct in u["cts"]]
+        plain = []
+        for rank in ranks:
+            e = encodes[(u["round"], rank)]
+            meta = _tree_meta(tree_flatten(e["delta"])[0])
+            zeros = [np.zeros(sh, np.uint8) for _, sh in meta]
+            plain.append(secagg.masked_encode(e["delta"], zeros, codec, e["key"],
+                                              residual=e["residual"],
+                                              sa={"rank": rank})[0])
+        want = secagg.unmask_finalize(plain, u["base"], codec)
+        zero_ref.append(_leaves_equal(u["out"], want))
+    if not all(zero_ref):
+        raise RuntimeError(f"k1: an aggregate is not bit-identical to the never-masked sum: "
+                           f"{zero_ref}")
+    if not (unmasks[0]["evicted"] == [] and unmasks[1]["evicted"] == [SECAGG_STALL_RANK]
+            and counts["secagg/recoveries"] == 1 and counts["secagg/seeds_revealed"] == 3
+            and counts["resilience/quorum_rounds"] == 1 and counts["secagg/rounds"] == 2):
+        raise RuntimeError(f"k1: round 1 did not close through one recovery of 3 seeds: "
+                           f"{counts}, evicted {[u['evicted'] for u in unmasks]}")
+    losses = [r["test_loss"] for r in rounds]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < untrained["test_loss"]):
+        raise RuntimeError(f"k1: the test loss {losses} is not finite and below the "
+                           f"untrained model's {untrained['test_loss']}")
+    final = agg.get_global_model_params()
+    if not all(v.is_cuda and bool(torch.isfinite(v).all()) for v in final.values()):
+        raise RuntimeError("k1: the global model left the card or is not finite")
+
+    # timings on the card, the last round's inputs replayed (CUDA events)
+    e = encodes[(1, 1)]
+    meta = _tree_meta(tree_flatten(e["delta"])[0])
+    t0 = time.perf_counter()
+    mask = secagg.net_mask_leaves(1, e["peers"], meta, codec.mod_bits)
+    mask_ms_once = (time.perf_counter() - t0) * 1e3
+    mask_ms = _host_ms(lambda: secagg.net_mask_leaves(1, e["peers"], meta, codec.mod_bits),
+                       reps=2)
+    sk, pk = keys.kx_keygen()
+    _, peer_pk = keys.kx_keygen()
+    kx_ms = _host_ms(lambda: keys.kx_agree(sk, peer_pk), reps=20)
+    ladder_ms = _host_ms(lambda: keys.kx_agree(sk, peer_pk, ladder=True), reps=20)
+    masked_ms = _events_ms(lambda: secagg.masked_encode(e["delta"], mask, codec, e["key"],
+                                                        residual=e["residual"]))
+    int8 = get_codec("int8")
+    int8_ms = _events_ms(lambda: int8.encode(e["delta"], key=e["key"], is_delta=True,
+                                             residual=e["residual"]))
+    cts0, base0 = unmasks[0]["cts"], unmasks[0]["base"]
+    unmask_ms = _events_ms(lambda: secagg.unmask_finalize(cts0, base0, codec))
+    plain_cts = [int8.encode(encodes[(0, int(ct.sa["rank"]))]["delta"],
+                             key=derive_key(0, 0, int(ct.sa["rank"])), is_delta=True)
+                 for ct in cts0]
+    fused_ms = _events_ms(lambda: fused_weighted_sum(plain_cts, [0.25] * len(plain_cts)))
+    masked_ct = cts0[0]
+    wire = dict(masked=len(safe_dumps(masked_ct)), int8=len(safe_dumps(plain_cts[0])),
+                f32=len(safe_dumps({k: v.float() for k, v in e["delta"].items()})))
+    for r in rounds:
+        print(f"  {card}: k1 round {r['round']}: {r['round_s']:.3f} s, test loss "
+              f"{r['test_loss']:.5f}, test acc {r['test_acc']:.4f}", flush=True)
+    print(f"  {card}: k1 untrained test loss {untrained['test_loss']:.5f}; whole run "
+          f"{wall:.3f} s; peak {peak_gb:.3f} GB; counters {json.dumps(counts)}; both "
+          f"aggregates bit-identical to the never-masked sum", flush=True)
+    print(f"  {card}: k1 masked encode {masked_ms:.2f} ms an upload vs plain int8 "
+          f"{int8_ms:.2f} ms (CUDA events, mean of {CS_TIMED_REPS}); unmask_finalize of 4 "
+          f"{unmask_ms:.2f} ms vs fused_weighted_sum of 4 int8 {fused_ms:.2f} ms; host: "
+          f"Philox net mask (3 peers, {n_params} words) {mask_ms:.1f} ms (first "
+          f"{mask_ms_once:.1f}), one X25519 agreement {kx_ms:.3f} ms "
+          f"({'cryptography' if keys._have_cryptography() else 'RFC 7748 ladder'}; the "
+          f"ladder {ladder_ms:.3f} ms); wire "
+          f"bytes masked {wire['masked']} / int8 {wire['int8']} / f32 {wire['f32']}",
+          flush=True)
+    _reset_trust()
+    return dict(rounds=[{k: v for k, v in r.items() if k != "end"} for r in rounds],
+                untrained_test_loss=untrained["test_loss"], wall_s=wall, peak_gb=peak_gb,
+                counters=counts, masked_encode_ms=masked_ms, int8_encode_ms=int8_ms,
+                unmask_ms=unmask_ms, fused_weighted_sum_ms=fused_ms, mask_host_ms=mask_ms,
+                mask_host_first_ms=mask_ms_once, kx_agree_ms=kx_ms,
+                kx_ladder_ms=ladder_ms,
+                kx_path="cryptography" if keys._have_cryptography() else "ladder",
+                wire_bytes=wire, n_params=n_params)
+
+
+def secagg_broker(card: str):
+    """Phase (k2): ``secagg: int8`` with a server and SECAGG_BROKER_SILOS
+    silos as processes over the broker, 1 round."""
+    kids, wall, published = _broker_federation("chip_smoke_secagg_broker",
+                                               SECAGG_BROKER_SILOS, **SECAGG_TRAIN)
+    server = kids[0]
+    masked = sum(k["metrics"].get("secagg/masked_uploads", 0) for k in kids[1:])
+    if server["result"].get("rounds") != 1 or masked != SECAGG_BROKER_SILOS:
+        raise RuntimeError(f"k2: the masked broker federation did not run 1 round of "
+                           f"masked uploads: {server['result']}, {masked} masked")
+    print(f"  {card}: k2 {SECAGG_BROKER_SILOS + 1} processes exited 0 in {wall:.3f} s; "
+          f"{masked:.0f} masked uploads; server result {server['result']}; bytes on the "
+          f"broker {published:.0f}; process walls "
+          + ", ".join(f"{k['role']} {k['wall_s']:.1f} s" for k in kids), flush=True)
+    return dict(wall_s=wall, result=server["result"], masked_uploads=masked,
+                broker_bytes_published=published,
+                process_walls_s=[k["wall_s"] for k in kids])
+
+
+def finite_field_phase(card: str, which: str):
+    """Phase (k3, Bonawitz) or (k4, LightSecAgg): one round of 3 silos over
+    LOCAL on the card; fails unless the server's unmasked field sum equals
+    the survivors' plain field sum and the new global model is that sum,
+    dequantized and averaged."""
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.core.distributed.communication.local_comm import LocalBroker
+    from fedml_tpu_torch.core.mpc import finite
+    from fedml_tpu_torch.core.mpc.secagg import SecAggClient
+    from fedml_tpu_torch.cross_silo.lightsecagg import lsa_client_manager
+    from fedml_tpu_torch.cross_silo.lightsecagg.run_inproc import build_lightsecagg_inproc
+    from fedml_tpu_torch.cross_silo.run_inproc import run_managers_to_completion
+    from fedml_tpu_torch.cross_silo.secagg.run_inproc import build_secagg_inproc
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.models.model_hub import create
+
+    bonawitz = which == "k3"
+    args = load_arguments_from_dict(BONAWITZ_CONFIG if bonawitz else LSA_CONFIG)
+    ds = load_federated(args)
+    model = create(args, ds.class_num)
+    LocalBroker.destroy(args.run_id)
+    build = build_secagg_inproc if bonawitz else build_lightsecagg_inproc
+    server, clients = build(args, ds, model, "cuda")
+    # each survivor's field vector as it is masked (the Bonawitz clients
+    # pre-scale it by their sample count)
+    inputs, sums = [], []
+    orig_mask, orig_masking = SecAggClient.mask, lsa_client_manager.model_masking
+
+    def recorded_mask(self, x):
+        inputs.append((self.id, np.array(x)))
+        return orig_mask(self, x)
+
+    def recorded_masking(x, z, p):
+        inputs.append((None, np.array(x)))
+        return orig_masking(x, z, p)
+
+    unmask_sum = server.unmask_sum
+
+    def recorded_sum(*a):
+        t0 = time.perf_counter()
+        out = unmask_sum(*a)
+        sums.append((out, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    server.unmask_sum = recorded_sum
+    SecAggClient.mask = recorded_mask
+    lsa_client_manager.model_masking = recorded_masking
+    t0 = time.perf_counter()
+    try:
+        result = run_managers_to_completion([server] + clients, args.run_id,
+                                            "MSG_TYPE_CONNECTION_IS_READY", timeout=900)
+    finally:
+        SecAggClient.mask = orig_mask
+        lsa_client_manager.model_masking = orig_masking
+    wall = time.perf_counter() - t0
+    p, q_bits = server.p, server.q_bits
+    survivors = sorted(rank for rank, _ in inputs) if bonawitz else [None] * len(inputs)
+    want = np.zeros_like(inputs[0][1])
+    for _, x in inputs:
+        want = np.mod(want + x, p)
+    got, sum_ms = sums[0] if sums else (None, None)
+    if got is None or not np.array_equal(got, want):
+        raise RuntimeError(f"{which}: the unmasked field sum is not the survivors' plain sum")
+    if bonawitz and survivors != [1, 2]:
+        raise RuntimeError(f"{which}: rank 3 did not drop out: survivors {survivors}")
+    final = server.aggregator.get_global_model_params()
+    summed = finite.finite_to_tree(want, final, q_bits, p)
+    # Bonawitz: the count-weighted mean (silo r trains part r - 1); LightSecAgg:
+    # the plain mean
+    n_div = (sum(ds.train_data_local_num_dict[r - 1] for r in survivors) if bonawitz
+             else len(survivors))
+    expected = {k: (v / torch.tensor(float(n_div))).cuda() for k, v in summed.items()}
+    if not (result and result.get("rounds") == 1 and _leaves_equal(final, expected)):
+        raise RuntimeError(f"{which}: the global model is not the dequantized field sum: "
+                           f"{result}")
+    print(f"  {card}: {which} {'Bonawitz' if bonawitz else 'LightSecAgg'} 1 round of "
+          f"{len(clients)} silos ({len(survivors)} survivors) in {wall:.3f} s; the server's "
+          f"finite-field unmask {sum_ms:.1f} ms host; the model is the survivors' field sum "
+          f"dequantized (q_bits {q_bits}); test loss {result['test_loss']:.5f}", flush=True)
+    return dict(wall_s=wall, survivors=survivors, field_unmask_host_ms=sum_ms,
+                test_loss=float(result["test_loss"]), q_bits=q_bits)
+
+
 def step_sum(results, key, rows=DECODE_ROWS):
     """One pass's total over its 225 launches at ``rows`` rows (None where
     a time was not measured)."""
@@ -2404,7 +2774,7 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="bcdefghij",
+    parser.add_argument("--phases", default="bcdefghijk",
                         help="phases to run after (a), e.g. 'd' for the flash kernels "
                              "alone (default: all; only a full run prints the kernels "
                              "and ok lines)")
@@ -2445,6 +2815,7 @@ def main(argv=None) -> int:
               f"{info.get('stack')} bytes", flush=True)
 
     results = serve = flash = train = quantized = qlora = sp = cross_silo = trust = None
+    secure = None
     phase_s = {}
     parent_dequant = parent_fwd = None
     if opts.parent:
@@ -2501,12 +2872,24 @@ def main(argv=None) -> int:
         print("(j3) the trust stack in cross-silo: 4 silos over LOCAL, norm-difference "
               "clipping + local DP on the fused path, 1 round", flush=True)
         trust["j3"] = timed("j3", lambda: trust_cross_silo_phase(card))
+    if "k" in phases:
+        print("(k1) secure aggregation, secagg: int8: 4 silos over LOCAL, 2 rounds, silo "
+              f"{SECAGG_STALL_RANK} stalled in round 1 (recovery)", flush=True)
+        secure = dict(k1=timed("k1", lambda: secagg_inproc(card)))
+        print(f"(k2) secagg: int8 over the broker: a server and {SECAGG_BROKER_SILOS} silos "
+              "as processes, 1 round", flush=True)
+        secure["k2"] = timed("k2", lambda: secagg_broker(card))
+        print("(k3) the Bonawitz FSM: 3 silos, one dropout after the share exchange, "
+              "1 round", flush=True)
+        secure["k3"] = timed("k3", lambda: finite_field_phase(card, "k3"))
+        print("(k4) LightSecAgg: 3 silos, 1 round", flush=True)
+        secure["k4"] = timed("k4", lambda: finite_field_phase(card, "k4"))
     os.makedirs("results", exist_ok=True)
     record = {"card": card, "torch": torch.__version__, "build_s": build_s, "ptxas": ptxas,
               "shapes": results, "serve": serve, "flash": flash, "train": train,
               "quantized": quantized, "qlora": qlora, "sp": sp, "cross_silo": cross_silo,
-              "trust": trust, "phase_s": phase_s}
-    if sorted(phases) != list("bcdefghij"):
+              "trust": trust, "secure": secure, "phase_s": phase_s}
+    if sorted(phases) != list("bcdefghijk"):
         with open(os.path.join("results", "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
         print(f"phases {phases} passed (a partial run prints no kernels or ok line)")

@@ -16,10 +16,13 @@ with compressed uplinks (:func:`run_simulation`: ``simulation``,
 synchronous cross-silo FedAvg over the in-process and TCP-broker
 transports (:func:`run_cross_silo_server` / :func:`run_cross_silo_client`:
 ``cross_silo``, ``core.distributed``, ``resilience``, the reference's wire
-in ``utils.serialization``), and the aggregation-side trust stack of both
+in ``utils.serialization``), the aggregation-side trust stack of both
 engines: the integrity rings (``integrity``), differential privacy
-(``core.dp``), attacks and defenses (``core.security``). Entry points run
-on ``cuda`` unless the caller passes ``device="cpu"``.
+(``core.dp``), attacks and defenses (``core.security``), and secure
+aggregation: the masked int8 domain (``privacy.secagg``, ``secagg: int8``)
+and the Bonawitz and LightSecAgg protocols (``core.mpc``,
+``cross_silo.secagg``, ``cross_silo.lightsecagg``). Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """
 import random
 from typing import Any, Optional

@@ -37,8 +37,7 @@ from fedml_tpu_torch.compression.codecs import (
 from fedml_tpu_torch.compression.error_feedback import ErrorFeedback
 
 # The parts of the reference's trust stack the port has not ported yet:
-# the argument that switches each on → the ROADMAP item that brings it
-# (secure aggregation is refused by the cross-silo FSMs, naming A10.2b).
+# the argument that switches each on → the ROADMAP item that brings it.
 TRUST_STACK_ARGS = {
     "enable_fhe": "FHE aggregation (ROADMAP A13)",
     "enable_contribution": "contribution assessment (ROADMAP A10.2c)",

@@ -25,9 +25,11 @@ reciprocal (``amax / 127`` → ``amax * f32(1/127)``), while a division by a
 traced value stays a division, which here is a tensor / tensor division on
 every device (CUDA turns a division by a Python scalar into a product).
 
-The masked secure-aggregation codec and the federated-analytics sketch
-codecs are legal wire tags but come with ROADMAP A10.2b (secure aggregation)
-and A10.5 (the sketches); resolving one raises.
+``secagg_int8``, the masked secure-aggregation codec, lives in
+``privacy/secagg/codec.py`` and registers here on first use; it decodes
+nothing by itself (masked trees resolve only in aggregate) and no generic
+weighted sum takes it. The federated-analytics sketch codecs are legal wire
+tags but come with ROADMAP A10.5; resolving one raises.
 """
 from __future__ import annotations
 
@@ -40,8 +42,8 @@ from fedml_tpu_torch.compression import threefry
 from fedml_tpu_torch.utils.tree import Tree, tree_flatten
 
 WIRE_VERSION = 1
-# the masked secure-aggregation wire (ROADMAP A10.2b): a legal version for
-# maskable codecs only
+# the masked secure-aggregation wire: v1's framing plus a validated "sa"
+# metadata field, for maskable codecs only
 WIRE_VERSION_MASKED = 2
 
 # meta entry per original leaf: (dtype string, shape tuple)
@@ -91,15 +93,17 @@ class CompressedTree:
     codec's positional list of tensors for that leaf (``[q, scale]`` for
     int8). ``structure`` is the tuple of the tree's keys in leaf order, so
     decode rebuilds the same dict. ``meta`` holds each leaf's (dtype,
-    shape) in the same order.
+    shape) in the same order. ``sa`` is the masked wire's (v2) metadata
+    dict — round, rank and roster — and None on a plain (v1) tree.
     """
 
     __slots__ = ("codec", "version", "is_delta", "raw_nbytes", "meta",
-                 "structure", "arrays")
+                 "structure", "arrays", "sa")
 
     def __init__(self, codec: str, version: int, is_delta: bool,
                  raw_nbytes: int, meta: Sequence[LeafMeta],
-                 structure: Sequence[str], arrays: List[List[Any]]):
+                 structure: Sequence[str], arrays: List[List[Any]],
+                 sa: Optional[dict] = None):
         self.codec = str(codec)
         self.version = int(version)
         self.is_delta = bool(is_delta)
@@ -108,6 +112,7 @@ class CompressedTree:
                           for dt, sh in meta)
         self.structure = tuple(structure)
         self.arrays = arrays
+        self.sa = dict(sa) if sa is not None else None
 
     def wire_nbytes(self) -> int:
         """Bytes of the encoded arrays: what the uplink carries."""
@@ -301,6 +306,11 @@ def fused_weighted_sum(cts: Sequence[CompressedTree], weights) -> Tree:
                 "cannot fuse heterogeneous compressed updates "
                 f"({ct.codec}/v{ct.version} vs {first.codec}/v{first.version})")
     codec = get_codec(first.codec)._resolve_wire(first)
+    if codec.maskable:
+        raise ValueError(
+            "masked (secure-aggregation) updates cannot ride the generic "
+            "weighted sum — per-client float weights would break exact "
+            "mask cancellation; use privacy.secagg.unmask_finalize")
     n_leaves = len(first.meta)
     if any(len(ct.arrays) != n_leaves for ct in cts):
         raise ValueError("compressed update leaf count mismatch")
@@ -588,16 +598,26 @@ _CODEC_CLASSES: Dict[str, type] = {
 
 _INSTANCES: Dict[Tuple, Codec] = {}
 
-# tags of codecs that arrive later: the masked secure-aggregation codec
-# (ROADMAP A10.2b) and the federated-analytics sketch family (A10.5)
 _SECAGG_NAME = "secagg_int8"
 MASKABLE_CODECS = (_SECAGG_NAME,)
+# the federated-analytics sketch family: legal wire tags that come with
+# ROADMAP A10.5
 _SKETCH_NAMES = ("cms", "csk", "votevec", "bloom", "hist")
 
 
+def _load_secagg_codec() -> type:
+    """Register the maskable codec on first use (``privacy.secagg`` imports
+    this module, so the import cannot run at import time)."""
+    if _SECAGG_NAME not in _CODEC_CLASSES:
+        from fedml_tpu_torch.privacy.secagg.codec import SecAggInt8Codec
+
+        _CODEC_CLASSES[SecAggInt8Codec.name] = SecAggInt8Codec
+    return _CODEC_CLASSES[_SECAGG_NAME]
+
+
 def available_codecs() -> Tuple[str, ...]:
-    # the masked codec and the sketch family are legal wire tags, as in the
-    # reference, though resolving one raises until A10.2b / A10.5 port them
+    # the masked codec and the sketch family are legal wire tags, loaded or
+    # not, as in the reference
     return tuple(sorted(set(_CODEC_CLASSES) | {_SECAGG_NAME} | set(_SKETCH_NAMES)))
 
 
@@ -617,12 +637,19 @@ def get_codec(name: str, args: Any = None) -> Optional[Codec]:
     if name in ("", "none", "off"):
         return None
     base, _, param = name.partition("@")
-    if base not in _CODEC_CLASSES and (
-            base == _SECAGG_NAME or base in _SKETCH_NAMES):
-        part = "A10.2b" if base == _SECAGG_NAME else "A10.5"
+    if base == _SECAGG_NAME:
+        cls = _load_secagg_codec()
+        # a bare tag (wire validation, maskable checks) gets a default
+        # instance; every real round negotiates explicit parameters
+        clip, bound, mod_bits = cls.parse_param(param) if param else (0.1, 42, 8)
+        cache_key: Tuple = (base, clip, bound, mod_bits)
+        if cache_key not in _INSTANCES:
+            _INSTANCES[cache_key] = cls(clip, bound, mod_bits)
+        return _INSTANCES[cache_key]
+    if base in _SKETCH_NAMES and base not in _CODEC_CLASSES:
         raise NotImplementedError(
-            f"codec {base!r} comes with secure aggregation and federated "
-            f"analytics (ROADMAP {part}); the port has not ported it yet")
+            f"codec {base!r} comes with federated analytics (ROADMAP A10.5); "
+            "the port has not ported it yet")
     if base not in _CODEC_CLASSES:
         raise ValueError(
             f"unknown compression codec {base!r}; "
@@ -642,7 +669,7 @@ def get_codec(name: str, args: Any = None) -> Optional[Codec]:
             block = int(getattr(args, "compression_block_size",
                                 _Blockwise4BitCodec.DEFAULT_BLOCK)
                         if args is not None else _Blockwise4BitCodec.DEFAULT_BLOCK)
-        cache_key: Tuple = (base, block)
+        cache_key = (base, block)
         if cache_key not in _INSTANCES:
             _INSTANCES[cache_key] = cls(block)
         return _INSTANCES[cache_key]

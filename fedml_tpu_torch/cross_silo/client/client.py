@@ -1,5 +1,7 @@
 """Cross-silo Client facade — counterpart of
-``fedml_tpu/cross_silo/client/client.py``."""
+``fedml_tpu/cross_silo/client/client.py``: ``secure_aggregation: true``
+selects the Bonawitz SecAgg FSM, mirroring the server facade (a plain
+manager against a SecAgg server would upload an unmasked model)."""
 from __future__ import annotations
 
 from typing import Any
@@ -8,6 +10,7 @@ from fedml_tpu_torch.cross_silo.client.fedml_client_master_manager import (
     ClientMasterManager,
 )
 from fedml_tpu_torch.cross_silo.client.trainer_dist_adapter import TrainerDistAdapter
+from fedml_tpu_torch.cross_silo.secagg.sa_client_manager import SAClientManager
 from fedml_tpu_torch.cross_silo.server.server import comm_backend
 from fedml_tpu_torch.device import DeviceLike, resolve_device
 
@@ -20,8 +23,10 @@ class Client:
         rank = int(getattr(args, "rank", 1))
         client_num = int(getattr(args, "client_num_per_round", 1))
         adapter = TrainerDistAdapter(args, dev, rank, model, dataset, client_trainer)
-        self.manager = ClientMasterManager(args, adapter, rank=rank, size=client_num + 1,
-                                           backend=comm_backend(args), device=dev)
+        manager_cls = (SAClientManager if getattr(args, "secure_aggregation", False)
+                       else ClientMasterManager)
+        self.manager = manager_cls(args, adapter, rank=rank, size=client_num + 1,
+                                   backend=comm_backend(args), device=dev)
 
     def run(self):
         self.manager.run()

@@ -22,7 +22,16 @@ threads of one process stay deterministic. The trainer's trust hooks
 (``ClientTrainer.trust_stream``), so in-process silos draw what each
 silo's own process would. An ``agg_robust`` header is checked: a spec this
 client cannot parse means the federation disagrees about its aggregation.
-SecAgg comes with ROADMAP A10.2b and the live telemetry streamers with A12.
+
+Under ``secagg: int8`` the client's X25519 key rides every status message,
+each broadcast's secagg header opens the round's mask state (the header,
+not the compression negotiation, sets the upload codec), the delta leaves
+masked (``privacy/secagg``, in the reference's layout, keyed by
+``derive_key(seed, round, rank)``), and the only thing the client ever
+reveals is the pair seeds it shared with peers the server evicted. A client
+with no open masked round refuses to upload. ``secure_aggregation: true``
+selects the Bonawitz FSM instead (``cross_silo/secagg``, through the client
+facade). The live telemetry streamers come with ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -56,13 +65,13 @@ from fedml_tpu_torch.models.convert import (
     to_reference_layout,
     to_wire_params,
 )
+from fedml_tpu_torch.privacy.secagg import SecAggClientSession, SecAggMessage
 from fedml_tpu_torch.telemetry import get_registry
 from fedml_tpu_torch.utils.tree import Tree
 
 logger = logging.getLogger(__name__)
 
 _NOT_PORTED = {
-    "secure_aggregation": "secure aggregation (ROADMAP A10.2b)",
     "live_telemetry": "the live telemetry plane (ROADMAP A12)",
 }
 
@@ -82,6 +91,7 @@ class ClientMasterManager(FedMLCommManager):
         self._last_train_ms: Optional[float] = None
         self._heartbeat_thread: Optional[threading.Thread] = None
         self._finished = threading.Event()
+        self._secagg = SecAggClientSession.from_args(rank, args)
 
     def _heartbeat_fields(self) -> dict:
         """The reference's health scalars, piggybacked on status and upload
@@ -105,7 +115,9 @@ class ClientMasterManager(FedMLCommManager):
                 (MyMessage.MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT,
                  self.handle_message_receive_model_from_server),
                 (MyMessage.MSG_TYPE_S2C_FINISH, self.handle_message_finish),
-                (MyMessage.MSG_TYPE_S2C_REJOIN_SYNC, self.handle_message_rejoin_sync)):
+                (MyMessage.MSG_TYPE_S2C_REJOIN_SYNC, self.handle_message_rejoin_sync),
+                (SecAggMessage.MSG_TYPE_S2C_SECAGG_RECOVER,
+                 self.handle_message_secagg_recover)):
             self.register_message_receive_handler(msg_type, handler)
 
     # -- handlers -------------------------------------------------------------
@@ -149,6 +161,14 @@ class ClientMasterManager(FedMLCommManager):
                              from_reference_layout(decoded).items()}
         else:
             global_params = from_wire_params(payload, self.device)
+        if self._secagg is not None:
+            header = msg.get(SecAggMessage.MSG_ARG_KEY_SECAGG)
+            if header is not None:
+                # the header rules the upload wire; the compression
+                # negotiation applies to the broadcast only
+                self._secagg.begin_round(header, int(msg.get(MyMessage.MSG_ARG_KEY_ROUND, 0)))
+            self._global_ref = global_params
+            return global_params
         robust = msg.get(Message.MSG_ARG_KEY_AGG_ROBUST)
         if robust is not None:
             # informational for a flat client (the server aggregates), but an
@@ -174,12 +194,16 @@ class ClientMasterManager(FedMLCommManager):
 
     def handle_message_receive_model_from_server(self, msg: Message) -> None:
         new_round = int(msg.get(MyMessage.MSG_ARG_KEY_ROUND, self.round_idx + 1))
-        if new_round > self.round_idx + 1 and self._error_feedback is not None:
+        if new_round > self.round_idx + 1 and (self._error_feedback is not None
+                                               or self._secagg is not None):
             # rounds were missed without a rejoin resync: the residual belongs
             # to a stale global model and would leak pre-gap error
             logger.info("client %d skipped rounds %d..%d; resetting EF", self.rank,
                         self.round_idx + 1, new_round - 1)
-            self._error_feedback.reset()
+            if self._error_feedback is not None:
+                self._error_feedback.reset()
+            if self._secagg is not None:
+                self._secagg.reset_identity()
         global_params = self._receive_global_model(msg)
         self.round_idx = new_round
         self.trainer_dist_adapter.update_dataset(int(msg.get(MyMessage.MSG_ARG_KEY_CLIENT_INDEX)))
@@ -193,6 +217,8 @@ class ClientMasterManager(FedMLCommManager):
         self.round_idx = int(msg.get(MyMessage.MSG_ARG_KEY_ROUND, self.round_idx))
         if self._error_feedback is not None:
             self._error_feedback.reset()
+        if self._secagg is not None:
+            self._secagg.reset_identity()
         get_registry().counter("resilience/rejoin_syncs").inc()
         logger.info("client %d re-synced at round %d after rejoin", self.rank, self.round_idx)
 
@@ -210,11 +236,40 @@ class ClientMasterManager(FedMLCommManager):
                        status or MyMessage.MSG_CLIENT_STATUS_IDLE)
         msg.add_params(MyMessage.MSG_ARG_KEY_CLIENT_OS, platform.system())
         msg.add_params(Message.MSG_ARG_KEY_HEALTH, self._heartbeat_fields())
+        if self._secagg is not None:
+            # the key advertisement: 32 bytes on a message already sent
+            msg.add_params(SecAggMessage.MSG_ARG_KEY_SECAGG_PK, self._secagg.pk)
         self.send_message(msg)
 
+    def handle_message_secagg_recover(self, msg: Message) -> None:
+        """Dropout recovery: reveal the pair seeds shared with the evicted
+        peers, and only those; a refused request goes unanswered, which the
+        server's bounded recovery deadline treats as this client's dropout."""
+        if self._secagg is None:
+            return
+        seeds = self._secagg.reveal_for(
+            msg.get(SecAggMessage.MSG_ARG_KEY_SECAGG_EVICTED) or [],
+            msg.get(MyMessage.MSG_ARG_KEY_ROUND))
+        if seeds is None:
+            return
+        m = Message(SecAggMessage.MSG_TYPE_C2S_SECAGG_REVEAL, self.get_sender_id(),
+                    msg.get_sender_id())
+        m.add_params(SecAggMessage.MSG_ARG_KEY_SECAGG_REVEAL, seeds)
+        m.add_params(MyMessage.MSG_ARG_KEY_ROUND, msg.get(MyMessage.MSG_ARG_KEY_ROUND))
+        self.send_message(m)
+
     def _encode_update(self, weights: Tree):
-        """The upload: through the negotiated codec, the delta against the
-        decoded broadcast with error feedback; else the model itself."""
+        """The upload: masked under secagg, else through the negotiated codec
+        (the delta against the decoded broadcast with error feedback), else
+        the model itself."""
+        if self._secagg is not None:
+            if not self._secagg.active or self._global_ref is None:
+                raise ValueError(f"client {self.rank} has no open secagg round to encode "
+                                 "into — refusing to upload an unmasked model")
+            delta = to_reference_layout(tree_delta(weights, self._global_ref))
+            return self._secagg.encode_update(
+                delta, derive_key(int(getattr(self.args, "random_seed", 0)),
+                                  self.round_idx, self.rank))
         if self._upload_codec is None or self._global_ref is None:
             return to_wire_params(weights)
         delta = to_reference_layout(tree_delta(weights, self._global_ref))

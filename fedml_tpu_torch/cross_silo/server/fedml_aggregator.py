@@ -11,7 +11,9 @@ factors, or as the robust statistic under ``agg_robust`` or a fused defense
 — unless a trust-stack hook needs every client's full model
 (``compression.requires_full_trees``: a model attack, a list defense,
 central DP), in which case each delta is decoded and the
-``ServerAggregator`` hook chain runs.
+``ServerAggregator`` hook chain runs. Under secure aggregation
+(:meth:`set_secagg`) every upload must be a masked tree, and the only
+reduction is the session's unmask in aggregate.
 """
 from __future__ import annotations
 
@@ -64,6 +66,12 @@ class FedMLAggregator:
         self.sample_num_dict: Dict[int, int] = {}
         self.local_steps_dict: Dict[int, float] = {}
         self.flag_client_model_uploaded_dict = {i: False for i in range(self.client_num)}
+        # the secure-aggregation session: masked uploads resolve only in
+        # aggregate (privacy/secagg)
+        self._secagg = None
+
+    def set_secagg(self, session) -> None:
+        self._secagg = session
 
     def set_global_model_params(self, params: Tree) -> None:
         self.global_params = params
@@ -106,7 +114,8 @@ class FedMLAggregator:
         return len(self.model_dict)
 
     def drop_client_upload(self, index: int) -> None:
-        """Remove one staged upload."""
+        """Remove one staged upload (a screened one, or in secagg recovery a
+        survivor that never revealed: its masks can no longer be removed)."""
         self.model_dict.pop(index, None)
         self.sample_num_dict.pop(index, None)
         self.local_steps_dict.pop(index, None)
@@ -127,7 +136,17 @@ class FedMLAggregator:
         """Compressed uploads: all delta-encoded and no hook needing full
         models → the dequant-fused sum (no per-client f32 tree is built),
         returned as ``w_agg``; otherwise each is decoded back to a full port
-        tree for the hook chain."""
+        tree for the hook chain. A masked round has one legal reduction, the
+        unmask (the manager validated each upload on receipt)."""
+        if self._secagg is not None:
+            bad = [m for _, m in raw_list if not (
+                isinstance(m, CompressedTree) and getattr(get_codec(m.codec), "maskable",
+                                                          False))]
+            if bad:
+                raise ValueError(f"unmasked upload(s) reached a secagg aggregate: "
+                                 f"{[type(m).__name__ for m in bad]}")
+            return raw_list, from_reference_layout(self._secagg.aggregate(
+                [m for _, m in raw_list], to_reference_layout(self.get_upload_base())))
         if not any(isinstance(m, CompressedTree) for _, m in raw_list):
             return raw_list, None
         base = self.get_upload_base()

@@ -30,13 +30,25 @@ eval (a loss spike), which rolls the round back to its round-open state
 and re-runs it with a fresh cohort. Attacks, defenses and DP are the
 singletons' and run in the aggregator's and the trainers' hooks.
 
-Not ported yet, and refused when their arguments are set: secure
-aggregation (ROADMAP A10.2b), FHE (A13), contribution assessment (A10.2c),
-the durability journal and chaos (A10.3), round checkpoints and resume
-(A4), and the live telemetry plane, spans and the flight recorder (A12).
-``cross_silo/round_ms`` (broadcast to the test after aggregation) and the
-reference's ``resilience/*`` and ``integrity/*`` counters go to the port's
-metrics registry.
+Masked secure aggregation (``secagg: int8``) is the reference's: each
+client's key advertisement rides its status messages, the round header
+(roster, key directory, codec spec) rides the broadcast, every upload must
+be a masked tree whose header matches the open round (else it is dropped
+and counted), and the round resolves only in aggregate through the unmask.
+A round that closes at quorum with missing clients first asks the
+survivors for the pair seeds they shared with the evicted ones; a survivor
+that never answers is evicted too, in bounded waves, then the federation
+aborts. Every trust hook that needs one client's plaintext is refused at
+construction. ``secure_aggregation: true`` selects the Bonawitz FSM
+instead (``cross_silo/secagg``, through the server facade).
+
+Not ported yet, and refused when their arguments are set: FHE (A13),
+contribution assessment (A10.2c), the durability journal and chaos
+(A10.3), round checkpoints and resume (A4), and the live telemetry plane,
+spans and the flight recorder (A12). ``cross_silo/round_ms`` (broadcast to
+the test after aggregation) and the reference's ``resilience/*``,
+``integrity/*`` and ``secagg/*`` counters go to the port's metrics
+registry.
 """
 from __future__ import annotations
 
@@ -71,6 +83,7 @@ from fedml_tpu_torch.models.convert import (
     to_reference_layout,
     to_wire_params,
 )
+from fedml_tpu_torch.privacy.secagg import SecAggMessage, SecAggServerSession
 from fedml_tpu_torch.resilience import (
     RoundDeadline,
     ServerKillWindow,
@@ -84,7 +97,6 @@ logger = logging.getLogger(__name__)
 
 # arguments of features the port's server does not have yet → the item
 _NOT_PORTED = {
-    "secure_aggregation": "secure aggregation (ROADMAP A10.2b)",
     "resume": "resume from a round checkpoint (ROADMAP A4)",
     "checkpoint_dir": "round checkpoints (ROADMAP A4)",
     "live_telemetry": "the live telemetry plane (ROADMAP A12)",
@@ -146,8 +158,15 @@ class FedMLServerManager(FedMLCommManager):
         self.is_initialized = False
         self.result: Optional[dict] = None
         # the broadcast goes through the configured codec and the spec rides
-        # every round config, so clients upload delta-encoded updates
-        self._codec = get_codec(getattr(args, "compression", ""), args)
+        # every round config, so clients upload delta-encoded updates (not
+        # under the Bonawitz FSM's flag: quantizing masked models would break
+        # the cancellation)
+        self._codec = (None if getattr(args, "secure_aggregation", False)
+                       else get_codec(getattr(args, "compression", ""), args))
+        # masked secure aggregation (secagg: int8): uploads arrive masked and
+        # resolve only in aggregate; a quorum close with missing clients runs
+        # the seed-reveal recovery before it aggregates
+        self._secagg = SecAggServerSession.from_args(args, client_num)
         self._latency = _LatencyEWMA()
         self._bcast_ts: Dict[int, float] = {}
         self._round_t0 = 0.0
@@ -158,10 +177,28 @@ class FedMLServerManager(FedMLCommManager):
         self._completing = False
         self._finished_once = False
         self._deadline = RoundDeadline(self._on_round_deadline)
+        # the recovery's bounded waves re-arm this timer, never the round's
+        self._recovery_deadline = RoundDeadline(self._on_recovery_deadline)
         self._m_round_ms = get_registry().histogram("cross_silo/round_ms")
+        if self._secagg is not None:
+            self._check_secagg_compat()
+            self.aggregator.set_secagg(self._secagg)
 
         # the integrity rings (parity: fedml_server_manager.py:197-262)
         self._agg_robust = resolve_agg_robust(args, codec=self._codec)
+        icfg = IntegrityConfig.from_args(args)
+        if self._secagg is not None:
+            conflicts = []
+            if self._agg_robust:
+                conflicts.append(f"agg_robust {self._agg_robust!r} (per-coordinate "
+                                 "sorting needs per-client values the masks hide)")
+            if icfg is not None and icfg.screen_enabled:
+                conflicts.append("integrity screening (per-upload introspection is what "
+                                 "the masks exist to prevent; secagg_clip is the masked "
+                                 "wire's admission control)")
+            if conflicts:
+                raise ValueError("secure aggregation (secagg: int8) cannot run with: "
+                                 + "; ".join(conflicts))
         if parse_robust_spec(getattr(args, "agg_robust", "")) is not None:
             if self._codec is None:
                 raise ValueError(
@@ -172,13 +209,12 @@ class FedMLServerManager(FedMLCommManager):
                 raise ValueError(
                     f"agg_robust needs dense per-coordinate uploads; codec "
                     f"{self._codec.spec!r} is sparse — use int8/bf16/identity")
-        icfg = IntegrityConfig.from_args(args)
         self._screen: Optional[UpdateScreen] = None
         self._quarantine: Optional[QuarantineList] = None
         self._guard: Optional[AcceptanceGuard] = None
         if icfg is not None:
             self._quarantine = QuarantineList(icfg.quarantine_rounds)
-            if icfg.screen_enabled:
+            if icfg.screen_enabled and self._secagg is None:
                 self._screen = UpdateScreen(icfg.norm_mult, icfg.z_threshold)
             if icfg.rollback_enabled:
                 self._guard = AcceptanceGuard(icfg.loss_mult, icfg.loss_min_history,
@@ -188,6 +224,35 @@ class FedMLServerManager(FedMLCommManager):
         self._screened_out: set = set()
         # ring 3's restore point: the round-open state
         self._pre_round_state: Optional[dict] = None
+
+    def _check_secagg_compat(self) -> None:
+        """A masked round never exposes one client's model, so every trust
+        hook that reads per-client plaintext is refused here, not
+        mid-round (FHE and contribution assessment are refused earlier,
+        as not ported)."""
+        from fedml_tpu_torch.core.dp.fedml_differential_privacy import (
+            FedMLDifferentialPrivacy,
+        )
+        from fedml_tpu_torch.core.security.attacker import FedMLAttacker
+        from fedml_tpu_torch.core.security.defender import FedMLDefender
+
+        conflicts = []
+        if FedMLAttacker.get_instance().is_model_attack():
+            conflicts.append("model-attack injection")
+        if FedMLDefender.get_instance().is_defense_enabled():
+            conflicts.append("list-based defenses (secagg_clip already bounds every "
+                             "client update inside the masked encode)")
+        if self._codec is not None and not self._codec.broadcast_safe:
+            conflicts.append(f"upload codec {self._codec.spec!r} (secagg owns the upload "
+                             "wire; only broadcast-safe compression applies)")
+        dp = FedMLDifferentialPrivacy.get_instance()
+        if dp.is_dp_enabled() and dp.is_global_dp_enabled() and getattr(
+                getattr(dp.frame, "mechanism", None), "sigma", None) is None:
+            conflicts.append("non-gaussian central-DP mechanism (only gaussian has an "
+                             "in-program noise path)")
+        if conflicts:
+            raise ValueError("secure aggregation (secagg: int8) cannot run with "
+                             "per-client-plaintext features: " + "; ".join(conflicts))
 
     # -- broadcast ------------------------------------------------------------
     def _broadcast_payload(self, global_params):
@@ -208,7 +273,8 @@ class FedMLServerManager(FedMLCommManager):
             None if self._codec.lossless else from_reference_layout(self._codec.decode(ct)))
         return ct
 
-    def _send_round_config(self, client_ids: List[int], payload, init: bool) -> None:
+    def _send_round_config(self, client_ids: List[int], payload, sa_header,
+                           init: bool) -> None:
         msg_type = (MyMessage.MSG_TYPE_S2C_INIT_CONFIG if init
                     else MyMessage.MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT)
         for client_id in client_ids:
@@ -222,6 +288,8 @@ class FedMLServerManager(FedMLCommManager):
             if self._agg_robust:
                 # negotiated like the codec spec
                 msg.add_params(Message.MSG_ARG_KEY_AGG_ROBUST, self._agg_robust)
+            if sa_header is not None:
+                msg.add_params(SecAggMessage.MSG_ARG_KEY_SECAGG, sa_header)
             self._bcast_ts[client_id] = time.time()
             self.send_message(msg)
 
@@ -229,6 +297,7 @@ class FedMLServerManager(FedMLCommManager):
         """Broadcast the current round to its cohort and arm its deadline."""
         self._round_t0 = time.perf_counter()
         payload = self._broadcast_payload(global_params)
+        sa_header = self._secagg_round_header()
         self._capture_round_state()
         with self._round_lock:
             self._round_closed = False
@@ -237,8 +306,17 @@ class FedMLServerManager(FedMLCommManager):
             self._completing = False
             self._screened_out = set()
             cohort = list(self.client_id_list_in_this_round)
-        self._send_round_config(cohort, payload, init)
+        self._send_round_config(cohort, payload, sa_header, init)
         self._arm_round_deadline()
+
+    def _secagg_round_header(self) -> Optional[dict]:
+        """Open a masked round: roster, key directory and codec spec, riding
+        the broadcast at no extra round trip."""
+        if self._secagg is None:
+            return None
+        with self._round_lock:
+            cohort = list(self.client_id_list_in_this_round)
+        return self._secagg.begin_round(int(self.args.round_idx), cohort)
 
     def send_init_msg(self) -> None:
         self._open_round(self.aggregator.get_global_model_params(), init=True)
@@ -251,6 +329,8 @@ class FedMLServerManager(FedMLCommManager):
         self.register_message_receive_handler(
             MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER,
             self.handle_message_receive_model_from_client)
+        self.register_message_receive_handler(
+            SecAggMessage.MSG_TYPE_C2S_SECAGG_REVEAL, self.handle_message_secagg_reveal)
 
     # -- handlers -------------------------------------------------------------
     def handle_message_connection_ready(self, msg: Message) -> None:
@@ -262,6 +342,15 @@ class FedMLServerManager(FedMLCommManager):
 
     def handle_message_client_status_update(self, msg: Message) -> None:
         sender = msg.get_sender_id()
+        if self._secagg is not None:
+            # the key advertisement rides every status and heartbeat
+            pk = msg.get(SecAggMessage.MSG_ARG_KEY_SECAGG_PK)
+            if pk is not None:
+                try:
+                    self._secagg.note_pk(sender, pk)
+                except ValueError:
+                    logger.warning("dropping malformed secagg key advertisement from "
+                                   "client %s", sender)
         # any sign of life from an evicted client is its reconnect
         if self.is_initialized and self.liveness.is_evicted(sender):
             self._readmit_client(sender)
@@ -312,12 +401,20 @@ class FedMLServerManager(FedMLCommManager):
         msg_round = msg.get(MyMessage.MSG_ARG_KEY_ROUND)
         missing = None
         screened = None
+        invalid = None
         with self._round_lock:
             cohort = list(self.client_id_list_in_this_round or [])
             stale = (self._round_closed or sender not in cohort
                      or (msg_round is not None
                          and int(msg_round) != int(self.args.round_idx)))
-            if not stale:
+            if not stale and self._secagg is not None:
+                # a masked upload whose metadata lies is dropped: it never
+                # reaches the aggregate
+                try:
+                    self._secagg.validate_upload(sender, model_params)
+                except ValueError as e:
+                    invalid = str(e)
+            if not stale and invalid is None:
                 if not isinstance(model_params, CompressedTree):
                     model_params = from_wire_params(model_params, self.device)
                 if self._screen is not None:
@@ -338,6 +435,11 @@ class FedMLServerManager(FedMLCommManager):
                         msg.get(MyMessage.MSG_ARG_KEY_NUM_SAMPLES),
                         local_steps=msg.get("local_steps"))
                 missing = self._try_close_round(cohort)
+        if invalid is not None:
+            get_registry().counter("secagg/invalid_uploads").inc()
+            logger.warning("dropping invalid masked upload from client %s: %s", sender,
+                           invalid)
+            return
         if screened is not None:
             # outside the lock: the sender loses its trust; the close evicts
             # it and quarantine keeps a readmitted sender out of selection
@@ -463,14 +565,122 @@ class FedMLServerManager(FedMLCommManager):
         self.com_manager.stop_receive_message()
 
     def _finish_round(self, missing_clients: List[int]) -> None:
-        """Evict the clients that missed the round, then aggregate."""
+        """Evict the clients that missed the round, then aggregate — in a
+        masked round with dropouts after the seed-reveal recovery (the
+        evicted clients' half-cancelled masks must go first)."""
         reg = get_registry()
         if missing_clients:
             reg.counter("resilience/quorum_rounds").inc()
             for cid in missing_clients:
                 if self.liveness.evict(cid):
                     reg.counter("resilience/clients_evicted").inc()
+        if (self._secagg is not None and missing_clients
+                and not self._secagg.recovery_complete()):
+            self._secagg_start_recovery(missing_clients)
+            return
         self._complete_round()
+
+    # -- secagg dropout recovery ----------------------------------------------
+    def _secagg_start_recovery(self, missing_clients: List[int]) -> None:
+        """Ask every survivor for the pair seeds it shared with the evicted
+        clients: one extra round trip. The round aggregates when the reveals
+        are complete or the bounded recovery deadline gives up."""
+        with self._round_lock:
+            cohort = list(self.client_id_list_in_this_round or [])
+        survivors = [c for c in cohort if c not in set(missing_clients)]
+        ask = self._secagg.begin_recovery(survivors, missing_clients)
+        need = max(2, quorum_size(len(cohort), self.resilience.round_quorum))
+        if len(ask) < need:
+            self._abort_federation(
+                f"secagg round {self.args.round_idx} unrecoverable: {len(ask)} survivors "
+                f"< {need} (quorum floor; privacy floor is 2 — a lone survivor's upload "
+                "would unmask)")
+            return
+        get_registry().counter("resilience/quorum_recoveries").inc()
+        logger.warning("secagg round %s recovery wave %d: evicted %s, asking %s",
+                       self.args.round_idx, self._secagg.recovery_waves,
+                       self._secagg.evicted, ask)
+        self._send_recover_requests(ask)
+        self._recovery_deadline.arm(int(self.args.round_idx), self._recovery_timeout_s())
+
+    def _recovery_timeout_s(self) -> float:
+        t = getattr(self.args, "secagg_recovery_timeout_s", None)
+        if t:
+            return float(t)
+        return self.resilience.round_deadline_s or 30.0
+
+    def _send_recover_requests(self, survivors: List[int]) -> None:
+        for s in survivors:
+            m = Message(SecAggMessage.MSG_TYPE_S2C_SECAGG_RECOVER, self.get_sender_id(), s)
+            m.add_params(SecAggMessage.MSG_ARG_KEY_SECAGG_EVICTED,
+                         list(self._secagg.evicted))
+            m.add_params(MyMessage.MSG_ARG_KEY_ROUND, int(self.args.round_idx))
+            self.send_message(m)
+
+    def handle_message_secagg_reveal(self, msg: Message) -> None:
+        sa = self._secagg
+        if sa is None:
+            return
+        sender = msg.get_sender_id()
+        complete, err = False, None
+        with self._round_lock:
+            if self._completing:
+                return
+            try:
+                complete = sa.note_reveal(sender,
+                                          msg.get(SecAggMessage.MSG_ARG_KEY_SECAGG_REVEAL),
+                                          msg.get(MyMessage.MSG_ARG_KEY_ROUND))
+            except (TypeError, ValueError) as e:
+                err = str(e)
+        if err is not None:
+            get_registry().counter("secagg/invalid_reveals").inc()
+            logger.warning("dropping invalid secagg reveal from client %s: %s", sender, err)
+            return
+        if complete:
+            self._recovery_deadline.cancel()
+            self._complete_round()
+
+    def _on_recovery_deadline(self, round_idx: int) -> None:
+        """Timer thread: a survivor never revealed. It is evicted too (its
+        masked upload, with masks nobody can remove, is dropped) and the
+        recovery extends to its pairs, bounded by secagg_recovery_rounds;
+        then the federation aborts rather than hang or publish a
+        mask-polluted aggregate."""
+        sa = self._secagg
+        if sa is None:
+            return
+        reg = get_registry()
+        with self._round_lock:
+            # decided and mutated under the round lock: a reveal completing
+            # concurrently lands either before (complete → return) or after
+            # (the revealer is no longer a survivor: its reveal is rejected)
+            if (self._completing or not sa.recovering
+                    or int(round_idx) != int(self.args.round_idx)
+                    or sa.recovery_complete()):
+                return
+            pending = sa.pending_reveals()
+            cohort = list(self.client_id_list_in_this_round or [])
+            exhausted = sa.recovery_waves >= sa.recovery_rounds
+            ask: List[int] = []
+            if not exhausted:
+                for cid in pending:
+                    if self.liveness.evict(cid):
+                        reg.counter("resilience/clients_evicted").inc()
+                    self.aggregator.drop_client_upload(cohort.index(cid))
+                ask = sa.begin_recovery(sa.survivors, set(sa.evicted) | set(pending))
+        need = max(2, quorum_size(len(cohort), self.resilience.round_quorum))
+        if exhausted or len(ask) < need:
+            reg.counter("secagg/recovery_failures").inc()
+            self._abort_federation(
+                f"secagg round {round_idx} mask recovery stuck: survivors {pending} never "
+                f"revealed after {sa.recovery_waves} bounded waves" if exhausted else
+                f"secagg round {round_idx} below quorum during mask recovery: "
+                f"{len(ask)} survivors < {need}")
+            return
+        logger.warning("secagg recovery wave %d: survivors %s never revealed — evicted, "
+                       "re-asking %s", sa.recovery_waves, pending, ask)
+        self._send_recover_requests(ask)
+        self._recovery_deadline.arm(int(round_idx), self._recovery_timeout_s())
 
     def _complete_round(self) -> None:
         with self._round_lock:
@@ -618,4 +828,5 @@ class FedMLServerManager(FedMLCommManager):
                 return
             self._finished_once = True
         self._deadline.cancel()
+        self._recovery_deadline.cancel()
         super().finish()

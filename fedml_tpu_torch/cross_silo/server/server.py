@@ -1,10 +1,11 @@
 """Cross-silo Server facade — counterpart of
 ``fedml_tpu/cross_silo/server/server.py``: the aggregator, the initial
-global model on the server's device, and the synchronous server FSM.
+global model on the server's device, and the server FSM — the Bonawitz
+SecAgg FSM under ``secure_aggregation: true`` (``cross_silo/secagg``),
+else the synchronous one (which runs ``secagg: int8`` itself).
 
 The asynchronous server (``async_aggregation`` / ``AsyncFedAvg``) comes
-with ROADMAP A10.3 and the SecAgg server with A10.2b: asking for either
-raises (the latter in the server FSM).
+with ROADMAP A10.3: asking for it raises.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Any
 
 from fedml_tpu_torch.core.distributed.fedml_comm_manager import COMM_BACKEND_LOCAL
 from fedml_tpu_torch.cross_silo.server.fedml_aggregator import FedMLAggregator
+from fedml_tpu_torch.cross_silo.secagg.sa_server_manager import SAServerManager
 from fedml_tpu_torch.cross_silo.server.fedml_server_manager import FedMLServerManager
 from fedml_tpu_torch.data.dataset import FederatedDataset
 from fedml_tpu_torch.device import DeviceLike, resolve_device
@@ -34,27 +36,37 @@ def refuse_async(args: Any) -> None:
             "ROADMAP A10.3")
 
 
+def build_aggregator(args: Any, dev, dataset: FederatedDataset, model: Any,
+                     server_aggregator=None) -> FedMLAggregator:
+    """The server's aggregator with the initial global model on ``dev``."""
+    aggregator = server_aggregator or create_server_aggregator(model, args)
+    aggregator.set_id(0)
+    fedml_aggregator = FedMLAggregator(
+        dataset.test_data_global, dataset.train_data_global, dataset.train_data_num,
+        dataset.train_data_local_dict, dataset.test_data_local_dict,
+        dataset.train_data_local_num_dict, int(getattr(args, "client_num_per_round", 1)),
+        dev, args, aggregator)
+    sample_x = dataset.train_data_global[0][: int(getattr(args, "batch_size", 32))]
+    fedml_aggregator.set_global_model_params(
+        model_hub.init_params(model, args, sample_x, dev))
+    return fedml_aggregator
+
+
 class Server:
     def __init__(self, args: Any, device: DeviceLike, dataset: FederatedDataset,
                  model: Any, server_aggregator=None):
         refuse_async(args)
         self.args = args
         dev = resolve_device(device)
-        aggregator = server_aggregator or create_server_aggregator(model, args)
-        aggregator.set_id(0)
         client_num = int(getattr(args, "client_num_per_round", 1))
-        self.fedml_aggregator = FedMLAggregator(
-            dataset.test_data_global, dataset.train_data_global, dataset.train_data_num,
-            dataset.train_data_local_dict, dataset.test_data_local_dict,
-            dataset.train_data_local_num_dict, client_num, dev, args, aggregator)
-        sample_x = dataset.train_data_global[0][: int(getattr(args, "batch_size", 32))]
-        self.fedml_aggregator.set_global_model_params(
-            model_hub.init_params(model, args, sample_x, dev))
-        self.manager = FedMLServerManager(args, self.fedml_aggregator, client_rank=0,
-                                          client_num=client_num,
-                                          backend=comm_backend(args), device=dev)
+        self.fedml_aggregator = build_aggregator(args, dev, dataset, model,
+                                                 server_aggregator)
+        manager_cls = (SAServerManager if getattr(args, "secure_aggregation", False)
+                       else FedMLServerManager)
+        self.manager = manager_cls(args, self.fedml_aggregator, client_rank=0,
+                                   client_num=client_num, backend=comm_backend(args),
+                                   device=dev)
 
     def run(self):
         self.manager.run()
         return self.manager.result
-

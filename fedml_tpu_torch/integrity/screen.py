@@ -17,7 +17,7 @@ applies the reference's three rules (:class:`UpdateScreen`):
 
 Flagged uploads are dropped and counted (``integrity/*``), and the caller
 quarantines their senders. A masked secure-aggregation upload cannot be
-screened; its codec comes with ROADMAP A10.2b and resolving it raises.
+screened (per-upload introspection is what the masks prevent): it raises.
 """
 from __future__ import annotations
 

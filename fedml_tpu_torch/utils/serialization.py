@@ -12,7 +12,8 @@ placeholders); arrays are raw ``.npy`` blobs read back with
 ``allow_pickle=False``, so a hostile payload can at worst give wrong
 numbers, never run code. Every hostile shape the reference rejects raises
 ``ValueError`` here too. Compressed payloads ride as the reference's
-versioned ``{"__codec__": name, "v": 1, ...}`` node, with the tree's
+versioned ``{"__codec__": name, "v": 1, ...}`` node (``"v": 2`` with an
+``"sa"`` field for a masked secure-aggregation tree), with the tree's
 structure nested by path as JAX's pytree is, so for the same content
 :func:`safe_dumps` gives the reference's bytes.
 
@@ -150,7 +151,7 @@ def _encode(obj: Any, blobs: List[Any], host: Dict[int, np.ndarray]) -> Any:
         blobs.append(b"RAW0" + bytes(obj))
         return {_BYTES: len(blobs) - 1}
     if isinstance(obj, CompressedTree):
-        return {
+        node = {
             _CODEC: obj.codec,
             "v": obj.version,
             "delta": obj.is_delta,
@@ -159,6 +160,11 @@ def _encode(obj: Any, blobs: List[Any], host: Dict[int, np.ndarray]) -> Any:
             "structure": _encode(_nest(obj.structure), blobs, host),
             "state": _encode(obj.arrays, blobs, host),
         }
+        if obj.sa is not None:
+            # a masked (v2) node: the mask-domain metadata the receiving
+            # aggregator validates before it unmasks
+            node["sa"] = _encode(obj.sa, blobs, host)
+        return node
     if isinstance(obj, torch.Tensor):
         if id(obj) in host:
             arr = host[id(obj)]
@@ -303,14 +309,18 @@ def _decode_codec(node: dict, blobs: List[memoryview]) -> Any:
     version = node.get("v")
     if version not in (WIRE_VERSION, WIRE_VERSION_MASKED):
         raise ValueError(f"unsupported compression wire version {version!r}")
+    sa = None
     if version == WIRE_VERSION_MASKED:
+        # a v2 node needs a maskable codec and a well-formed sa dict, and a
+        # v1 node must not smuggle one: a plain codec cannot masquerade as
+        # the masked wire
         if codec not in MASKABLE_CODECS:
             raise ValueError(f"codec {codec!r} is not maskable; v2 wire nodes "
                              "carry masked payloads only")
-        raise NotImplementedError(
-            "masked secure-aggregation payloads come with secure aggregation "
-            "(ROADMAP A10.2b); the port has not ported it yet")
-    if "sa" in node:
+        sa = _decode(node.get("sa"), blobs)
+        if not isinstance(sa, dict):
+            raise ValueError("masked (v2) payload missing its sa field")
+    elif "sa" in node:
         raise ValueError("v1 compressed payload carries a masked sa field")
     meta = node.get("meta")
     arrays = _decode(node.get("state"), blobs)
@@ -322,7 +332,7 @@ def _decode_codec(node: dict, blobs: List[memoryview]) -> Any:
             raise ValueError("compressed payload state is not a list of lists")
         keys = _structure_keys(_decode(node.get("structure"), blobs), len(meta_t))
         return CompressedTree(codec, int(version), bool(node.get("delta", False)),
-                              int(node.get("raw_nbytes", 0)), meta_t, keys, arrays)
+                              int(node.get("raw_nbytes", 0)), meta_t, keys, arrays, sa=sa)
     except (TypeError, ValueError) as e:
         raise ValueError(f"malformed compressed payload: {e}") from None
 
@@ -375,6 +385,7 @@ def _collect_arrays(obj: Any, out: List[_Array]) -> None:
         out.append(obj)
     elif isinstance(obj, CompressedTree):
         _collect_arrays(obj.arrays, out)
+        _collect_arrays(obj.sa, out)
     elif isinstance(obj, dict):
         for k, v in obj.items():
             _collect_arrays(k, out)
@@ -419,6 +430,7 @@ def _replace(obj: Any, tensors: Dict[int, torch.Tensor]) -> Any:
         return tensors[id(obj)]
     if isinstance(obj, CompressedTree):
         obj.arrays = _replace(obj.arrays, tensors)
+        obj.sa = _replace(obj.sa, tensors)
         return obj
     if isinstance(obj, dict):
         return {_replace(k, tensors): _replace(v, tensors) for k, v in obj.items()}

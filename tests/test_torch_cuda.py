@@ -585,3 +585,95 @@ def test_blockwise_krum_on_cuda_matches_cpu(block):
     got = bw.pairwise_sq_dists_blockwise(bw.iter_blocks(bw.flatten_clients(gpu), block), 6)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(np.abs(want).max()))
     assert select_krum(got, 1, 1) == select_krum(want, 1, 1) != [0]
+
+
+# -- secure aggregation on the card ----------------------------------------------
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mod_bits", [4, 8, 16])
+def test_masked_encode_and_unmask_on_cuda_match_cpu_bit_for_bit(mod_bits):
+    """The masked words, the residual and the unmasked aggregate (with and
+    without recovery) are the CPU's bits on the card; with DP noise the
+    aggregate is the CPU's within 2e-5·σ (``erfinv`` differs by device)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch import compression as tc
+    from fedml_tpu_torch.compression.codecs import _tree_meta
+    from fedml_tpu_torch.privacy import secagg as ts
+    from fedml_tpu_torch.utils.tree import tree_flatten
+
+    n = 3
+    codec = tc.get_codec(f"secagg_int8@0.1/{ts.client_bound(n, mod_bits)}/{mod_bits}")
+    deltas = _trust_deltas(n, mod_bits)
+    meta = _tree_meta(tree_flatten(deltas[0])[0])
+    secret = {(1, 2): 11, (1, 3): 22, (2, 3): 33}
+
+    def seeds(i):
+        return {j: ts.pair_round_seed(secret[min(i, j), max(i, j)], 4)
+                for j in range(1, n + 1) if j != i}
+
+    cts = {"cpu": [], "cuda": []}
+    for i, d in enumerate(deltas, start=1):
+        mask = ts.net_mask_leaves(i, seeds(i), meta, mod_bits)
+        res = {k: v * 0.5 for k, v in d.items()}
+        for dev in cts:
+            ct, new_res = ts.masked_encode(
+                {k: v.to(dev) for k, v in d.items()}, mask, codec, tc.derive_key(0, 4, i),
+                residual={k: v.to(dev) for k, v in res.items()},
+                sa={"round": 4, "rank": i, "roster": [1, 2, 3]})
+            cts[dev].append((ct, new_res))
+    for (a, ra), (b, rb) in zip(cts["cuda"], cts["cpu"]):
+        assert all(torch.equal(x[0].cpu(), y[0]) for x, y in zip(a.arrays, b.arrays))
+        assert all(torch.equal(ra[k].cpu(), rb[k]) for k in rb)
+    base = {k: v * 10.0 for k, v in deltas[0].items()}
+    rec = ts.recovery_adjustment([(1, 3, seeds(1)[3]), (2, 3, seeds(2)[3])], meta, mod_bits)
+    for which, recovery, sigma in (([0, 1, 2], None, 0.0), ([0, 1], rec, 0.0),
+                                   ([0, 1, 2], None, 0.25)):
+        out = {}
+        for dev in cts:
+            out[dev] = ts.unmask_finalize(
+                [cts[dev][i][0] for i in which], {k: v.to(dev) for k, v in base.items()},
+                codec, recovery=recovery, dp_sigma=sigma,
+                dp_key_data=tc.derive_key_data(0, 4, 0))
+        for k in base:
+            assert out["cuda"][k].is_cuda
+            err = (out["cuda"][k].cpu() - out["cpu"][k]).abs().max().item()
+            assert err <= (2e-5 * sigma if sigma else 0.0), (which, k, err)
+
+
+@pytest.mark.requires_cuda
+def test_secagg_int8_federation_on_cuda():
+    """Two masked rounds of LR over 3 silos on the card: every upload the
+    server holds is masked, the run finishes and the model stays finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.core.distributed.communication.local_comm import LocalBroker
+    from fedml_tpu_torch.cross_silo.message_define import MyMessage
+    from fedml_tpu_torch.cross_silo.run_inproc import (
+        build_cross_silo_inproc,
+        run_managers_to_completion,
+    )
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.models.model_hub import create
+
+    args = load_arguments_from_dict({
+        "common_args": {"training_type": "cross_silo", "run_id": "cuda_secagg"},
+        "data_args": {"dataset": "synthetic", "train_size": 400, "test_size": 100,
+                      "class_num": 5, "feature_dim": 16},
+        "model_args": {"model": "lr"},
+        "train_args": {"client_num_in_total": 3, "client_num_per_round": 3,
+                       "comm_round": 2, "learning_rate": 0.3, "secagg": "int8",
+                       "secagg_clip": 0.2}})
+    ds = load_federated(args)
+    LocalBroker.destroy("cuda_secagg")
+    server, clients = build_cross_silo_inproc(args, ds, create(args, ds.class_num))
+    agg = server.fedml_aggregator
+    seen, add = [], agg.add_local_trained_result
+    agg.add_local_trained_result = lambda i, p, n, local_steps=None: (
+        seen.append((p.codec, p.version)), add(i, p, n, local_steps))[1]
+    result = run_managers_to_completion([server.manager] + [c.manager for c in clients],
+                                        "cuda_secagg", MyMessage.MSG_TYPE_CONNECTION_IS_READY,
+                                        timeout=300)
+    assert result["rounds"] == 2 and seen == [("secagg_int8", 2)] * 6
+    final = agg.get_global_model_params()
+    assert all(v.is_cuda and bool(torch.isfinite(v).all()) for v in final.values())

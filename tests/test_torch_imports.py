@@ -160,19 +160,36 @@ def test_trust_slice_modules_are_scanned(module):
     assert module in PORT_MODULES
 
 
+@pytest.mark.parametrize("module", [
+    "fedml_tpu_torch.privacy",
+    "fedml_tpu_torch.privacy.secagg",
+] + [f"fedml_tpu_torch.privacy.secagg.{m}" for m in ("keys", "masking", "codec", "protocol")]
+    + ["fedml_tpu_torch.core.mpc"]
+    + [f"fedml_tpu_torch.core.mpc.{m}" for m in ("finite", "lcc", "secagg", "lightsecagg")]
+    + ["fedml_tpu_torch.cross_silo.secagg", "fedml_tpu_torch.cross_silo.lightsecagg"]
+    + [f"fedml_tpu_torch.cross_silo.secagg.{m}" for m in (
+        "sa_message_define", "sa_client_manager", "sa_server_manager", "run_inproc")]
+    + [f"fedml_tpu_torch.cross_silo.lightsecagg.{m}" for m in (
+        "lsa_message_define", "lsa_client_manager", "lsa_server_manager", "run_inproc")])
+def test_secagg_slice_modules_are_scanned(module):
+    """Secure aggregation's modules (the masked int8 domain, the finite-field
+    math, the Bonawitz and LightSecAgg FSMs) are among those both scans
+    cover."""
+    assert module in PORT_MODULES
+
+
 def _refusal(case):
     import types
 
     from fedml_tpu_torch import compression, init
-    from fedml_tpu_torch.cross_silo.server import fedml_server_manager as sm
     from fedml_tpu_torch.integrity import fused_robust_sum
+    from fedml_tpu_torch.privacy.secagg import unmask_finalize
     from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
 
     ns = types.SimpleNamespace
     return {
-        "secagg codec": lambda: compression.get_codec("secagg_int8"),
-        "secure aggregation": lambda: sm.refuse_unported(ns(secure_aggregation=True),
-                                                         sm._NOT_PORTED),
+        "sketch codec": lambda: compression.get_codec("cms"),
+        "secagg mesh": lambda: unmask_finalize([object()], {}, None, mesh=ns(size=2)),
         "contribution": lambda: init(ns(enable_contribution=True)),
         "reconstruction attack": lambda: init(ns(enable_attack=True, attack_type="dlg")),
         "FHE": lambda: init(ns(enable_fhe=True)),
@@ -182,7 +199,7 @@ def _refusal(case):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("secagg codec", r"A10\.2b"), ("secure aggregation", r"A10\.2b"),
+    ("sketch codec", r"A10\.5"), ("secagg mesh", "A11"),
     ("contribution", r"A10\.2c"), ("reconstruction attack", r"A10\.2c"),
     ("host-loop FedLLM", r"A10\.2c"), ("robust mesh", "A11"), ("FHE", "A13")])
 def test_trust_refusals_name_their_items(case, item):

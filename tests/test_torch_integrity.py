@@ -292,6 +292,16 @@ def _port_cts(codec, n=3, **kw):
             for c, f in enumerate(_deltas(n))]
 
 
+def _masked_cts(n=3):
+    """``n`` secure-aggregation uploads (zero masks: only the codec matters)."""
+    from fedml_tpu_torch.privacy import secagg
+
+    codec = tc.get_codec(f"secagg_int8@0.1/{secagg.client_bound(n)}/8")
+    zeros = [np.zeros(sh, np.uint8) for _, sh in sorted(LEAVES)]  # leaf order
+    return [secagg.masked_encode(_tt(f), zeros, codec, tc.derive_key(0, 0, c))[0]
+            for c, f in enumerate(_deltas(n))]
+
+
 REFUSALS = {
     "empty": (lambda: ti.fused_robust_sum([], "median"), ValueError, "empty"),
     "unknown mode": (lambda: ti.fused_robust_sum(_port_cts("int8", is_delta=True), "mean"),
@@ -311,7 +321,8 @@ REFUSALS = {
         ValueError, "non-finite"),
     "mesh": (lambda: ti.fused_robust_sum(_port_cts("int8", is_delta=True), "median",
                                          mesh=object()), NotImplementedError, "A11"),
-    "masked codec": (lambda: tc.get_codec("secagg_int8"), NotImplementedError, r"A10\.2b"),
+    "masked codec": (lambda: ti.fused_robust_sum(_masked_cts(), "median"), ValueError,
+                     "masks hide"),
     "bad spec": (lambda: ti.parse_robust_spec("trimmed_mean@0.6"), ValueError, "trim"),
     "median parameter": (lambda: ti.parse_robust_spec("median@0.1"), ValueError,
                          "no parameter"),

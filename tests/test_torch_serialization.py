@@ -327,9 +327,15 @@ def test_reserved_keys_and_unsupported_types_like_the_reference():
 
 
 def test_masked_wire_is_refused_naming_its_item():
-    """A masked (v2) node of the secure-aggregation codec is a legal wire
-    the port cannot open yet: it raises naming its ROADMAP part."""
+    """A masked (v2) node opens as the reference opens it, with its ``sa``
+    field; one without the field, or naming a codec that is not maskable,
+    is refused naming what is wrong, on both sides."""
     node = {"__codec__": "secagg_int8", "v": 2, "meta": [], "structure": [],
-            "state": [], "sa": {}}
-    with pytest.raises(NotImplementedError, match=r"A10\.2b"):
-        T.safe_loads(_raw(node, []))
+            "state": [], "sa": {"rank": 1}}
+    got, want = T.safe_loads(_raw(node, [])), J.safe_loads(_raw(node, []))
+    assert got.version == want.version == 2 and got.sa == want.sa == {"rank": 1}
+    for bad, what in (({k: v for k, v in node.items() if k != "sa"}, "sa field"),
+                      (dict(node, __codec__="int8"), "not maskable")):
+        for loads in (T.safe_loads, J.safe_loads):
+            with pytest.raises(ValueError, match=what):
+                loads(_raw(bad, []))
