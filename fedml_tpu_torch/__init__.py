@@ -21,8 +21,12 @@ engines: the integrity rings (``integrity``), differential privacy
 (``core.dp``), attacks and defenses (``core.security``), and secure
 aggregation: the masked int8 domain (``privacy.secagg``, ``secagg: int8``)
 and the Bonawitz and LightSecAgg protocols (``core.mpc``,
-``cross_silo.secagg``, ``cross_silo.lightsecagg``). Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+``cross_silo.secagg``, ``cross_silo.lightsecagg``), round checkpoints with
+resume (``core.checkpoint``: the sp engine, the cross-silo server, the LLM
+trainer and ``serve --checkpoint``), contribution assessment
+(``core.contribution``), the gradient-reconstruction attacks and the
+host-loop FedLLM round. Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``.
 """
 import random
 from typing import Any, Optional

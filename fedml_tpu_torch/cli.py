@@ -16,9 +16,13 @@ are drawn on the device in bf16 from seed 0, quantized in place (int8
 through the dequant-matmul kernel, ``w8a8`` int8 activations and weights,
 or packed ``int4``/``nf4``; the full-precision kernels are dropped as
 their quantized twins are built), and served over HTTP (``POST /predict``,
-``GET /ready``, ``GET /metrics``).
-Checkpoint loading, the live bridge, SLO flags and the OpenAI surface wait
-for later slices of the port.
+``GET /ready``, ``GET /metrics``). ``--checkpoint DIR`` serves a round
+checkpoint the trainer wrote (``LLMTrainer.save_checkpoint``, e.g.
+``<checkpoint_dir>/round_1``): restored into the model before quantization,
+a LoRA payload (with ``--lora-rank``) merged onto the base; the LoRA leaves
+stay f32 beside the quantized base, as the reference keeps them.
+The live bridge, SLO flags and the OpenAI surface wait for later slices of
+the port.
 """
 from __future__ import annotations
 
@@ -45,6 +49,10 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--batch-slots", type=int, default=4)
     serve.add_argument("--max-len", type=int, default=512)
     serve.add_argument("--lora-rank", type=int, default=0)
+    serve.add_argument("--checkpoint", default=None,
+                       help="round checkpoint directory to serve "
+                            "(LLMTrainer.save_checkpoint); LoRA payloads merge "
+                            "onto the base")
     serve.add_argument("--quantize", default=None, choices=QUANTIZE_CHOICES,
                        help="int8 weights: int8/int8_pallas run every ≤128-row "
                             "matmul through the CUDA dequant-matmul kernel, "
@@ -102,6 +110,10 @@ def build_endpoint(args: argparse.Namespace):
     a.base_params_bf16 = True
     cfg = LlamaConfig.from_args(a)
     model = LlamaForCausalLM(cfg, device=args.device, seed=0)
+    if getattr(args, "checkpoint", None):
+        from fedml_tpu_torch.train.llm.trainer import restore_checkpoint_into
+
+        restore_checkpoint_into(model, args.checkpoint, lora_only=bool(args.lora_rank))
     engine = ContinuousBatchingEngine(
         model, batch_slots=args.batch_slots, max_len=args.max_len,
         quantize=args.quantize, quantize_donate=True, device=args.device)

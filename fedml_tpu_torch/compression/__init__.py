@@ -40,7 +40,6 @@ from fedml_tpu_torch.compression.error_feedback import ErrorFeedback
 # the argument that switches each on → the ROADMAP item that brings it.
 TRUST_STACK_ARGS = {
     "enable_fhe": "FHE aggregation (ROADMAP A13)",
-    "enable_contribution": "contribution assessment (ROADMAP A10.2c)",
 }
 
 
@@ -58,8 +57,10 @@ def requires_full_trees(codec=None, args: Any = None) -> bool:
     of the dequant-fused aggregate: a model attack, a list defense or
     central DP (the reference's answer). Norm-only defenses are exempt
     (their clip factors come off the compressed blocks), and so are the
-    fused robust defenses when ``codec`` is dense and broadcast-safe. The
-    parts still to port raise (:func:`check_trust_stack`)."""
+    fused robust defenses when ``codec`` is dense and broadcast-safe.
+    Contribution assessment also needs the client models; the engines ask
+    for it beside this answer, as the reference's do. The parts still to
+    port raise (:func:`check_trust_stack`)."""
     from fedml_tpu_torch.core.dp.fedml_differential_privacy import (
         FedMLDifferentialPrivacy,
     )

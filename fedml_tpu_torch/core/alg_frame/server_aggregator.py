@@ -8,8 +8,9 @@ hook order:
                           weighted average (:class:`FedMLAggOperator`)
   on_after_aggregation:   central-DP noise → the defense's after hook
 
-FHE comes with ROADMAP A13 and contribution assessment with A10.2c; both
-are refused when an aggregator is built.
+FHE comes with ROADMAP A13 and is refused when an aggregator is built.
+Contribution assessment runs in the engines after aggregation
+(``core/contribution``), as the reference's.
 """
 from __future__ import annotations
 

@@ -125,6 +125,21 @@ class FedMLDifferentialPrivacy:
         base = threefry.key(self._seed)
         return [threefry.fold_in(base, c) for c in range(first, first + n)]
 
+    def counters(self) -> Dict[Optional[Hashable], int]:
+        """Each open stream's release counter (``None``: the process's)."""
+        with self._lock:
+            return {k: s.counter for k, s in self._streams.items()}
+
+    def set_counters(self, counters: Dict[Optional[Hashable], int]) -> None:
+        """Restore release counters from a round checkpoint; the
+        accountants start afresh, as the reference's do."""
+        if not self.is_enabled:
+            return
+        for stream, value in counters.items():
+            s = self._stream(stream)
+            with self._lock:
+                s.counter = int(value)
+
     def take_key_data(self, n: int, stream: Optional[Hashable] = None) -> np.ndarray:
         """Raw key data (``[n, 2]`` uint32) of the next ``n`` releases; each
         is accounted like :meth:`add_local_noise`."""

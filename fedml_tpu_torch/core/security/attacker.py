@@ -56,11 +56,17 @@ class FedMLAttacker:
         logger.info("attack enabled: %s", self.attack_type)
 
     # -- predicates (the reference's surface) --------------------------------
+    def is_attack_enabled(self) -> bool:
+        return self.is_enabled
+
     def is_data_poisoning_attack(self) -> bool:
         return self.is_enabled and getattr(self.attacker, "is_data_attack", False)
 
     def is_model_attack(self) -> bool:
         return self.is_enabled and getattr(self.attacker, "is_model_attack", False)
+
+    def is_reconstruct_data_attack(self) -> bool:
+        return self.is_enabled and getattr(self.attacker, "is_reconstruct", False)
 
     def is_to_poison_data(self) -> bool:
         return self.is_data_poisoning_attack()
@@ -82,3 +88,6 @@ class FedMLAttacker:
     def attack_model(self, raw_client_grad_list: List[Tuple[int, Tree]],
                      extra_auxiliary_info: Any = None) -> List[Tuple[int, Tree]]:
         return self.attacker.attack_model(raw_client_grad_list, extra_auxiliary_info)
+
+    def reconstruct_data(self, a_gradient: Any, extra_auxiliary_info: Any = None) -> Any:
+        return self.attacker.reconstruct_data(a_gradient, extra_auxiliary_info)

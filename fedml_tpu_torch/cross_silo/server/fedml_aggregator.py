@@ -10,8 +10,12 @@ sum (``FedMLAggOperator.agg_compressed``) — with a norm-only defense's clip
 factors, or as the robust statistic under ``agg_robust`` or a fused defense
 — unless a trust-stack hook needs every client's full model
 (``compression.requires_full_trees``: a model attack, a list defense,
-central DP), in which case each delta is decoded and the
-``ServerAggregator`` hook chain runs. Under secure aggregation
+central DP) or contribution assessment does, in which case each delta is
+decoded and the ``ServerAggregator`` hook chain runs. With
+``enable_contribution`` the round's client models are valued after the
+server step (``core/contribution``; the utility is a coalition
+aggregate's test accuracy, v(∅) the round-open global model's). Under
+secure aggregation
 (:meth:`set_secagg`) every upload must be a masked tree, and the only
 reduction is the session's unmask in aggregate.
 """
@@ -31,6 +35,7 @@ from fedml_tpu_torch.compression import (
 )
 from fedml_tpu_torch.core.alg_frame.params import Context
 from fedml_tpu_torch.core.alg_frame.server_aggregator import ServerAggregator
+from fedml_tpu_torch.core.contribution import ContributionAssessorManager
 from fedml_tpu_torch.core.security.defender import FedMLDefender
 from fedml_tpu_torch.integrity import resolve_agg_robust
 from fedml_tpu_torch.ml.aggregator.agg_operator import FedMLAggOperator
@@ -58,6 +63,8 @@ class FedMLAggregator:
         self.client_num = int(client_num)
         self.device = device
         self.server_opt = ServerOptimizer(args)
+        self._contrib = ContributionAssessorManager(args)
+        self.last_contributions: Dict[int, float] = {}
         self.global_params: Optional[Tree] = None
         # under a lossy broadcast codec, the broadcast as the clients decoded
         # it: their deltas resolve against it (None → the exact global)
@@ -153,7 +160,8 @@ class FedMLAggregator:
         codec = next(get_codec(m.codec) for _, m in raw_list
                      if isinstance(m, CompressedTree))
         if all(isinstance(m, CompressedTree) and m.is_delta for _, m in raw_list) \
-                and not requires_full_trees(codec, self.args):
+                and not (requires_full_trees(codec, self.args)
+                         or self._contrib.is_enabled()):
             agg_robust = resolve_agg_robust(self.args, codec=codec)
             clip = None if agg_robust else FedMLDefender.get_instance(
                 ).fused_clip_factors([m for _, m in raw_list])
@@ -185,8 +193,17 @@ class FedMLAggregator:
             counts = np.asarray([float(self.sample_num_dict[i]) for i in order])
             taus = np.asarray([self.local_steps_dict.get(i, 1.0) for i in order])
             tau_eff = float(np.sum(counts / counts.sum() * taus))
+        prev_global = self.global_params
         self.global_params = self.server_opt.step(self.global_params, w_agg,
                                                   tau_eff=tau_eff)
+        if self._contrib.is_enabled():
+            def util(params):
+                return self.aggregator.test(params, self.test_global, self.device,
+                                            self.args).get("test_acc", 0.0)
+
+            self.last_contributions = self._contrib.run(
+                order, raw_list, util, util(prev_global),
+                int(getattr(self.args, "round_idx", 0)))
         self.model_dict.clear()
         self.sample_num_dict.clear()
         self.local_steps_dict.clear()

@@ -42,17 +42,23 @@ aborts. Every trust hook that needs one client's plaintext is refused at
 construction. ``secure_aggregation: true`` selects the Bonawitz FSM
 instead (``cross_silo/secagg``, through the server facade).
 
-Not ported yet, and refused when their arguments are set: FHE (A13),
-contribution assessment (A10.2c), the durability journal and chaos
-(A10.3), round checkpoints and resume (A4), and the live telemetry plane,
-spans and the flight recorder (A12). ``cross_silo/round_ms`` (broadcast to
+With ``checkpoint_dir`` the server saves the round state (the aggregated
+model, the server optimizer's state, the DP counters, the next round)
+after every ``checkpoint_frequency`` accepted rounds (``core/checkpoint``);
+with ``resume: true`` a restarted server re-enters at the round after the
+newest restorable one, and a rolled-back round restores from the newest
+checkpoint before the round-open snapshot, as the reference's.
+Contribution assessment (``enable_contribution``) runs in the aggregator.
+
+Not ported yet, and refused when their arguments are set: FHE (A13), the
+durability journal and chaos (A10.3), and the live telemetry plane, spans
+and the flight recorder (A12). ``cross_silo/round_ms`` (broadcast to
 the test after aggregation) and the reference's ``resilience/*``,
 ``integrity/*`` and ``secagg/*`` counters go to the port's metrics
 registry.
 """
 from __future__ import annotations
 
-import copy
 import logging
 import math
 import threading
@@ -60,6 +66,12 @@ import time
 from typing import Any, Dict, List, Optional
 
 from fedml_tpu_torch.compression import CompressedTree, check_trust_stack, derive_key, get_codec
+from fedml_tpu_torch.core.checkpoint import (
+    apply_round_state,
+    engine_checkpointer,
+    pack_round_state,
+    should_save,
+)
 from fedml_tpu_torch.core.distributed.fedml_comm_manager import (
     COMM_BACKEND_LOCAL,
     FedMLCommManager,
@@ -97,8 +109,6 @@ logger = logging.getLogger(__name__)
 
 # arguments of features the port's server does not have yet → the item
 _NOT_PORTED = {
-    "resume": "resume from a round checkpoint (ROADMAP A4)",
-    "checkpoint_dir": "round checkpoints (ROADMAP A4)",
     "live_telemetry": "the live telemetry plane (ROADMAP A12)",
 }
 
@@ -152,6 +162,17 @@ class FedMLServerManager(FedMLCommManager):
         self.round_num = int(getattr(args, "comm_round", 1))
         self.args.round_idx = 0
         self.client_num = client_num
+        # round checkpoints: a restarted server re-enters at the last
+        # aggregated round with its model and optimizer state
+        self._ckpt = engine_checkpointer(args)
+        self.resumed_from: Optional[int] = None
+        if self._ckpt is not None and bool(getattr(args, "resume", False)):
+            restored = self._ckpt.restore_latest(
+                self._round_state(0), device=self.aggregator.device)
+            if restored is not None:
+                self.resumed_from, state = restored
+                self.aggregator.set_global_model_params(state["global_params"])
+                self.args.round_idx = apply_round_state(state, self.aggregator.server_opt)
         self.client_online_status: Dict[int, bool] = {}
         self.client_id_list_in_this_round: Optional[List[int]] = None
         self.data_silo_index_of_client: Dict[int, int] = {}
@@ -228,8 +249,7 @@ class FedMLServerManager(FedMLCommManager):
     def _check_secagg_compat(self) -> None:
         """A masked round never exposes one client's model, so every trust
         hook that reads per-client plaintext is refused here, not
-        mid-round (FHE and contribution assessment are refused earlier,
-        as not ported)."""
+        mid-round (FHE is refused earlier, as not ported)."""
         from fedml_tpu_torch.core.dp.fedml_differential_privacy import (
             FedMLDifferentialPrivacy,
         )
@@ -242,6 +262,8 @@ class FedMLServerManager(FedMLCommManager):
         if FedMLDefender.get_instance().is_defense_enabled():
             conflicts.append("list-based defenses (secagg_clip already bounds every "
                              "client update inside the masked encode)")
+        if self.aggregator._contrib.is_enabled():
+            conflicts.append("contribution assessment")
         if self._codec is not None and not self._codec.broadcast_safe:
             conflicts.append(f"upload codec {self._codec.spec!r} (secagg owns the upload "
                              "wire; only broadcast-safe compression applies)")
@@ -361,6 +383,16 @@ class FedMLServerManager(FedMLCommManager):
                          for cid in range(1, self.client_num + 1))
         if all_online and not self.is_initialized:
             self.is_initialized = True
+            if self.args.round_idx >= self.round_num:
+                # resumed past the final round: report and finish, without
+                # a round beyond comm_round
+                metrics = self.aggregator.test_on_server_for_all_clients(
+                    self.args.round_idx - 1)
+                with self._round_lock:
+                    self.result = {"rounds": self.round_num, **metrics}
+                self._send_finish()
+                self.finish()
+                return
             self._select_round_clients()
             self.send_init_msg()
 
@@ -705,6 +737,10 @@ class FedMLServerManager(FedMLCommManager):
                 return
             self._guard.accept(metrics.get("test_loss"))
         self._m_round_ms.observe((time.perf_counter() - self._round_t0) * 1e3)
+        # after ring 3: a rejected round never becomes durable
+        if self._ckpt is not None and should_save(self.args, self.args.round_idx):
+            self._ckpt.save(self.args.round_idx,
+                            self._round_state(self.args.round_idx + 1, global_params))
         self.args.round_idx += 1
         if self.args.round_idx >= self.round_num:
             # the last close can come from the receive thread (all uploads
@@ -717,36 +753,49 @@ class FedMLServerManager(FedMLCommManager):
         self._select_round_clients()
         self._open_round(global_params, init=False)
 
-    # -- ring 3: rollback ------------------------------------------------------
+    # -- the round state: checkpoints and ring 3's restore point ----------------
+    def _round_state(self, next_round: int, global_params=None) -> dict:
+        """The packed round state (references: the aggregator and the server
+        optimizer replace their trees, never mutate them)."""
+        return pack_round_state(
+            self.aggregator.get_global_model_params() if global_params is None
+            else global_params, self.aggregator.server_opt, next_round)
+
     def _capture_round_state(self) -> None:
-        """Snapshot the round-open state: the global model (the aggregator
-        replaces it, never mutates it) and the server optimizer's state."""
+        """Snapshot the round-open state as ring 3's restore point."""
         if self._guard is None:
             return
-        state = {"global_params": self.aggregator.get_global_model_params(),
-                 "opt_state": copy.deepcopy(self.aggregator.server_opt._opt_state)}
+        state = self._round_state(int(self.args.round_idx))
         with self._round_lock:
             self._pre_round_state = state
 
     def _rollback_round(self, reason: str) -> None:
-        """The aggregated round was rejected: restore the round-open state,
-        quarantine the suspects (ring 1's ranking, else the whole cohort,
-        unless that would leave no cohort) and re-run the same round index
-        with a fresh cohort; past ``max_rollbacks`` consecutive rollbacks
-        the federation aborts (parity: fedml_server_manager.py:1117-1190)."""
+        """The aggregated round was rejected: restore the newest checkpoint,
+        else the round-open state; quarantine the suspects (ring 1's
+        ranking, else the whole cohort, unless that would leave no cohort)
+        and re-run the same round index with a fresh cohort; past
+        ``max_rollbacks`` consecutive rollbacks the federation aborts
+        (parity: fedml_server_manager.py:1117-1190)."""
         round_idx = int(self.args.round_idx)
         try:
             self._guard.record_rollback(round_idx, reason)
         except RollbackBudgetExceeded as e:
             self._abort_federation(str(e))
             return
-        state = self._pre_round_state
+        state, restored_from = None, None
+        if self._ckpt is not None:
+            got = self._ckpt.restore_latest(self._round_state(0),
+                                            device=self.aggregator.device)
+            if got is not None:
+                state, restored_from = got[1], f"checkpoint round {got[0]}"
+        if state is None and self._pre_round_state is not None:
+            state, restored_from = self._pre_round_state, "the round-open state"
         if state is None:
             self._abort_federation(f"round {round_idx} rejected ({reason}) with no "
                                    "state to roll back to")
             return
         self.aggregator.set_global_model_params(state["global_params"])
-        self.aggregator.server_opt._opt_state = copy.deepcopy(state["opt_state"])
+        apply_round_state(state, self.aggregator.server_opt)
         with self._round_lock:
             cohort = list(self.client_id_list_in_this_round or [])
         suspects = []
@@ -766,8 +815,8 @@ class FedMLServerManager(FedMLCommManager):
                 logger.warning("rollback suspects %s cover every remaining client — "
                                "re-running unquarantined (bounded by max_rollbacks)",
                                suspects)
-        logger.warning("round %d rolled back to the round-open state; suspects %s — "
-                       "re-running the round with a fresh cohort", round_idx, suspects)
+        logger.warning("round %d rolled back to %s; suspects %s — re-running the round "
+                       "with a fresh cohort", round_idx, restored_from, suspects)
         self._select_round_clients()
         self._open_round(self.aggregator.get_global_model_params(), init=False)
 

@@ -290,6 +290,11 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        if torch.is_grad_enabled():  # a create_graph=True backward
+            raise NotImplementedError(
+                "flash attention has no second derivative: its backward (the "
+                "kernels', like the reference's custom_vjp) is not differentiable, "
+                "so a gradient of a gradient (DLG's match) needs the plain attention")
         q, k, v, out, lse = ctx.saved_tensors
         causal, scale = ctx.causal, ctx.sm_scale
         if _device_type(q) == "cuda":

@@ -27,15 +27,22 @@ client models (``compression.requires_full_trees``); after the eval the
 acceptance guard may reject the round, which is rolled back to its
 round-open state and re-run with a fresh cohort.
 
+With ``enable_contribution`` each round's kept client models are valued
+after aggregation (``core/contribution``: the utility of a coalition is
+the test accuracy of its weighted aggregate), which needs the decoded
+client models, as any server hook that reads them. With
+``checkpoint_dir`` the round state (global model, server optimizer, the
+DP counters, SCAFFOLD's and Mime's server trees) is saved after every
+``checkpoint_frequency`` accepted rounds (``core/checkpoint``), and
+``resume: true`` re-enters at the round after the newest restorable one.
+
 Not ported yet, and refused when their arguments are set: FHE (ROADMAP
-A13), contribution assessment (A10.2c), round checkpoints and resume (A4),
-and trace capture and spans (A12). The ``sp/rounds`` counter and the
+A13) and trace capture and spans (A12). The ``sp/rounds`` counter and the
 ``sp/client_train_ms``, ``sp/encode_ms``, ``sp/screen_ms`` and
 ``sp/aggregate_ms`` histograms go to the port's metrics registry.
 """
 from __future__ import annotations
 
-import copy
 import logging
 import math
 import time
@@ -54,6 +61,13 @@ from fedml_tpu_torch.compression import (
     tree_undelta,
 )
 from fedml_tpu_torch.core.alg_frame.params import Context
+from fedml_tpu_torch.core.checkpoint import (
+    apply_round_state,
+    engine_checkpointer,
+    pack_round_state,
+    should_save,
+)
+from fedml_tpu_torch.core.contribution import ContributionAssessorManager
 from fedml_tpu_torch.core.security.defender import FedMLDefender
 from fedml_tpu_torch.data.dataset import FederatedDataset
 from fedml_tpu_torch.device import resolve_device
@@ -79,6 +93,7 @@ from fedml_tpu_torch.utils.tree import (
     tree_map,
     tree_scale,
     tree_stack,
+    tree_zeros_like,
     weighted_tree_sum,
 )
 
@@ -86,8 +101,6 @@ logger = logging.getLogger(__name__)
 
 # arguments of features this engine does not have yet → the ROADMAP item
 _NOT_PORTED = {
-    "checkpoint_dir": "round checkpoints (ROADMAP A4)",
-    "resume": "resume from a round checkpoint (ROADMAP A4)",
     "trace_rounds": "trace capture (ROADMAP A12)",
 }
 
@@ -184,21 +197,54 @@ class FedAvgAPI:
                 self._guard = AcceptanceGuard(icfg.loss_mult, icfg.loss_min_history,
                                               icfg.max_rollbacks)
 
-    # -- ring 3's restore point -------------------------------------------------
-    def _round_state(self) -> dict:
-        """The round-open state: the global model, the server optimizer's
-        state, SCAFFOLD's control variate and Mime's momentum (every round
-        replaces these trees, so references suffice; the optimizer state is
-        copied)."""
-        return {"global_params": self.global_params,
-                "opt_state": copy.deepcopy(self.server_opt._opt_state),
-                "c_global": self._c_global, "mime_s": self._mime_s}
+        self._contrib = ContributionAssessorManager(args)
+        # round checkpoints and resume (parity: fedavg_api.py:139-146)
+        self._ckpt = engine_checkpointer(args)
+        self._start_round = 0
+        if self._ckpt is not None and bool(getattr(args, "resume", False)):
+            restored = self._ckpt.restore_latest(self._ckpt_state(), device=self.device)
+            if restored is not None:
+                self._apply_ckpt_state(restored[1])
 
-    def _apply_round_state(self, state: dict) -> None:
+    # -- the round state: checkpoints and ring 3's restore point ---------------
+    def _ckpt_state(self) -> dict:
+        """The packed round state (every round replaces these trees, never
+        mutates them, so references suffice); an absent SCAFFOLD/Mime tree
+        is saved as zeros with its flag off."""
+        zeros = tree_zeros_like(self.global_params)
+        return pack_round_state(
+            self.global_params, self.server_opt, self._start_round, extra={
+                "c_global": self._c_global if self._c_global is not None else zeros,
+                "has_c": int(self._c_global is not None),
+                "mime_s": self._mime_s if self._mime_s is not None else zeros,
+                "has_mime": int(self._mime_s is not None)})
+
+    def _apply_ckpt_state(self, state: dict) -> None:
         self.global_params = state["global_params"]
-        self.server_opt._opt_state = copy.deepcopy(state["opt_state"])
-        self._c_global = state["c_global"]
-        self._mime_s = state["mime_s"]
+        # an absent tree restores to absent: a rollback of the first
+        # SCAFFOLD/Mime round must drop the rejected round's fresh tree
+        self._c_global = state["c_global"] if int(state["has_c"]) else None
+        self._mime_s = state["mime_s"] if int(state["has_mime"]) else None
+        self._start_round = apply_round_state(state, self.server_opt)
+
+    def _assess_contributions(self, client_ids: List[int],
+                              w_locals: List[Tuple[int, Tree]], round_idx: int) -> dict:
+        """Each kept client's value this round (parity: fedavg_api.py:
+        148-170); the utility is the test accuracy of a coalition's
+        aggregate, v(∅) the round-open global model's."""
+        if not self._contrib.is_enabled():
+            return {}
+        t0 = time.perf_counter()
+
+        def util(params):
+            return self.aggregator.test(params, self.dataset.test_data_global,
+                                        self.device, self.args).get("test_acc", 0.0)
+
+        values = self._contrib.run(client_ids, w_locals, util, util(self.global_params),
+                                   round_idx)
+        return {"contributions": values,
+                "contribution_utility_calls": self._contrib.utility_calls + 1,
+                "contribution_ms": (time.perf_counter() - t0) * 1e3}
 
     # -- client sampling (parity: fedavg_api.py:198-210) ---------------------
     def _client_sampling(self, round_idx: int) -> List[int]:
@@ -263,7 +309,8 @@ class FedAvgAPI:
         pairs = [(n_k, ct) for _, _, n_k, ct in enc]
         w_kept = [w_locals[i] for _, i, _, _ in enc]
         started = watches["aggregate"].start()
-        if not requires_full_trees(self._codec, self.args):
+        if not (requires_full_trees(self._codec, self.args)
+                or self._contrib.is_enabled()):
             # a norm-only defense's clip factors come off the blocks; an
             # agg_robust spec swaps the weighted mean for the robust statistic
             clip = None if self._agg_robust else (
@@ -306,7 +353,9 @@ class FedAvgAPI:
     # -- round ----------------------------------------------------------------
     def train_one_round(self, round_idx: int) -> dict:
         if self._guard is not None:
-            self._round_snapshot = self._round_state()
+            # the round-open state: with checkpoint_frequency 1, exactly the
+            # last checkpoint
+            self._round_snapshot = self._ckpt_state()
         client_ids = self._client_sampling(round_idx)
         ctx = Context()
         ctx.add(Context.KEY_CLIENT_ID_LIST_IN_THIS_ROUND, client_ids)
@@ -366,6 +415,10 @@ class FedAvgAPI:
             w_agg = self.aggregator.aggregate(w_list)
             w_agg = self.aggregator.on_after_aggregation(w_agg)
             watches["aggregate"].stop(started)
+        # phi[i] pairs with the i-th KEPT client: the screened ones left
+        # w_locals already
+        contributions = self._assess_contributions(
+            [c for c, k in zip(client_ids, kept) if k], w_locals, round_idx)
         tau_eff = None
         if str(getattr(self.args, "federated_optimizer", "")) == "FedNova" and taus:
             counts = np.asarray([float(n) for n, _ in w_locals])
@@ -391,7 +444,8 @@ class FedAvgAPI:
             self._c_global = tree_add(self._c_global, avg_delta)
         self._m_rounds.inc()
 
-        report: Dict[str, Any] = {"round": round_idx, "clients": client_ids}
+        report: Dict[str, Any] = {"round": round_idx, "clients": client_ids,
+                                  **contributions}
         freq = int(getattr(self.args, "frequency_of_the_test", 1))
         do_eval = (round_idx % max(freq, 1) == 0
                    or round_idx == int(self.args.comm_round) - 1)
@@ -417,6 +471,13 @@ class FedAvgAPI:
             if reason is not None:
                 return self._rollback_round(round_idx, reason, client_ids)
             self._guard.accept(loss)
+        # after ring 3: a rejected round never becomes durable
+        if self._ckpt is not None and should_save(self.args, round_idx):
+            self._start_round = round_idx + 1
+            t0 = time.perf_counter()
+            self._ckpt.save(round_idx, self._ckpt_state())
+            report["checkpoint_ms"] = (time.perf_counter() - t0) * 1e3
+            report["checkpoint_bytes"] = self._ckpt.last_save_bytes
         if metrics is not None:
             report.update(metrics)
             self.test_history.append(report)
@@ -451,7 +512,7 @@ class FedAvgAPI:
                                suspects)
         for cid in client_ids:
             self._ef_by_client.pop(cid, None)
-        self._apply_round_state(self._round_snapshot)
+        self._apply_ckpt_state(self._round_snapshot)
         logger.warning("round %d rolled back (%s); suspects %s — re-running with a "
                        "fresh cohort", round_idx, reason, suspects)
         return {"round": round_idx, "clients": client_ids, "rolled_back": True,
@@ -459,7 +520,7 @@ class FedAvgAPI:
 
     def train(self) -> dict:
         t0 = time.time()
-        round_idx = 0
+        round_idx = self._start_round
         while round_idx < int(self.args.comm_round):
             if self.train_one_round(round_idx).get("rolled_back"):
                 continue  # the same round again, the quarantine applied

@@ -3,13 +3,13 @@
 ``LLMAggregator``).
 
 Each client runs the trainer's step over its own token shard; with LoRA
-only the adapter dict (``{reference path: tensor}``) is exchanged. The
-port keeps the methods the on-device round uses (``get_init_params``,
-``set_exchange_params``, ``test``, ``train``). The reference's classes
-inherit the trust-stack hook chain (attack, defense, DP, FHE) from
-``ClientTrainer`` / ``ServerAggregator``. The on-device round runs no
-hook, so these classes stand alone until the host-loop round comes (its
-last missing hook, contribution assessment, with ROADMAP A10.2c).
+only the adapter dict (``{reference path: tensor}``) is exchanged. As in
+the reference the classes are a ``ClientTrainer`` and a
+``ServerAggregator``, so the host-loop round (``run_fedllm``) runs the
+trust-stack hook chain around each client's payload: data poisoning and
+local DP around ``train`` (``run_local_training``), the central-DP clip,
+model attacks and defenses before the weighted average, central DP and
+the defenses' after-hook behind it. The on-device round runs no hook.
 """
 from __future__ import annotations
 
@@ -17,22 +17,23 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from fedml_tpu_torch.core.alg_frame.client_trainer import ClientTrainer
+from fedml_tpu_torch.core.alg_frame.server_aggregator import ServerAggregator
 from fedml_tpu_torch.device import DeviceLike
 from fedml_tpu_torch.models.llm.llama import LlamaConfig
 from fedml_tpu_torch.train.llm.trainer import LLMTrainer
 
 
-class LLMClientTrainer:
+class LLMClientTrainer(ClientTrainer):
     """``train(params, train_data, device, args)`` consumes the exchangeable
     params, runs ``args.epochs`` of local steps and returns the updated
     exchangeable params with its metrics."""
 
     def __init__(self, cfg: LlamaConfig, args: Any, device: DeviceLike = "cuda"):
-        self.args = args
-        self.id = 0
-        self.local_sample_number = 0
+        super().__init__(model=None, args=args)
         self.engine = LLMTrainer(cfg, args, device=device)
         self.engine.init(seed=int(getattr(args, "random_seed", 0)))
+        self.lora_only = self.engine.lora_only
         self._round_seed = 0
 
     def set_id(self, trainer_id: int) -> None:
@@ -82,15 +83,17 @@ class LLMClientTrainer:
         return self.engine.evaluate(np.asarray(x[:n]), np.asarray(y[:n]))
 
 
-class LLMAggregator:
-    """Holds the global exchange state and evaluates it on the test set."""
+class LLMAggregator(ServerAggregator):
+    """Holds the global exchange state, aggregates the round's payloads
+    through the hook chain and evaluates the global adapters."""
 
     def __init__(self, cfg: LlamaConfig, args: Any, device: DeviceLike = "cuda",
                  engine: Optional[LLMTrainer] = None):
-        self.args = args
+        super().__init__(model=None, args=args)
         self.engine = engine or LLMTrainer(cfg, args, device=device)
         if self.engine.params is None:
             self.engine.init(seed=int(getattr(args, "random_seed", 0)))
+        self.lora_only = self.engine.lora_only
 
     def get_init_params(self):
         return self.engine.exchange_state()

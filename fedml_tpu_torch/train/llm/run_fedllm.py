@@ -2,14 +2,24 @@
 ``fedml_tpu/train/llm/run_fedllm.py``.
 
 N simulated clients share one trainer (sequential local training, the
-reference's ``sp`` memory model) and exchange LoRA dicts. The port runs
-the on-device round (``on_device_round: true``): each round samples the
-clients, assembles their batches with the reference's seeded draws, runs
-one :meth:`LLMTrainer.compile_federated_round` round and tests the global
-adapters on the reference's cadence. The host-loop round, whose point is
-the trust-stack hooks around each client's payload, is not ported: the
-attack, defense and DP hooks exist (ROADMAP A10.2a), and its contribution
-hook comes with A10.2c.
+reference's ``sp`` memory model) and exchange LoRA dicts. Two rounds, as
+the reference's:
+
+* the host loop (the default): each sampled client trains from the
+  global adapters through ``run_local_training`` (data poisoning and local
+  DP around ``train``), then the aggregator's hook chain (central-DP clip,
+  model attack, defense, the weighted average, central DP, the defense's
+  after-hook) makes the new global adapters;
+* ``on_device_round: true``: the round without hooks, one
+  :meth:`LLMTrainer.compile_federated_round` call over the clients'
+  batches drawn with the reference's seeded draws; refused while a
+  trust-stack hook is on.
+
+Both test the global adapters on the reference's cadence and, with
+``checkpoint_dir`` and ``save_every_rounds``, save the engine's live
+adapters as the reference does (``LLMAggregator.save_round``): after a
+tested round those are the global adapters, after an untested one the
+last client's.
 """
 from __future__ import annotations
 
@@ -38,11 +48,6 @@ class FedLLMAPI:
 
     def __init__(self, args: Any, device: DeviceLike, dataset: FederatedDataset,
                  cfg: LlamaConfig = None):
-        if not bool(getattr(args, "on_device_round", False)):
-            raise NotImplementedError(
-                "the port runs on_device_round: true only; the host-loop round "
-                "and its contribution-assessment hook are not ported yet (ROADMAP "
-                "A10.2c)")
         device = "cuda" if device is None else device
         self.args = args
         self.dataset = dataset
@@ -51,8 +56,33 @@ class FedLLMAPI:
         self.aggregator = LLMAggregator(self.cfg, args, engine=self.client.engine)
         self.global_exchange = self.aggregator.get_init_params()
         self.test_history: List[dict] = []
+        # the fused round never surfaces a client's payload to the host, so
+        # it and the trust-stack hooks exclude each other
+        self.on_device = bool(getattr(args, "on_device_round", False))
         self._fed_round = None
         self._fed_round_key = None
+        if self.on_device:
+            self._check_no_host_hooks()
+
+    def _check_no_host_hooks(self) -> None:
+        from fedml_tpu_torch.compression import check_trust_stack
+        from fedml_tpu_torch.core.dp.fedml_differential_privacy import (
+            FedMLDifferentialPrivacy,
+        )
+        from fedml_tpu_torch.core.security.attacker import FedMLAttacker
+        from fedml_tpu_torch.core.security.defender import FedMLDefender
+
+        check_trust_stack(self.args)  # FHE: not ported, refused naming A13
+        active = [name for name, on in (
+            ("attack", FedMLAttacker.get_instance().is_attack_enabled()),
+            ("defense", FedMLDefender.get_instance().is_defense_enabled()),
+            ("dp", FedMLDifferentialPrivacy.get_instance().is_dp_enabled())) if on]
+        if active:
+            raise ValueError(
+                f"on_device_round: true is incompatible with host-side trust-stack "
+                f"hooks (active: {', '.join(active)}) — the fused round never "
+                f"surfaces per-client payloads to the host; disable the hooks or "
+                f"drop on_device_round")
 
     def round_batch(self, round_idx: int) -> Tuple[np.ndarray, ...]:
         """``(xs, ys, ms, weights)`` of a round: the sampled clients'
@@ -79,8 +109,29 @@ class FedLLMAPI:
         return xs, ys, ms, weights
 
     def train_one_round(self, round_idx: int) -> Dict:
-        """One on-device round: sample, assemble, one fused round, then
-        test on the cadence. Returns the round's report."""
+        """One round: the host loop, or the on-device round; then the test
+        and the checkpoint on their cadences. Returns the round's report."""
+        if self.on_device:
+            return self._train_one_round_on_device(round_idx)
+        client_ids = sample_clients(self.args, round_idx)
+        payloads = []
+        t0 = time.time()
+        for cid in client_ids:
+            self.client.set_id(cid)
+            self.client.set_round(round_idx)
+            updated, _ = self.client.run_local_training(
+                self.global_exchange, self.dataset.train_data_local_dict[cid], None,
+                self.args)
+            payloads.append((float(self.dataset.train_data_local_num_dict[cid]), updated))
+        model_list, _ = self.aggregator.on_before_aggregation(payloads)
+        self.global_exchange = self.aggregator.aggregate(model_list)
+        self.global_exchange = self.aggregator.on_after_aggregation(self.global_exchange)
+        report = {"round": round_idx, "round_sec": time.time() - t0}
+        self._maybe_test_and_checkpoint(round_idx, report)
+        return report
+
+    def _train_one_round_on_device(self, round_idx: int) -> Dict:
+        """The fused round: sample, assemble, one fused round."""
         engine = self.client.engine
         xs, ys, ms, weights = self.round_batch(round_idx)
         key = xs.shape[:2]
@@ -108,7 +159,10 @@ class FedLLMAPI:
         ckpt_dir = getattr(self.args, "checkpoint_dir", None)
         every = int(getattr(self.args, "save_every_rounds", 0) or 0)
         if ckpt_dir and every and round_idx % every == 0:
-            self.aggregator.save_round(str(ckpt_dir), round_idx)
+            t0 = time.perf_counter()
+            report["checkpoint"] = self.aggregator.save_round(str(ckpt_dir), round_idx)
+            report["checkpoint_ms"] = (time.perf_counter() - t0) * 1e3
+            report["checkpoint_bytes"] = self.client.engine.last_save_bytes
 
     def train(self) -> Dict:
         t0 = time.time()

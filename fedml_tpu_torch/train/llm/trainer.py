@@ -21,20 +21,25 @@ The exchange payload is the flat ``{reference path: tensor}`` dict of the
 adapters (``params/layer_0/attn/q_proj/lora_a``), the same keys the JAX
 trainer uses, so payloads cross between the two.
 
-Not ported yet: sharding over a mesh (ROADMAP A11; with it the
-reference's sharding rebuild after quantizing the base) and round
-checkpoints (ROADMAP A4: orbax does not exist on the card's machine and the
-port's format is not chosen yet).
+Round checkpoints (:meth:`LLMTrainer.save_checkpoint`,
+:func:`restore_checkpoint_into`) are the port's format (``core/checkpoint``:
+one ``torch.save`` of the flat payload keyed by the reference's paths,
+with a manifest); the reference writes orbax, which the card's machine
+does not have. Not ported yet: sharding over a mesh (ROADMAP A11; with it
+the reference's sharding rebuild after quantizing the base).
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
+import os
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
+from fedml_tpu_torch.core.checkpoint import read_round_dir, write_round_dir
 from fedml_tpu_torch.device import DeviceLike, resolve_device
 from fedml_tpu_torch.models.llm.convert import (  # noqa: F401 - extract_lora re-exported
     extract_lora,
@@ -49,6 +54,8 @@ from fedml_tpu_torch.models.llm.llama import (
     causal_lm_loss,
 )
 from fedml_tpu_torch.ops.quant import quantize_params_int4, quantize_params_int8
+
+logger = logging.getLogger(__name__)
 
 MESH_ARGS = ("mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_sp")
 BASE_FORMATS = ("int8", "int4", "nf4")
@@ -218,6 +225,7 @@ class LLMTrainer:
         self.model: Optional[LlamaForCausalLM] = None
         self.opt_state: Optional[AdamWState] = None
         self._trainable: Dict[str, torch.nn.Parameter] = {}
+        self.last_save_bytes = 0
 
     @property
     def params(self) -> Optional[LlamaForCausalLM]:
@@ -360,12 +368,37 @@ class LLMTrainer:
         return fed_round
 
     # -- checkpointing -------------------------------------------------------
-    def save_checkpoint(self, ckpt_dir: str, round_idx: int):
-        raise NotImplementedError(
-            "round checkpoints are not ported yet (ROADMAP A4): the reference "
-            "writes orbax, which the card's machine does not have")
+    def save_checkpoint(self, ckpt_dir: str, round_idx: int) -> str:
+        """Save the live model's adapters (the whole model without LoRA) as
+        ``<ckpt_dir>/round_<round_idx>``, keyed by the reference's paths."""
+        path = os.path.abspath(os.path.join(ckpt_dir, f"round_{round_idx}"))
+        payload = (dict(extract_lora(self.model)) if self.lora_only
+                   else {ref_path(n): p for n, p in self.model.named_parameters()})
+        self.last_save_bytes = write_round_dir(path, payload, round_idx)
+        logger.info("saved %s checkpoint -> %s", "LoRA" if self.lora_only else "full",
+                    path)
+        return path
 
-    def load_checkpoint(self, path: str):
-        raise NotImplementedError(
-            "round checkpoints are not ported yet (ROADMAP A4)")
+    def load_checkpoint(self, path: str) -> LlamaForCausalLM:
+        return restore_checkpoint_into(self.model, path, lora_only=self.lora_only)
+
+    @property
+    def lora_only(self) -> bool:
+        return self.cfg.lora_rank > 0
+
+
+def restore_checkpoint_into(model: LlamaForCausalLM, path: str,
+                            lora_only: bool) -> LlamaForCausalLM:
+    """Restore a round checkpoint (:meth:`LLMTrainer.save_checkpoint`'s
+    format) into ``model`` in place: a LoRA payload merges into the given
+    base, a full one replaces every parameter; every key of the model's
+    part must be there. Also the serving path (``serve --checkpoint``)."""
+    flat = read_round_dir(os.path.abspath(path), device="cpu")
+    want = (set(extract_lora(model)) if lora_only
+            else {ref_path(n) for n, _ in model.named_parameters()})
+    if set(flat) != want:
+        raise KeyError(f"{path}: checkpoint keys do not match the model: missing "
+                       f"{sorted(want - set(flat))[:5]}, unexpected "
+                       f"{sorted(set(flat) - want)[:5]}")
+    return from_exchange(model, flat)
 

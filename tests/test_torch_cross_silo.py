@@ -388,7 +388,7 @@ REFUSALS = {
     "defense": ({"enable_defense": True, "defense_type": "krum"}, 0, None),
     "differential privacy": ({"enable_dp": True}, 1, None),
     "FHE": ({"enable_fhe": True}, 0, r"A13"),
-    "contribution": ({"enable_contribution": True}, 0, r"A10\.2c"),
+    "contribution": ({"enable_contribution": True}, 0, None),
     "async server": ({"async_aggregation": True}, 0, r"A10\.3"),
     "AsyncFedAvg": ({"federated_optimizer": "AsyncFedAvg"}, 0, r"A10\.3"),
     "hierarchical scenario": ({"scenario": "hierarchical"}, 0, r"A10\.3"),
@@ -398,19 +398,19 @@ REFUSALS = {
     "TRPC": ({"comm_backend": "TRPC"}, 1, r"A10\.4"),
     "MQTT_S3": ({"comm_backend": "MQTT_S3"}, 0, r"A10\.4"),
     "cross-cloud": ({"training_type": "cross_cloud"}, 0, r"A10\.4"),
-    "resume": ({"resume": True}, 0, r"A4"),
-    "checkpoint_dir": ({"checkpoint_dir": "/nowhere"}, 0, r"A4"),
+    "resume": ({"resume": True, "checkpoint_dir": "<tmp>"}, 0, None),
+    "checkpoint_dir": ({"checkpoint_dir": "<tmp>"}, 0, None),
     "live telemetry": ({"live_telemetry": True}, 1, r"A12"),
     "n_proc_in_silo": ({"n_proc_in_silo": 2}, 1, r"A11"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
-def test_unported_options_raise_naming_their_item(case):
+def test_unported_options_raise_naming_their_item(case, tmp_path):
     over, rank, item = REFUSALS[case]
     args = targuments.load_arguments_from_dict(_cfg())
     for k, v in over.items():
-        setattr(args, k, v)
+        setattr(args, k, str(tmp_path / "ck") if v == "<tmp>" else v)
     args.rank = rank
     ds = tdl.load_federated(args)
     if item is None:

@@ -677,3 +677,111 @@ def test_secagg_int8_federation_on_cuda():
     assert result["rounds"] == 2 and seen == [("secagg_int8", 2)] * 6
     final = agg.get_global_model_params()
     assert all(v.is_cuda and bool(torch.isfinite(v).all()) for v in final.values())
+
+
+# -- round checkpoints and the reconstruction attacks on the card -------------
+@pytest.mark.requires_cuda
+def test_dlg_double_backward_on_cuda_matches_cpu():
+    """DLG's gradient of a gradient on the card: twenty iterations on a small
+    MLP land within 1e-4 of the CPU's (the dummies' normals differ by
+    ``erfinv``'s rounding across devices, within 2e-5), and the flash
+    kernels' backward refuses a create_graph backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch.core.security.attack.dlg import DLGAttack
+
+    gen = torch.Generator().manual_seed(0)
+    cpu_params = {"w1": torch.randn(8, 16, generator=gen) * 0.5,
+                  "b1": torch.randn(16, generator=gen) * 0.1,
+                  "w2": torch.randn(16, 4, generator=gen) * 0.5,
+                  "b2": torch.randn(4, generator=gen) * 0.1}
+    x = torch.randn(1, 8, generator=gen)
+    y = torch.eye(4)[[2]]
+
+    def loss_grad_fn(p, x_, y_soft):
+        keys = sorted(p)
+        h = torch.tanh(x_ @ p["w1"] + p["b1"])
+        loss = -torch.mean(torch.sum(y_soft * torch.log_softmax(h @ p["w2"] + p["b2"], -1), -1))
+        return torch.autograd.grad(loss, [p[k] for k in keys], create_graph=True)
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev).requires_grad_(True) for k, v in cpu_params.items()}
+        observed = [g.detach() for g in loss_grad_fn(p, x.to(dev), y.to(dev))]
+        attack = DLGAttack(types.SimpleNamespace(random_seed=3, dlg_iters=20, dlg_lr=0.1))
+        rx, ry = attack.reconstruct_data(observed, {
+            "loss_grad_fn": loss_grad_fn, "params": p, "x_shape": (1, 8), "num_classes": 4})
+        assert rx.device.type == dev and float(attack.losses[-1]) < float(attack.losses[0])
+        out[dev] = (rx.cpu(), ry.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-4
+    q = torch.randn(1, 4, 128, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    o = tfa.flash_attention(q, q, q)
+    (g,) = torch.autograd.grad(o.float().sum(), [q], create_graph=False)
+    assert g.shape == q.shape
+    with pytest.raises(NotImplementedError, match="second derivative"):
+        torch.autograd.grad(tfa.flash_attention(q, q, q).float().sum(), [q],
+                            create_graph=True)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_checkpoint_round_trip_of_a_card_tree(tmp_path, dtype):
+    """A round state on the card saves as CPU tensors in the reference's
+    layout and restores onto the card (``map_location``) bit for bit, in the
+    port's layout; the same file restores onto the CPU with the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch.core import checkpoint as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = {"params/Conv_0/kernel": torch.randn(8, 3, 3, 3, device="cuda", generator=gen),
+              "params/Dense_0/kernel": torch.randn(10, 32, device="cuda", generator=gen),
+              "params/Dense_0/bias": torch.randn(10, device="cuda", generator=gen)}
+    params = {k: v.to(dtype) for k, v in params.items()}
+    state = {"global_params": params, "server_opt": {"0": {"trace": {
+        k: v * 0.5 for k, v in params.items()}}}, "dp_counter": 7, "next_round": 3}
+    saver = ck.RoundCheckpointer(str(tmp_path / "ck"))
+    saver.save(2, state)
+    on_disk = ck.read_round_dir(str(tmp_path / "ck" / "round_2"))
+    assert all(t.device.type == "cpu" for t in on_disk.values())
+    assert torch.equal(on_disk["global_params/params/Dense_0/kernel"],
+                       params["params/Dense_0/kernel"].cpu().T)
+    for dev in ("cuda", "cpu"):
+        r, got = saver.restore_latest(state, device=dev)
+        assert r == 2 and int(got["next_round"]) == 3 and int(got["dp_counter"]) == 7
+        for k, v in params.items():
+            g = got["global_params"][k]
+            assert g.device.type == dev and g.dtype == dtype and g.is_contiguous()
+            assert torch.equal(g.cpu(), v.cpu())
+            assert torch.equal(got["server_opt"]["0"]["trace"][k].cpu(), (v * 0.5).cpu())
+
+
+@pytest.mark.requires_cuda
+def test_host_loop_round_checkpoint_reloads_on_cuda(tmp_path):
+    """A tiny host-loop FedLLM round on the card through the kernels with a
+    checkpoint: a fresh engine loaded from it gives the round's test loss
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch.data.data_loader import load_synthetic_lm
+    from fedml_tpu_torch.models.llm.llama import LlamaConfig
+    from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
+    from fedml_tpu_torch.train.llm.trainer import LLMTrainer
+
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512, num_attention_heads=4,
+                           num_key_value_heads=2, lora_rank=4)  # bf16, head_dim 64
+    args = types.SimpleNamespace(
+        max_seq_length=100, vocab_size=cfg.vocab_size, train_size=8, test_size=2,
+        client_num_in_total=4, client_num_per_round=2, comm_round=1,
+        per_device_batch_size=1, on_device_round=False, random_seed=0,
+        learning_rate=1e-3, checkpoint_dir=str(tmp_path), save_every_rounds=1)
+    api = FedLLMAPI(args, None, load_synthetic_lm(args), cfg=cfg)
+    tfa.FLASH_FWD_LAUNCHES = tfa.FLASH_DQ_LAUNCHES = 0
+    out = api.train()
+    assert tfa.FLASH_DQ_LAUNCHES == cfg.num_hidden_layers * 2 * 2  # 2 clients x 2 steps
+    fresh = LLMTrainer(cfg, args)
+    fresh.init(seed=0)
+    fresh.load_checkpoint(str(tmp_path / "round_0"))
+    x, y = api.dataset.test_data_global
+    assert fresh.evaluate(x[:2], y[:2])["eval_loss"] == out["test_loss"]

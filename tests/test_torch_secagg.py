@@ -628,7 +628,7 @@ REFUSALS = {
     "laplace central DP": ({"enable_dp": True, "dp_solution_type": "CDP",
                             "mechanism_type": "laplace"}, ValueError, "non-gaussian"),
     "FHE": ({"enable_fhe": True}, NotImplementedError, "A13"),
-    "contribution": ({"enable_contribution": True}, NotImplementedError, r"A10\.2c"),
+    "contribution": ({"enable_contribution": True}, ValueError, "contribution assessment"),
     "unknown mode": ({"secagg": "int4"}, ValueError, "unknown secagg mode"),
 }
 
@@ -636,8 +636,8 @@ REFUSALS = {
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_secagg_compatibility_refusals(case):
     """Every per-client-plaintext feature is refused when the server is
-    built, as in the reference (FHE and contribution assessment are not
-    ported and raise naming their item first)."""
+    built, as in the reference (FHE is not ported and raises naming its
+    item first)."""
     import fedml_tpu_torch
     from fedml_tpu_torch.core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
     from fedml_tpu_torch.core.security.attacker import FedMLAttacker

@@ -15,7 +15,8 @@ bias, client 0 byzantine (its update ×30 plus noise):
   gram's distances within 1e-5 of the largest one);
 * each ported attack against the reference on the same seed (data attacks
   bit for bit, model attacks within the same bounds), and the
-  reconstruction attacks refused naming ROADMAP A10.2c;
+  reconstruction attacks built by the singleton (ROADMAP A10.2c; what they
+  compute is held in ``test_torch_reconstruction.py``);
 * ``fused_clip_factors`` on int8 deltas (1e-6 relative) and its counter.
 """
 import types
@@ -301,9 +302,20 @@ def test_data_poisoning_in_the_trainer_hook_keys_by_stream():
 @pytest.mark.parametrize("name", ["dlg", "invert_gradient", "revealing_labels",
                                   "revealing_labels_from_gradients"])
 def test_reconstruction_attacks_raise_naming_a10_2c(name):
+    """Ported with ROADMAP A10.2c: the singleton builds each reconstruction
+    attack, as the reference's does (``test_torch_reconstruction.py`` holds
+    what they compute)."""
     assert name in available_attacks()
-    with pytest.raises(NotImplementedError, match=r"A10\.2c"):
-        TAttacker.get_instance().init(_attack_args(name))
+    TAttacker.get_instance().init(_attack_args(name))
+    JAttacker.reset()
+    JAttacker.get_instance().init(_attack_args(name))
+    try:
+        assert TAttacker.get_instance().is_reconstruct_data_attack()
+        assert (type(TAttacker.get_instance().attacker).__name__
+                == type(JAttacker.get_instance().attacker).__name__)
+    finally:
+        TAttacker.reset()
+        JAttacker.reset()
 
 
 def test_fused_clip_factors_match_reference():

@@ -2,6 +2,7 @@
 against the reference's JAX trainer and FedLLM loop, on the CPU, in fp32,
 with the reference's weights carried across by ``from_jax_params``."""
 import copy
+import os
 import types
 
 import jax
@@ -374,7 +375,7 @@ def test_fedllm_api_on_device_matches_jax():
     assert out["rounds"] == 1 and np.isfinite(out["test_loss"])
 
 
-def test_entry_points_default_to_cuda_and_deferred_paths_raise(monkeypatch):
+def test_entry_points_default_to_cuda_and_deferred_paths_raise(monkeypatch, tmp_path):
     from fedml_tpu_torch.data.data_loader import load_synthetic_lm
     from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
 
@@ -391,13 +392,250 @@ def test_entry_points_default_to_cuda_and_deferred_paths_raise(monkeypatch):
     assert api.client.engine.device.type == "cpu"
     assert np.isfinite(api.train()["test_loss"])
 
-    with pytest.raises(NotImplementedError, match="A10"):
-        FedLLMAPI(_data_args(on_device_round=False), "cpu", ds, cfg=cfg)
+    # the host-loop round (no longer deferred) runs on the CPU when asked
+    host = FedLLMAPI(_data_args(per_device_batch_size=2, client_num_per_round=2,
+                                comm_round=1, on_device_round=False), "cpu", ds, cfg=cfg)
+    assert not host.on_device and np.isfinite(host.train()["test_loss"])
     with pytest.raises(ValueError, match="base_quantize"):
         ttrainer.LLMTrainer(cfg, _data_args(base_quantize="int3"), device="cpu")
     assert ttrainer.LLMTrainer(cfg, _data_args(base_quantize="int8"),
                                device="cpu").base_quantize == "int8"
     with pytest.raises(NotImplementedError, match="A11"):
         ttrainer.LLMTrainer(cfg, _data_args(mesh_fsdp=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        api.client.engine.save_checkpoint("/nonexistent", 0)
+    # round checkpoints (no longer deferred) write the reference's format
+    path = api.client.engine.save_checkpoint(str(tmp_path), 0)
+    assert sorted(os.listdir(path)) == ["manifest.json", "state.pt"]
+
+
+# -- the host-loop round, checkpoints and serve --checkpoint -----------------
+@pytest.fixture
+def trust_reset():
+    from fedml_tpu.core.security.defender import FedMLDefender as JDefender
+    from fedml_tpu_torch.core.security.defender import FedMLDefender as TDefender
+
+    yield
+    JDefender.reset()
+    TDefender.reset()
+
+
+def _host_loop_pair(**train):
+    """(JAX FedLLMAPI, port FedLLMAPI) with the host-loop round on the same
+    tiny fp32 weights and data; ``train`` switches trust-stack hooks on in
+    both packages' singletons."""
+    import fedml_tpu
+    import fedml_tpu_torch
+    from fedml_tpu.data import load_federated
+    from fedml_tpu.train.llm.run_fedllm import FedLLMAPI as JaxFedLLMAPI
+    from fedml_tpu_torch.data.data_loader import load_synthetic_lm
+    from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
+
+    args = _fedllm_args()
+    args.on_device_round = False
+    for k, v in train.items():
+        setattr(args, k, v)
+    fedml_tpu.init(args)
+    j_api = JaxFedLLMAPI(args, None, load_federated(args),
+                         cfg=JaxLlamaConfig.tiny(lora_rank=4, vocab_size=32,
+                                                 dtype=jnp.float32))
+    targs = fedml_tpu_torch.init(_port_args(args))
+    t_api = FedLLMAPI(targs, "cpu", load_synthetic_lm(targs),
+                      cfg=LlamaConfig.tiny(lora_rank=4, vocab_size=32, dtype=torch.float32))
+    engine = t_api.client.engine
+    load_weights(engine.model, from_jax_params(_np_tree(j_api.client.engine.params)))
+    t_api.global_exchange = to_exchange(engine.model)
+    return j_api, t_api
+
+
+@pytest.mark.parametrize("train", [
+    {}, {"enable_defense": True, "defense_type": "norm_diff_clipping", "norm_bound": 2.0}],
+    ids=["plain", "norm_diff_clipping"])
+def test_fedllm_api_host_loop_matches_jax(train, trust_reset):
+    """Two host-loop rounds (the hook chain around every client's payload)
+    beside the JAX package's: each round's test loss within 1e-4 and
+    accuracy within 1e-6, the global adapters within 1e-4."""
+    j_api, t_api = _host_loop_pair(**train)
+    assert not t_api.on_device
+    for r in range(2):
+        j_rep, t_rep = j_api.train_one_round(r), t_api.train_one_round(r)
+        _close(t_rep["test_loss"], j_rep["test_loss"])
+        assert t_rep["test_acc"] == pytest.approx(j_rep["test_acc"], abs=1e-6)
+        for k, v in exchange_to_numpy(t_api.global_exchange).items():
+            _close(v, np.asarray(j_api.global_exchange[k]))
+    if train:  # the clip ran: every client payload's norm was bounded
+        norm = np.sqrt(sum(float((v.double() ** 2).sum())
+                           for v in t_api.global_exchange.values()))
+        assert norm <= 2.0 + 1e-4
+
+
+def test_on_device_round_refuses_live_hooks(trust_reset):
+    import fedml_tpu_torch
+    from fedml_tpu_torch.data.data_loader import load_synthetic_lm
+    from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
+
+    targs = fedml_tpu_torch.init(_port_args(
+        _fedllm_args(), enable_defense=True, defense_type="norm_diff_clipping"))
+    with pytest.raises(ValueError, match="defense"):
+        FedLLMAPI(targs, "cpu", load_synthetic_lm(targs),
+                  cfg=LlamaConfig.tiny(lora_rank=4, vocab_size=32, dtype=torch.float32))
+    with pytest.raises(NotImplementedError, match="A13"):
+        FedLLMAPI(_port_args(_fedllm_args(), enable_fhe=True), "cpu",
+                  load_synthetic_lm(targs),
+                  cfg=LlamaConfig.tiny(lora_rank=4, vocab_size=32, dtype=torch.float32))
+
+
+def test_host_loop_checkpoints_the_tested_global_and_loads_back(tmp_path, trust_reset):
+    """With ``save_every_rounds: 1`` and a test every round, each round's
+    checkpoint holds the global adapters (the reference saves the engine's
+    live adapters, which the test has just loaded); a fresh engine restored
+    from it gives the round's test loss bit for bit; the JAX package's
+    orbax checkpoint of the same round holds the same keys, values within
+    1e-4."""
+    from fedml_tpu_torch.core.checkpoint import read_round_dir
+    from fedml_tpu_torch.data.data_loader import load_synthetic_lm
+    from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
+
+    j_api, t_api = _host_loop_pair(checkpoint_dir=str(tmp_path / "port"),
+                                   save_every_rounds=1)
+    j_api.args.checkpoint_dir = str(tmp_path / "jax")
+    reps, globals_ = [], []
+    for r in range(2):
+        reps.append(t_api.train_one_round(r))
+        globals_.append({k: v.clone() for k, v in t_api.global_exchange.items()})
+        j_api.train_one_round(r)
+    for r, (rep, glob) in enumerate(zip(reps, globals_)):
+        assert rep["checkpoint"] == str(tmp_path / "port" / f"round_{r}")
+        assert rep["checkpoint_bytes"] > 0
+        saved = read_round_dir(rep["checkpoint"])
+        assert set(saved) == set(glob)
+        assert all(torch.equal(saved[k], glob[k]) for k in saved)  # every tested round
+    want = jtrainer.restore_checkpoint_into(
+        j_api.client.engine.params, str(tmp_path / "jax" / "round_1"), lora_only=True)
+    for k, v in jtrainer.extract_lora(want).items():
+        _close(saved[k].numpy(), np.asarray(v))
+
+    fresh = FedLLMAPI(t_api.args, "cpu", load_synthetic_lm(t_api.args),
+                      cfg=LlamaConfig.tiny(lora_rank=4, vocab_size=32, dtype=torch.float32))
+    load_weights(fresh.client.engine.model,
+                 from_jax_params(_np_tree(j_api.client.engine.params)))
+    fresh.client.engine.load_checkpoint(reps[1]["checkpoint"])
+    x, y = fresh.dataset.test_data_global
+    n = min(len(x), fresh.client.engine.batch_size * 8)
+    again = fresh.client.engine.evaluate(np.asarray(x[:n]), np.asarray(y[:n]))
+    assert again["eval_loss"] == reps[1]["test_loss"]
+
+
+def test_checkpoint_round_trip_lora_merges_full_replaces(tmp_path):
+    """A LoRA payload merges into the given base (the base untouched); a
+    full payload replaces every parameter; a payload that does not fit the
+    model raises."""
+    tr = ttrainer.LLMTrainer(LlamaConfig.tiny(lora_rank=4, vocab_size=40,
+                                              dtype=torch.float32), _TArgs(), device="cpu")
+    tr.init(seed=0)
+    rng = np.random.default_rng(3)
+    lora = {k: torch.from_numpy(rng.normal(size=tuple(v.shape)).astype(np.float32))
+            for k, v in to_exchange(tr.model).items()}
+    from_exchange(tr.model, lora)
+    path = tr.save_checkpoint(str(tmp_path), 7)
+    assert path == str(tmp_path / "round_7")
+    other = ttrainer.LLMTrainer(LlamaConfig.tiny(lora_rank=4, vocab_size=40,
+                                                 dtype=torch.float32), _TArgs(), device="cpu")
+    other.init(seed=1)
+    base = {n: p.detach().clone() for n, p in other.model.named_parameters()
+            if "lora" not in n}
+    other.load_checkpoint(path)
+    assert all(torch.equal(p, lora[k]) for k, p in to_exchange(other.model).items())
+    assert all(torch.equal(p, base[n]) for n, p in other.model.named_parameters()
+               if "lora" not in n)
+    full = {ttrainer.ref_path(n): p.detach().clone() for n, p in tr.model.named_parameters()}
+    from fedml_tpu_torch.core.checkpoint import write_round_dir
+
+    write_round_dir(str(tmp_path / "full"), full, 0)
+    ttrainer.restore_checkpoint_into(other.model, str(tmp_path / "full"), lora_only=False)
+    assert all(torch.equal(p, full[ttrainer.ref_path(n)])
+               for n, p in other.model.named_parameters())
+    with pytest.raises(KeyError, match="do not match"):
+        ttrainer.restore_checkpoint_into(other.model, str(tmp_path / "full"), lora_only=True)
+
+
+def test_serve_checkpoint_through_build_endpoint(tmp_path, monkeypatch):
+    """``serve --checkpoint DIR --lora-rank r``: build_endpoint restores the
+    adapters before quantization, keeps them f32 beside the int8 base, and
+    the endpoint's logits move with them (the unquantized model with the
+    same adapters agrees within the int8 error). The tiny model's kernels
+    sit below the quantizer's size floor, so the test lowers it to 1."""
+    from fedml_tpu_torch.cli import build_endpoint, build_parser
+    from fedml_tpu_torch.models.llm.llama import LlamaForCausalLM
+    from fedml_tpu_torch.ops.quant import QuantizedTensor
+    from fedml_tpu_torch.serving import llm_engine
+
+    quantize = llm_engine.quantize_params_int8
+    monkeypatch.setattr(llm_engine, "quantize_params_int8",
+                        lambda m, **kw: quantize(m, **{**kw, "min_size": 1}))
+
+    def parse(*extra):
+        return build_parser().parse_args(
+            ["serve", "--model", "tiny", "--quantize", "int8_dequant", "--device", "cpu",
+             "--port", "0", "--lora-rank", "4", *extra])
+
+    a = parse()
+    cfg_model = LlamaForCausalLM(
+        LlamaConfig.from_args(types.SimpleNamespace(model_size="tiny", lora_rank=4,
+                                                    base_params_bf16=True)),
+        device="cpu", seed=0)
+    rng = np.random.default_rng(5)
+    lora = {k: torch.from_numpy((rng.normal(size=tuple(v.shape)) * 0.2).astype(np.float32))
+            for k, v in to_exchange(cfg_model).items()}
+    from fedml_tpu_torch.core.checkpoint import write_round_dir
+
+    write_round_dir(str(tmp_path / "round_0"), lora, 0)
+    tokens = torch.tensor([[1, 5, 9, 2, 7]])
+    outs = {}
+    for name, extra in (("ckpt", ("--checkpoint", str(tmp_path / "round_0"))), ("base", ())):
+        engine, runner = build_endpoint(parse(*extra))
+        try:
+            model = engine.params
+            assert all(torch.equal(p, lora[k]) for k, p in to_exchange(model).items()) == (
+                name == "ckpt")
+            assert all(p.dtype == torch.float32 for p in to_exchange(model).values())
+            assert any(isinstance(v, QuantizedTensor) for m in model.modules()
+                       for v in vars(m).values())
+            with torch.inference_mode():
+                outs[name] = model(tokens)[0].float()
+        finally:
+            runner.stop()
+            engine.stop()
+    assert torch.isfinite(outs["ckpt"]).all()
+    assert (outs["ckpt"] - outs["base"]).abs().max() > 1e-3
+    # the same restore on a bf16 model, unquantized: within the int8 error
+    plain = LlamaForCausalLM(cfg_model.cfg, device="cpu", seed=0)
+    ttrainer.restore_checkpoint_into(plain, str(tmp_path / "round_0"), lora_only=True)
+    with torch.inference_mode():
+        want = plain(tokens)[0].float()
+    rel = (torch.linalg.vector_norm(outs["ckpt"] - want) / torch.linalg.vector_norm(want))
+    assert float(rel) < 5e-2
+
+
+def test_untested_round_checkpoints_the_last_clients_adapters(tmp_path, trust_reset):
+    """The reference's behaviour, copied (ROADMAP §C): a round without a
+    test checkpoints the engine's live adapters, which are the last
+    client's, not the global ones; the JAX package's checkpoint of the same
+    round holds the same adapters (1e-4)."""
+    from fedml_tpu_torch.core.checkpoint import read_round_dir
+
+    j_api, t_api = _host_loop_pair(checkpoint_dir=str(tmp_path / "port"),
+                                   save_every_rounds=1, frequency_of_the_test=2,
+                                   comm_round=3)
+    j_api.args.checkpoint_dir = str(tmp_path / "jax")
+    t_rep = [t_api.train_one_round(r) for r in range(2)][1]
+    for r in range(2):
+        j_api.train_one_round(r)
+    assert "test_loss" not in t_rep  # round 1 of 3 is not a test round
+    saved = read_round_dir(t_rep["checkpoint"])
+    live = {k: v.detach() for k, v in
+            ttrainer.extract_lora(t_api.client.engine.model).items()}
+    assert all(torch.equal(saved[k], live[k]) for k in saved)
+    assert not all(torch.equal(saved[k], t_api.global_exchange[k]) for k in saved)
+    want = jtrainer.extract_lora(jtrainer.restore_checkpoint_into(
+        j_api.client.engine.params, str(tmp_path / "jax" / "round_1"), lora_only=True))
+    for k, v in want.items():
+        _close(saved[k].numpy(), np.asarray(v))
