@@ -80,7 +80,8 @@ the final ``ok`` line:
     peak memory and the uplink bytes against f32;
 (i) cross-silo FedAvg on phase h's model and data (no hand kernel lies on
     this path either). (i1) ``run_cross_silo_inproc``'s federation over the
-    in-process LOCAL transport on the card: 4 of 4 hetero silos (α 0.5),
+    in-process LOCAL transport on the card: 4 silos on 4 of 16 hetero parts
+    (α 0.5),
     int8 uplinks with error feedback, 2 rounds; one client's first upload is
     posted twice. It fails unless the server reports 2 rounds, the test loss
     falls from round 0 to round 1, every upload that reached the server is
@@ -112,7 +113,8 @@ the final ``ok`` line:
     on 2 of 10 with krum: it fails unless krum keeps a benign update; then
     every registered defense's three hooks run on that round's 10 ResNet-18
     updates, each timed with its memory above them. (j3) cross-silo in
-    process, 4 silos over LOCAL, 1 round, ``integrity: true``,
+    process, 4 silos over LOCAL, each one of 10 parts, 1 round,
+    ``integrity: true``,
     norm-difference clipping and local DP: it fails unless the fused path
     serves with clip factors, at least one upload is clipped
     (``health/norm_clips_fused``) and the round ends finite; it prints
@@ -120,11 +122,12 @@ the final ``ok`` line:
 (k) secure aggregation on phase h's model and data (no hand kernel on this
     path; the finite-field work is host numpy and the port's C++ LCC
     library). (k1) ``secagg: int8`` (clip 0.1, mod_bits 8) on 4 silos over
-    LOCAL, 2 rounds, quorum 0.75 with a deadline; one silo stalls in round
-    1. It fails unless every upload the server holds is a v2 masked tree and
-    decoding one raises, each round's aggregate is bit-identical to the
-    unmasked sum of the same quantized words (the same deltas, keys and
-    residuals encoded on the card with zero masks), round 1 closes through
+    LOCAL, each on one of 20 parts a round, 2 rounds, quorum 0.75 with a
+    deadline; one silo stalls in round 1. It fails unless every upload the
+    server holds is a v2 masked tree and decoding one raises, each round's
+    aggregate is bit-identical to the unmasked sum of the same quantized
+    words (the same deltas, keys and residuals encoded on the card with zero
+    masks), round 1 closes through
     one recovery with 3 seeds revealed, and the test loss stays finite and
     ends below the untrained model's; it prints the masked encode against
     the plain int8 encode of the same delta and ``unmask_finalize``
@@ -172,12 +175,40 @@ the final ``ok`` line:
     reconstruction's MSE; ``revealing_labels`` from ResNet-18's classifier
     gradient at init on a batch of 32: it fails unless the counts sum to 32
     and equal the CPU's from the same gradient, and prints their L1 distance
-    to the true histogram. Each phase prints its seconds.
+    to the true histogram;
+(m) the durable cross-silo server and the asynchronous server on phase h's
+    model and data, each silo training one of 20 hetero parts a round (no
+    hand kernel on this path). (m1) a server and 2 silos as OS processes
+    over the broker through the port's rank entry point
+    (``resilience/durability/recover``), ``durability: true``, the identity
+    codec, 2 rounds; the server's kill window SIGKILLs it in round 1 after
+    one journaled upload and a ``RestartTracker`` supervisor respawns it
+    with ``resume: true``. It fails unless the run completes with one
+    restart and at least one salvaged upload, no salvaged silo trains the
+    resumed round twice, the final digest equals an uninterrupted in-process
+    run of the same seed (a child process, the same ``PYTHONHASHSEED``) bit
+    for bit, and the test loss ends below the untrained model's; beside it
+    (at once) the same with int8 uplinks, 2 rounds: it completes and
+    salvages. It prints
+    the MTTR, the journal's append ms and bytes for an identity and an int8
+    upload, the replay ms at the restart, and the round walls around the
+    kill. (m2) the async server in process over LOCAL: 4 silos on IID
+    parts, int8,
+    FedBuff with a buffer of 4, 8 updates, ``durability: true``; it fails
+    unless every update is applied in 2 whole-buffer flushes and the test
+    loss ends below the untrained model's; then, over copies of its
+    checkpoint directory, a server takes 2 of 4 recorded uploads and is
+    abandoned, a restarted one refills its buffer from the journal and takes
+    the other 2, and its flush must equal an uninterrupted server's flush of
+    the same 4, bit for bit; last, an instant-apply run (no buffer, 4
+    updates) checkpoints every version. It prints updates/s, flush ms (CUDA
+    events), the staleness histogram and the checkpoint ms a version. Each
+    phase prints its seconds.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with code 2 and prints no result. The full per-shape results also go to
-``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijkl``) runs
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklm``) runs
 (a) and the phases named, and prints no kernels or ok line (phase g sets
 its round beside phase e's only when both run). ``--parent DIR`` builds the dequant and flash-forward kernels of
 another checkout (DIR, e.g. the parent commit unpacked by ``git archive``)
@@ -281,8 +312,9 @@ QLORA_PEAK_MARGIN_GB = 5.0
 # 32x32x3, 10 classes), 10 of 10 clients (hetero, alpha 0.5), batch 32, one
 # local epoch of SGD at lr 0.1 (fedml_tpu/config/cross_silo/fedml_config.yaml),
 # int8 uplinks with error feedback, 1 round with a test after it (3 until
-# phase l came; the rounds were cut to keep the whole script under 1,100 s,
-# and the test loss is held below the untrained model's, as k1's). The
+# phase l came; the rounds were cut to keep the whole script under its
+# 1,200 s, and the test loss is held below the untrained model's, as k1's;
+# half the clients a round left it barely below: 2.8268 against 2.8374). The
 # simulation runs convolutions and matmuls in full FP32 (TF32 off: the
 # port's default for it). From the run's final weights one client's
 # SP_CPU_STEPS steps run on the card, on the CPU and in float64 on the card;
@@ -314,8 +346,10 @@ SP_CODECS = ("int8", "nf4")
 
 # Phase (i), cross-silo FedAvg: phase h's model, data and training
 # (``fedml_tpu/config/cross_silo/fedml_config.yaml``'s recipe at ResNet-18
-# scale) split over 4 silos, int8 uplinks with error feedback, 2 rounds on
-# the in-process LOCAL transport (i1); then one round of 2 silos over the TCP
+# scale) over 4 silos, each training one of 16 hetero parts a round (a
+# quarter of the data until the script neared its 1,200 s), int8 uplinks
+# with error feedback, 2 rounds on the in-process LOCAL transport (i1); then
+# one round of 2 silos, each on one of CS_BROKER_PARTS parts, over the TCP
 # broker and the object store with the server and each silo in its own OS
 # process (i2), started through the entry points with a config the phase
 # writes. i2's processes share a fixed PYTHONHASHSEED: the stand-in's seed
@@ -328,13 +362,14 @@ CS_CONFIG = {
     "data_args": {"dataset": "cifar10", "train_size": 50_000, "test_size": 10_000,
                   "partition_method": "hetero", "partition_alpha": 0.5},
     "model_args": {"model": "resnet18", "group_norm_channels": 2},
-    "train_args": {"federated_optimizer": "FedAvg", "client_num_in_total": 4,
+    "train_args": {"federated_optimizer": "FedAvg", "client_num_in_total": 16,
                    "client_num_per_round": 4, "comm_round": 2, "epochs": 1,
                    "batch_size": 32, "learning_rate": 0.1, "compression": "int8"},
     "comm_args": {"comm_backend": "LOCAL"},
 }
 CS_WIRE_RATIO = 3.9
 CS_BROKER_SILOS = 2
+CS_BROKER_PARTS = 8
 CS_BROKER_TIMEOUT_S = 480        # i2: every process exits 0 within this
 CS_HASHSEED = "0"
 CS_TIMED_REPS = 5
@@ -350,7 +385,8 @@ CS_TIMED_REPS = 5
 # uploads' weighted mean within TRUST_CONTAIN of the plain weighted mean's.
 # j2: one sp round on the decode fallback, byzantine (random) on 2 of 10
 # with krum, then each registered defense timed on that round's 10 updates.
-# j3: cross-silo in process, 4 silos, 1 round, ``integrity: true`` with
+# j3: cross-silo in process, 4 silos each on one of 10 parts, 1 round,
+# ``integrity: true`` with
 # norm-difference clipping (bound TRUST_NORM_BOUND) and local DP (ε 8,
 # δ 1e-5, sensitivity 1e-3: noise of σ 6.1e-4, ~2.0 of L2 over the model).
 TRUST_SP_CONFIG = {**SP_CONFIG, "train_args": {
@@ -364,18 +400,20 @@ TRUST_DECODE_CONFIG = {**SP_CONFIG, "train_args": {
 TRUST_NORM_BOUND = 2.0
 TRUST_CS_CONFIG = {**CS_CONFIG, "common_args": {
     **CS_CONFIG["common_args"], "run_id": "chip_smoke_trust"}, "train_args": {
-    **CS_CONFIG["train_args"], "comm_round": 1, "integrity": True, "enable_defense": True,
-    "defense_type": "norm_diff_clipping", "norm_bound": TRUST_NORM_BOUND, "enable_dp": True,
-    "dp_solution_type": "LDP", "epsilon": 8.0, "delta": 1e-5, "sensitivity": 1e-3}}
+    **CS_CONFIG["train_args"], "client_num_in_total": 10, "comm_round": 1,
+    "integrity": True, "enable_defense": True, "defense_type": "norm_diff_clipping",
+    "norm_bound": TRUST_NORM_BOUND, "enable_dp": True, "dp_solution_type": "LDP",
+    "epsilon": 8.0, "delta": 1e-5, "sensitivity": 1e-3}}
 TRUST_NAN_CLIENT, TRUST_SCALED_CLIENT, TRUST_SCALE = 3, 7, 100.0
 TRUST_CONTAIN = 0.1
 
 # Phase (k), secure aggregation (ROADMAP A10.2b) on phase h's model and data:
-# ResNet-18 GroupNorm at full width on the CIFAR-10 stand-in, split as phase
-# h splits it (10 hetero parts, alpha 0.5), each silo training one part a
-# round. k1: docs/privacy.md's recipe (secagg: int8, clip 0.1, mod_bits 8)
-# on 4 silos over LOCAL, 2 rounds, round_quorum 0.75 and a deadline (the
-# static ceiling for round 0, twice the median latency after); silo
+# ResNet-18 GroupNorm at full width on the CIFAR-10 stand-in, split into 20
+# hetero parts (alpha 0.5; 10, as phase h, until the script neared its
+# 1,200 s), each silo training one part a round. k1: docs/privacy.md's
+# recipe (secagg: int8, clip 0.1, mod_bits 8) on 4 silos over LOCAL, 2
+# rounds, round_quorum 0.75 and a deadline (the static ceiling for round 0,
+# twice the median latency after); silo
 # SECAGG_STALL_RANK's trainer stalls in round 1 until the server has closed
 # it, so round 1 closes at quorum through the seed-reveal recovery. k2: the
 # same recipe, a server and 2 silos as processes over the broker, 1 round.
@@ -384,7 +422,7 @@ TRUST_CONTAIN = 0.1
 # 1 round; sa_q_bits 12, because the 31-bit field leaves |x| < 0.33 at the
 # reference's 16 bits for CIFAR-10's 50,000 samples (sa_q_bits 12: < 5.2).
 # k4: LightSecAgg on 3 silos, 1 round (the reference's defaults).
-SECAGG_TRAIN = dict(client_num_in_total=10, compression="", secagg="int8",
+SECAGG_TRAIN = dict(client_num_in_total=20, compression="", secagg="int8",
                     secagg_clip=0.1, secagg_mod_bits=8)
 SECAGG_CONFIG = {**CS_CONFIG, "common_args": {
     **CS_CONFIG["common_args"], "run_id": "chip_smoke_secagg"}, "train_args": {
@@ -446,6 +484,68 @@ CS_RESUME_CONFIG = {**CS_CONFIG, "common_args": {
     "comm_round": 1, "enable_contribution": True, "contribution_method": "leave_one_out"}}
 DLG_ITERS, REVEAL_BATCH = 300, 32
 
+# Phase (m), the durable cross-silo server and the async server (ROADMAP
+# A10.3a/b/d) on phase h's model and data, split into DURABLE_PARTS hetero
+# parts (alpha 0.5; each silo trains one part a round, so a round takes
+# seconds, not minutes). m1: phase i2's broker federation (a server and 2
+# silos as processes, CS_HASHSEED) through the rank entry point of
+# ``resilience/durability/recover`` with ``durability: true``, the identity
+# codec and 2 rounds; the kill window fires in round 1 after 1 journaled
+# upload; and int8 uplinks for 2 rounds; both supervised federations run at
+# once, beside the uninterrupted in-process run of the identity federation
+# (the three share the card and the host). m2: 4
+# silos over LOCAL, int8, FedBuff (a buffer of 4, 8 updates),
+# ``durability: true``; then the journal refill after 2 of 4 buffered
+# uploads, and an instant-apply run of 4 updates that checkpoints every
+# version. m2's parts are IID: the async server hands each silo the same
+# part every update, and on a hetero split the fastest silo's (smallest,
+# most skewed) part takes most of the updates and the test loss rose above
+# the untrained model's (2.86 -> 3.15 in one card run, 9 of 12 updates
+# from one silo).
+DURABLE_PARTS = 20
+DURABLE_CONFIG = {**CS_CONFIG, "common_args": {
+    **CS_CONFIG["common_args"], "run_id": "chip_smoke_durable", "device": "cuda"},
+    "train_args": {**CS_CONFIG["train_args"], "client_num_in_total": DURABLE_PARTS,
+                   "client_num_per_round": 2, "comm_round": 2, "compression": "identity",
+                   "durability": True, "resume": True}}
+DURABLE_KILL = {"round": 1, "after_uploads": 1}
+DURABLE_INT8_ROUNDS = 2
+DURABLE_TIMEOUT_S = 300
+ASYNC_CONFIG = {**CS_CONFIG, "common_args": {
+    **CS_CONFIG["common_args"], "run_id": "chip_smoke_async"}, "data_args": {
+    **CS_CONFIG["data_args"], "partition_method": "homo"}, "train_args": {
+    **CS_CONFIG["train_args"], "client_num_in_total": DURABLE_PARTS,
+    "client_num_per_round": 4, "async_aggregation": True, "async_buffer_size": 4,
+    "async_total_updates": 8, "durability": True}}
+ASYNC_INSTANT_UPDATES = 4
+
+# what the uninterrupted run of phase (m1) runs in a child process (the same
+# PYTHONHASHSEED as the supervised ranks, the same cuDNN setting as the
+# rank entry point): the in-process federation over LOCAL, its digest and
+# result, and the untrained model's test loss
+DURABLE_REF_CHILD = r"""
+import json, sys
+import torch
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+import fedml_tpu_torch
+from fedml_tpu_torch.arguments import load_arguments_from_dict
+from fedml_tpu_torch.cross_silo.message_define import MyMessage
+from fedml_tpu_torch.cross_silo.run_inproc import (build_cross_silo_inproc,
+                                                  run_managers_to_completion)
+from fedml_tpu_torch.data.data_loader import load_federated
+from fedml_tpu_torch.models.model_hub import create
+from fedml_tpu_torch.resilience.durability.recover import digest
+with open(sys.argv[1]) as f:
+    args = fedml_tpu_torch.init(load_arguments_from_dict(json.load(f)))
+ds = load_federated(args)
+server, clients = build_cross_silo_inproc(args, ds, create(args, ds.class_num), "cuda")
+untrained = server.fedml_aggregator.test_on_server_for_all_clients(-1)["test_loss"]
+result = run_managers_to_completion([server.manager] + [c.manager for c in clients],
+                                    args.run_id, MyMessage.MSG_TYPE_CONNECTION_IS_READY, 600)
+print("REF " + json.dumps({"digest": digest(server.fedml_aggregator.get_global_model_params()),
+                           "result": result, "untrained_test_loss": untrained}), flush=True)
+"""
+
 # Published dense peaks (NVIDIA data sheets): memory bytes/s and bf16 FLOP/s.
 PEAKS = (
     ("H100", "PCIE", 2.0e12, 756e12),
@@ -453,6 +553,25 @@ PEAKS = (
     ("H100", "", 3.35e12, 989e12),
     ("H200", "", 4.8e12, 989e12),
 )
+
+
+def share_stand_in_draws():
+    """Draw the synthetic stand-ins' arrays once per (sizes, seed) in this
+    process: phases h–m each load the same 60,000 CIFAR-10 stand-in images,
+    ~7 s a draw. Each load gets its own copy (a phase may flip labels); the
+    processes the phases start draw their own."""
+    from fedml_tpu_torch.data import data_loader
+
+    draw = data_loader._make_classification_arrays
+    drawn = {}
+
+    def shared(*args, **kwargs):
+        key = (args, tuple(sorted(kwargs.items())))
+        if key not in drawn:
+            drawn[key] = draw(*args, **kwargs)
+        return tuple(a.copy() for a in drawn[key])
+
+    data_loader._make_classification_arrays = shared
 
 
 def card_peaks(name: str):
@@ -2195,7 +2314,8 @@ def _broker_federation(run_id: str, n_silos: int, **train):
 def cross_silo_broker(card: str):
     """Phase (i2): a server and CS_BROKER_SILOS silos as OS processes over
     the port's broker and a shared object store (see the module doc)."""
-    kids, wall, published = _broker_federation("chip_smoke_broker", CS_BROKER_SILOS)
+    kids, wall, published = _broker_federation("chip_smoke_broker", CS_BROKER_SILOS,
+                                               client_num_in_total=CS_BROKER_PARTS)
     server = kids[0]
     sm = server["metrics"]
     store_bytes = sum(k["metrics"].get("comm/offload_wire_bytes", 0) for k in kids)
@@ -3390,6 +3510,278 @@ def reconstruction_phase(card: str, ds):
                 reveal_truth=truth.tolist(), reveal_l1=l1)
 
 
+def _hist_mean(metrics, name):
+    h = (metrics or {}).get(name) or {}
+    return h["sum"] / h["count"] if h.get("count") else None
+
+
+def durable_cross_silo(card: str):
+    """Phase (m1): the supervised kill-and-respawn of a durable cross-silo
+    server over the broker, held against an uninterrupted in-process run
+    (see the module doc)."""
+    import shutil
+    import tempfile
+
+    from fedml_tpu_torch.core.distributed.communication.broker import PubSubBroker
+    from fedml_tpu_torch.resilience.durability.recover import supervise_federation
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    broker = PubSubBroker("127.0.0.1", 0).start()
+    host, port = broker.address
+
+    def config(tag, compression, rounds, broker_comm):
+        cfg = json.loads(json.dumps(DURABLE_CONFIG))
+        cfg["common_args"]["run_id"] = f"chip_smoke_durable_{tag}"
+        cfg["train_args"].update(compression=compression, comm_round=rounds,
+                                 checkpoint_dir=os.path.join(work, tag, "ckpts"))
+        if broker_comm:
+            cfg["comm_args"] = {"comm_backend": "BROKER", "broker_host": host,
+                                "broker_port": port,
+                                "object_store_dir": os.path.join(work, tag, "store"),
+                                "payload_offload_bytes": 65536}
+        return cfg
+
+    try:
+        rounds = DURABLE_CONFIG["train_args"]["comm_round"]
+        ref_cfg = os.path.join(work, "ref.json")
+        with open(ref_cfg, "w") as f:
+            json.dump(config("ref", "identity", rounds, False), f)
+        env = dict(os.environ, PYTHONHASHSEED=CS_HASHSEED,
+                   PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        with open(os.path.join(work, "ref.out"), "w+") as out, \
+                open(os.path.join(work, "ref.err"), "w+") as err, \
+                ThreadPoolExecutor(2) as pool:
+            # the two supervised federations and the uninterrupted run at once
+            child = subprocess.Popen([sys.executable, "-c", DURABLE_REF_CHILD, ref_cfg],
+                                     cwd=here, env=env, stdout=out, stderr=err, text=True)
+            try:
+                futures = {tag: pool.submit(
+                    supervise_federation, config(tag, tag, n, True),
+                    os.path.join(work, tag), kill=DURABLE_KILL,
+                    timeout=DURABLE_TIMEOUT_S, hashseed=CS_HASHSEED)
+                    for tag, n in (("identity", rounds), ("int8", DURABLE_INT8_ROUNDS))}
+                runs = {tag: f.result() for tag, f in futures.items()}
+                child.wait(timeout=DURABLE_TIMEOUT_S)
+            finally:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+            ref_s = time.perf_counter() - t0
+            out.seek(0)
+            err.seek(0)
+            if child.returncode:
+                raise RuntimeError(f"the uninterrupted run exited {child.returncode}:\n"
+                                   f"{err.read()[-3000:]}")
+            ref = json.loads(next(ln for ln in out.read().splitlines()
+                                  if ln.startswith("REF "))[4:])
+    finally:
+        broker.stop()
+        shutil.rmtree(work, ignore_errors=True)
+
+    def walls(out):
+        """Each round's wall from the silos' TRAINED markers (the first of
+        each round to the first of the next; the last round to the end)."""
+        starts = {}
+        for times, marks in zip(out["trained_at_s"].values(), out["trained"].values()):
+            for t, r in zip(times, marks):
+                starts[r] = min(starts.get(r, t), t)
+        order = sorted(starts)
+        ends = [starts[r] for r in order[1:]] + [out["wall_s"]]
+        return {r: e - starts[r] for r, e in zip(order, ends)}
+
+    journal = {}
+    for tag, out in runs.items():
+        m = out["server_metrics"] or {}
+        journal[tag] = dict(append_ms=_hist_mean(m, "resilience/journal_upload_ms"),
+                            append_bytes=_hist_mean(m, "resilience/journal_upload_bytes"),
+                            appends=(m.get("resilience/journal_upload_ms") or {}).get("count"),
+                            replay_ms=_hist_mean(m, "resilience/journal_replay_ms"))
+        print(f"  {card}: m1 {tag}: completed {out['completed']}, {out['restarts']} restart, "
+              f"MTTR {out['mttr_s']} s (killed at {out['killed_at_s']} s), salvaged "
+              f"{out['salvaged_uploads']} upload(s) of silos {out['salvaged_clients']} in "
+              f"round {out['resumed_round']}, trained {out['trained']}; round walls s "
+              f"{ {r: round(w, 3) for r, w in walls(out).items()} }; whole run "
+              f"{out['wall_s']} s; journal append {journal[tag]['append_ms']} ms for "
+              f"{journal[tag]['append_bytes']} B a {tag} upload (respawned server, "
+              f"{journal[tag]['appends']} appends), replay {journal[tag]['replay_ms']} ms; "
+              f"result {out['result']}", flush=True)
+    ident = runs["identity"]
+    loss, untrained = ident["result"]["test_loss"], ref["untrained_test_loss"]
+    print(f"  {card}: m1 digest {ident['digest']}, the uninterrupted in-process run's "
+          f"{ref['digest']} ({ref_s:.1f} s, result {ref['result']}); test loss untrained "
+          f"{untrained:.5f} -> {loss:.5f}", flush=True)
+    for tag, out in runs.items():
+        retrained = {c: out["trained"][str(c)].count(out["resumed_round"])
+                     for c in out["salvaged_clients"]}
+        if not (out["completed"] and out["restarts"] == 1 and out["salvaged_uploads"] >= 1
+                and out["resumed_round"] == DURABLE_KILL["round"]
+                and all(n == 1 for n in retrained.values())):
+            raise RuntimeError(f"m1 {tag}: the killed federation did not resume as "
+                               f"journaled: {out}")
+    if ident["digest"] != ref["digest"]:
+        raise RuntimeError(f"m1: the killed and resumed run's digest {ident['digest']} is "
+                           f"not the uninterrupted run's {ref['digest']}")
+    if not (math.isfinite(loss) and loss < untrained):
+        raise RuntimeError(f"m1: the test loss {loss} is not below the untrained "
+                           f"model's {untrained}")
+    return dict(runs={tag: {k: v for k, v in out.items() if k != "server_metrics"}
+                      for tag, out in runs.items()},
+                journal=journal, walls={tag: walls(out) for tag, out in runs.items()},
+                ref=ref, ref_s=ref_s, untrained_test_loss=untrained)
+
+
+def async_phase(card: str):
+    """Phase (m2): the async FedBuff server over LOCAL, its journal refill
+    held bit for bit, and an instant-apply run's checkpoint a version (see
+    the module doc)."""
+    import collections
+    import copy
+    import shutil
+    import tempfile
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.cross_silo.message_define import MyMessage
+    from fedml_tpu_torch.cross_silo.run_inproc import (
+        build_cross_silo_inproc,
+        run_managers_to_completion,
+    )
+    from fedml_tpu_torch.cross_silo.server.server import Server
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.models.model_hub import create
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_async_")
+
+    def args_for(tag, **train):
+        cfg = copy.deepcopy(ASYNC_CONFIG)
+        cfg["common_args"]["run_id"] = f"chip_smoke_async_{tag}"
+        cfg["train_args"].update(checkpoint_dir=os.path.join(work, tag), **train)
+        _reset_trust()
+        return fedml_tpu_torch.init(load_arguments_from_dict(cfg))
+
+    try:
+        args = args_for("run")
+        ds = load_federated(args)
+        model = create(args, ds.class_num)
+        server, clients = build_cross_silo_inproc(args, ds, model, "cuda")
+        mgr = server.manager
+        untrained = server.fedml_aggregator.test_on_server_for_all_clients(-1)["test_loss"]
+        uploads, flush_ms = [], []
+        handle, flush = mgr.handle_client_update, mgr._buffer.flush
+
+        def recorded_update(msg):
+            uploads.append(msg)
+            return handle(msg)
+
+        def timed_flush(version, global_params):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            out = flush(version, global_params)
+            end.record()
+            end.synchronize()
+            flush_ms.append(start.elapsed_time(end))
+            return out
+
+        mgr.handle_client_update = recorded_update
+        mgr._buffer.flush = timed_flush
+        t0 = time.perf_counter()
+        result = run_managers_to_completion([mgr] + [c.manager for c in clients],
+                                            args.run_id, MyMessage.MSG_TYPE_CONNECTION_IS_READY,
+                                            600)
+        wall = time.perf_counter() - t0
+        total = ASYNC_CONFIG["train_args"]["async_total_updates"]
+        k = ASYNC_CONFIG["train_args"]["async_buffer_size"]
+        if not (result["updates"] == total and result["flushes"] == total // k
+                and math.isfinite(result["test_loss"]) and result["test_loss"] < untrained):
+            raise RuntimeError(f"m2: the async run did not finish its budget in whole "
+                               f"flushes below the untrained loss {untrained}: {result}")
+        staleness = dict(sorted(collections.Counter(result["staleness"]).items()))
+        print(f"  {card}: m2 {total} updates in {wall:.2f} s = {total / wall:.3f} updates/s, "
+              f"{result['flushes']} flushes of {k}, flush ms (CUDA events) "
+              f"{[round(x, 3) for x in flush_ms]}, staleness histogram {staleness}, "
+              f"senders {result['senders']}; test loss untrained {untrained:.5f} -> "
+              f"{result['test_loss']:.5f}", flush=True)
+
+        # the journal refill: copies of the run's checkpoint directory (the
+        # last flush's version, an empty journal) for the interrupted and the
+        # uninterrupted server; 4 of the run's uploads, in order
+        contributions = uploads[-k:]
+        for tag in ("killed", "whole"):
+            shutil.copytree(os.path.join(work, "run"), os.path.join(work, tag))
+
+        def resumed_server(tag):
+            a = args_for(tag, resume=True)
+            srv = Server(a, "cuda", ds, model)
+            srv.manager.send_message = lambda m: None  # no clients listen
+            return srv.manager
+
+        first = resumed_server("killed")
+        for msg in contributions[:2]:
+            first.handle_client_update(msg)
+        journaled = len(first._journal.records())
+        del first  # abandoned mid-buffer: the crash
+        t0 = time.perf_counter()
+        second = resumed_server("killed")
+        refill_ms = (time.perf_counter() - t0) * 1e3
+        refilled = len(second._buffer)
+        for msg in contributions[2:]:
+            second.handle_client_update(msg)
+        whole = resumed_server("whole")
+        for msg in contributions:
+            whole.handle_client_update(msg)
+        got, want = (m.aggregator.get_global_model_params() for m in (second, whole))
+        same = all(torch.equal(got[key], want[key]) for key in want)
+        print(f"  {card}: m2 refill: {journaled} journal records after 2 buffered uploads; "
+              f"the restarted server refilled {refilled} in {refill_ms:.1f} ms (its "
+              f"construction), flushed at version {second.version} "
+              f"({second.flushes} flush): bit-identical to the uninterrupted flush: {same}",
+              flush=True)
+        if not (refilled == 2 and second.flushes == whole.flushes == 1
+                and second.version == whole.version and same):
+            raise RuntimeError(f"m2: the journal-refilled flush is not the uninterrupted one "
+                               f"(refilled {refilled}, flushes {second.flushes}/"
+                               f"{whole.flushes}, bit-identical {same})")
+        for m in (second, whole):
+            m.finish()
+
+        # instant apply: a checkpoint of every applied version
+        inst = args_for("instant", async_buffer_size=0,
+                        async_total_updates=ASYNC_INSTANT_UPDATES)
+        server, clients = build_cross_silo_inproc(inst, ds, model, "cuda")
+        saver = server.manager._ckpt
+        save, save_ms = saver.save, []
+
+        def timed_save(round_idx, state):
+            t = time.perf_counter()
+            out = save(round_idx, state)
+            save_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        saver.save = timed_save
+        inst_result = run_managers_to_completion(
+            [server.manager] + [c.manager for c in clients], inst.run_id,
+            MyMessage.MSG_TYPE_CONNECTION_IS_READY, 600)
+        if not (inst_result["versions"] == ASYNC_INSTANT_UPDATES
+                and len(save_ms) == ASYNC_INSTANT_UPDATES
+                and saver.latest_round() == ASYNC_INSTANT_UPDATES):
+            raise RuntimeError(f"m2: instant apply did not checkpoint every version: "
+                               f"{inst_result}, {len(save_ms)} saves")
+        print(f"  {card}: m2 instant apply: {ASYNC_INSTANT_UPDATES} versions, a checkpoint "
+              f"each in {[round(x, 1) for x in save_ms]} ms; test loss "
+              f"{inst_result['test_loss']:.5f}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        _reset_trust()
+    return dict(updates=total, wall_s=wall, updates_per_s=total / wall, flush_ms=flush_ms,
+                staleness=staleness, untrained_test_loss=untrained,
+                test_loss=result["test_loss"], refill_ms=refill_ms,
+                refill_bit_identical=same, checkpoint_ms=save_ms,
+                instant_test_loss=inst_result["test_loss"])
+
+
 def step_sum(results, key, rows=DECODE_ROWS):
     """One pass's total over its 225 launches at ``rows`` rows (None where
     a time was not measured)."""
@@ -3403,7 +3795,7 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="bcdefghijkl",
+    parser.add_argument("--phases", default="bcdefghijklm",
                         help="phases to run after (a), e.g. 'd' for the flash kernels "
                              "alone (default: all; only a full run prints the kernels "
                              "and ok lines)")
@@ -3417,6 +3809,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from fedml_tpu_torch.ops import flash_attention as fa  # fails outside the repo
+
+    share_stand_in_draws()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3444,7 +3838,7 @@ def main(argv=None) -> int:
               f"{info.get('stack')} bytes", flush=True)
 
     results = serve = flash = train = quantized = qlora = sp = cross_silo = trust = None
-    secure = checkpoints = None
+    secure = checkpoints = durable = None
     phase_s = {}
     parent_dequant = parent_fwd = None
     if opts.parent:
@@ -3537,13 +3931,21 @@ def main(argv=None) -> int:
               flush=True)
         checkpoints["l5"] = timed("l5", lambda: reconstruction_phase(card, ds))
         del ds
+    if "m" in phases:
+        print("(m1) the durable cross-silo server over the broker: a server and 2 silos as "
+              "processes, the server SIGKILLed in round 1 and respawned with resume; "
+              "identity, 2 rounds, then int8, 2 rounds", flush=True)
+        durable = dict(m1=timed("m1", lambda: durable_cross_silo(card)))
+        print("(m2) the async server over LOCAL: 4 silos, int8, FedBuff of 4, 8 updates, "
+              "a journal refill, then instant apply", flush=True)
+        durable["m2"] = timed("m2", lambda: async_phase(card))
     os.makedirs("results", exist_ok=True)
     record = {"card": card, "torch": torch.__version__, "build_s": build_s, "ptxas": ptxas,
               "shapes": results, "serve": serve, "flash": flash, "train": train,
               "quantized": quantized, "qlora": qlora, "sp": sp, "cross_silo": cross_silo,
               "trust": trust, "secure": secure, "checkpoints": checkpoints,
-              "phase_s": phase_s}
-    if sorted(phases) != list("bcdefghijkl"):
+              "durable": durable, "phase_s": phase_s}
+    if sorted(phases) != list("bcdefghijklm"):
         with open(os.path.join("results", "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
         print(f"phases {phases} passed (a partial run prints no kernels or ok line)")

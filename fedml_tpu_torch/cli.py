@@ -1,8 +1,20 @@
-"""Command line of the port (argparse; counterpart of the ``serve`` and
-``deploy broker`` commands of ``fedml_tpu/cli.py``).
+"""Command line of the port (argparse; counterpart of the ``serve``,
+``deploy broker`` and ``chaos`` commands of ``fedml_tpu/cli.py``).
 
     python -m fedml_tpu_torch.cli serve --model llama3_8b --quantize int8
     python -m fedml_tpu_torch.cli deploy broker --port 18923
+    python -m fedml_tpu_torch.cli chaos --kill-server --seed 7 --rounds 4
+
+``chaos`` runs a seeded fault scenario against a cross-silo federation and
+prints one JSON line (exit 1 unless it completed): message drop, duplicate
+and delay, a client killed for a round window, a rank's uploads corrupted,
+over an in-process federation (``resilience.run_chaos_scenario``); or with
+``--kill-server`` the server itself SIGKILLed mid-round and respawned by a
+supervisor, resuming from its write-ahead journal, the federation running
+as OS processes over the broker (``resilience.durability.
+run_recover_scenario``: MTTR, salvaged uploads, the final digest). It runs
+on ``--device`` (``cuda`` unless ``cpu`` is asked for). The scheduler
+tier's ``--drain`` and ``--agent-kill`` come with ROADMAP A13.
 
 ``deploy broker`` runs the federation's TCP pub/sub broker until
 interrupted; a cross-silo server and its clients
@@ -27,6 +39,7 @@ the port.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 from typing import List, Optional
@@ -69,7 +82,76 @@ def build_parser() -> argparse.ArgumentParser:
     broker.add_argument("--port", type=int, default=18923)
     broker.add_argument("--native", action="store_true",
                         help="the C++ epoll broker (not ported: ROADMAP A10.4)")
+    chaos = sub.add_parser("chaos", help="run a seeded chaos scenario against a "
+                                          "federation; prints one JSON line")
+    chaos.add_argument("--seed", type=int, default=0,
+                       help="chaos seed: fault decisions replay bit-identically")
+    chaos.add_argument("--rounds", type=int, default=5)
+    chaos.add_argument("--clients", type=int, default=3)
+    chaos.add_argument("--kill-rank", type=int, default=None,
+                       help="crash this client rank for a round window")
+    chaos.add_argument("--kill-round", type=int, default=2)
+    chaos.add_argument("--revive-round", type=int, default=None,
+                       help="round at which the killed client's network heals "
+                            "(default: kill-round + 1)")
+    chaos.add_argument("--drop", type=float, default=0.0, help="P(drop) per sent message")
+    chaos.add_argument("--duplicate", type=float, default=0.0,
+                       help="P(duplicate) per sent message")
+    chaos.add_argument("--delay-ms", type=float, default=0.0,
+                       help="injected send delay in milliseconds")
+    chaos.add_argument("--compression", default="", help="update codec (e.g. int8)")
+    chaos.add_argument("--secagg", default="", help="masked secure aggregation (int8)")
+    chaos.add_argument("--round-deadline-s", type=float, default=30.0)
+    chaos.add_argument("--round-quorum", type=float, default=2.0 / 3.0)
+    chaos.add_argument("--corrupt-rank", type=int, default=None,
+                       help="corrupt this rank's model uploads at --corrupt-round")
+    chaos.add_argument("--corrupt-round", type=int, default=1)
+    chaos.add_argument("--corrupt-mode", default="nan", choices=("nan", "scale"))
+    chaos.add_argument("--corrupt-factor", type=float, default=50.0)
+    chaos.add_argument("--integrity", action="store_true",
+                       help="arm the update-integrity rings")
+    chaos.add_argument("--agg-robust", default="",
+                       help="fused robust aggregation (trimmed_mean@0.1 | median)")
+    chaos.add_argument("--kill-server", action="store_true",
+                       help="SIGKILL the server mid-round (at --kill-round, after "
+                            "--after-uploads journaled uploads) and supervise its "
+                            "respawn with resume, as OS processes over the broker")
+    chaos.add_argument("--after-uploads", type=int, default=1)
+    chaos.add_argument("--drain", action="store_true",
+                       help="scheduler-tier node drain (not ported: ROADMAP A13)")
+    chaos.add_argument("--agent-kill", action="store_true",
+                       help="scheduler-tier agent kill (not ported: ROADMAP A13)")
+    chaos.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return parser
+
+
+def run_chaos(args: argparse.Namespace) -> dict:
+    """The ``chaos`` command's scenario; returns its JSON-safe summary."""
+    if args.drain or args.agent_kill:
+        raise NotImplementedError("chaos --drain / --agent-kill: scheduler-tier chaos "
+                                  "comes with the scheduler, ROADMAP A13")
+    if args.kill_server:
+        if args.secagg:
+            raise ValueError("--kill-server with secagg is a round-boundary abort by "
+                             "design (masks die with the session); run it without "
+                             "--secagg to measure mid-round salvage")
+        from fedml_tpu_torch.resilience.durability import run_recover_scenario
+
+        return run_recover_scenario(
+            seed=args.seed, rounds=args.rounds, clients=args.clients,
+            kill_round=args.kill_round, after_uploads=args.after_uploads,
+            compression=args.compression or "identity", device=args.device)
+    from fedml_tpu_torch.resilience import run_chaos_scenario
+
+    return run_chaos_scenario(
+        seed=args.seed, rounds=args.rounds, clients=args.clients,
+        kill_rank=args.kill_rank, kill_round=args.kill_round,
+        revive_round=args.revive_round, drop=args.drop, duplicate=args.duplicate,
+        delay_ms=args.delay_ms, compression=args.compression, secagg=args.secagg,
+        round_deadline_s=args.round_deadline_s, round_quorum=args.round_quorum,
+        corrupt_rank=args.corrupt_rank, corrupt_round=args.corrupt_round,
+        corrupt_mode=args.corrupt_mode, corrupt_factor=args.corrupt_factor,
+        integrity=args.integrity, agg_robust=args.agg_robust, device=args.device)
 
 
 def run_broker(args: argparse.Namespace) -> None:
@@ -129,6 +211,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "deploy":
         run_broker(args)
+    elif args.command == "chaos":
+        out = run_chaos(args)
+        print(json.dumps(out), flush=True)
+        return 0 if out["completed"] else 1
     elif args.command == "serve":
         engine, runner = build_endpoint(args)
         print(f"serving {args.model_size} on http://{args.host}:{runner.port} "

@@ -9,14 +9,21 @@ backoff, notes every sender's liveness, and records a raising handler in
 instead of hanging. The transports are ``LOCAL`` (in-process) and
 ``BROKER`` (TCP pub/sub with the object-store offload). ``GRPC``, ``TRPC``
 and ``MQTT_S3`` come with ROADMAP A10.4 and ``XLA_ICI``'s device
-collectives with the multi-GPU layer (A11): naming one raises. Spans, the
-flight recorder and the live telemetry plane are A12's; the registry
-counters keep the reference's names.
+collectives with the multi-GPU layer (A11): naming one raises. With
+``args.chaos`` a seeded :class:`~fedml_tpu_torch.resilience.ChaosInjector`
+sits at the reference's seam: it filters inbound delivery before the dedup,
+and on the way out corrupts a model payload in its window, then decides
+the copies (0 drops, 2 duplicates) and the delay. Its windows read the
+message's ``round`` header, else the manager's own ``round_idx`` (a client)
+or ``args.round_idx`` (the server). Spans, the flight recorder and the live
+telemetry plane are A12's; the registry counters keep the reference's
+names.
 """
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from itertools import count
 from typing import Any, Callable, Dict, Optional
 from uuid import uuid4
@@ -66,7 +73,10 @@ class FedMLCommManager(Observer):
         self._receive_thread: Optional[threading.Thread] = None
         self.handler_error: Optional[BaseException] = None
         self.resilience = ResilienceConfig(args)
-        chaos_from_args(args)
+        self._chaos = chaos_from_args(
+            args, self.rank,
+            round_provider=lambda: getattr(self, "round_idx",
+                                           getattr(self.args, "round_idx", None)))
         # itertools.count is atomic under the GIL: the deadline timer, the
         # heartbeat and the receive thread all send
         self._msg_id_prefix = f"{uuid4().hex[:8]}:{self.rank}:"
@@ -114,6 +124,10 @@ class FedMLCommManager(Observer):
         return self.rank
 
     def receive_message(self, msg_type: str, msg_params: Message) -> None:
+        # chaos: a partitioned or killed peer's in-flight messages must not
+        # leak through the cut
+        if self._chaos is not None and not self._chaos.on_deliver(msg_params):
+            return
         msg_id = msg_params.get(Message.MSG_ARG_KEY_MSG_ID)
         if msg_id is not None and self._deduper.seen(msg_id):
             self._m_dups.inc()
@@ -148,6 +162,19 @@ class FedMLCommManager(Observer):
 
             self._m_raw.inc(payload.raw_nbytes if isinstance(payload, CompressedTree)
                             else tree_nbytes(payload))
+
+        copies, delay_s = 1, 0.0
+        if self._chaos is not None:
+            # after the encode, before the wire
+            self._chaos.corrupt_payload(message)
+            copies, delay_s = self._chaos.on_send(message)
+        if delay_s > 0:
+            time.sleep(delay_s)
+        for _ in range(copies):
+            self._send_with_retry(message)
+
+    def _send_with_retry(self, message: Message) -> None:
+        """One transport send under the seeded backoff."""
 
         def on_retry(attempt: int, exc: BaseException) -> None:
             self._m_retries.inc()

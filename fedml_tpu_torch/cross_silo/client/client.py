@@ -31,3 +31,7 @@ class Client:
     def run(self):
         self.manager.run()
         return None
+
+    def run_async(self):
+        """The receive loop on a daemon thread (an in-process federation)."""
+        return self.manager.run_async()

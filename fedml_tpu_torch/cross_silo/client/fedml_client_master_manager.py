@@ -10,8 +10,10 @@ layout under ``derive_key(seed, round, rank)``, so the upload's wire arrays
 are the ones a JAX client would send. Without a codec the trained model
 goes up in the reference's message form (``models/convert.to_wire_params``).
 A client that missed rounds, or is re-synced after an eviction, drops its
-residual. The upload and status messages carry the reference's health
-fields (``ts``, ``mem_bytes`` from ``torch.cuda.memory_stats`` on the card,
+residual. Against the asynchronous server the round header is the model
+version the server handed back, and the upload is tagged with it (its
+staleness is the server's versions since). The upload and status messages
+carry the reference's health fields (``ts``, ``mem_bytes`` from ``torch.cuda.memory_stats`` on the card,
 ``train_ms``, ``train_loss``), ``local_steps`` and the round as Python
 numbers.
 

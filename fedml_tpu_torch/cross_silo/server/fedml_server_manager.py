@@ -50,10 +50,26 @@ newest restorable one, and a rolled-back round restores from the newest
 checkpoint before the round-open snapshot, as the reference's.
 Contribution assessment (``enable_contribution``) runs in the aggregator.
 
-Not ported yet, and refused when their arguments are set: FHE (A13), the
-durability journal and chaos (A10.3), and the live telemetry plane, spans
-and the flight recorder (A12). ``cross_silo/round_ms`` (broadcast to
-the test after aggregation) and the reference's ``resilience/*``,
+With ``durability: true`` (and ``checkpoint_dir``) a write-ahead round
+journal (``resilience/durability``) records every round-state transition
+as the reference does: the round's identity before its broadcast leaves,
+each admitted upload in its wire form (durable before it is applied), the
+quorum close, and the commit, which forces a checkpoint and resets the
+journal; a rolled-back round is journaled as terminal. A server restarted
+with ``resume: true`` replays the journal at construction and re-enters the
+interrupted round mid-flight: the salvaged uploads go back into the
+aggregator (their msg ids prime the dedup, so a late copy drops), only the
+rest of the cohort gets the round's broadcast again, and a round that had
+closed closes again at once. A masked (secagg) round cannot resume: its
+salvaged uploads are dropped loudly (``secagg/resume_aborts``) and the round
+restarts from the checkpoint. ``chaos: {kill_server: ...}`` (or
+``FEDML_CHAOS_KILL_SERVER``) SIGKILLs the server after the chosen journaled
+upload, and needs the journal.
+
+Not ported yet, and refused when their arguments are set: FHE (A13) and the
+live telemetry plane, spans and the flight recorder (A12).
+``cross_silo/round_ms`` (broadcast to the test after aggregation), the
+journal's append and replay times, and the reference's ``resilience/*``,
 ``integrity/*`` and ``secagg/*`` counters go to the port's metrics
 registry.
 """
@@ -102,6 +118,7 @@ from fedml_tpu_torch.resilience import (
     adaptive_deadline_s,
     journal_from_args,
     quorum_size,
+    salvage_round,
 )
 from fedml_tpu_torch.telemetry import get_registry
 
@@ -155,8 +172,6 @@ class FedMLServerManager(FedMLCommManager):
                  client_rank: int = 0, client_num: int = 0,
                  backend: str = COMM_BACKEND_LOCAL, device: DeviceLike = "cpu"):
         refuse_unported(args, _NOT_PORTED)
-        journal_from_args(args)
-        ServerKillWindow.from_args(args)
         super().__init__(args, comm, client_rank, client_num + 1, backend, device)
         self.aggregator = aggregator
         self.round_num = int(getattr(args, "comm_round", 1))
@@ -205,6 +220,18 @@ class FedMLServerManager(FedMLCommManager):
             self._check_secagg_compat()
             self.aggregator.set_secagg(self._secagg)
 
+        # crash-anywhere durability (parity: fedml_server_manager.py:141-195)
+        self._journal = journal_from_args(args)
+        self._kill_window = ServerKillWindow.from_args(args)
+        if self._kill_window is not None and self._journal is None:
+            # the kill would lose every received upload unrecoverably
+            raise ValueError("chaos kill_server needs durability: true — the kill window "
+                             "fires after uploads are journaled, and recovery replays "
+                             "that journal")
+        self._salvaged = None
+        if self._journal is not None and bool(getattr(args, "resume", False)):
+            self._salvaged = self._replay_journal()
+
         # the integrity rings (parity: fedml_server_manager.py:197-262)
         self._agg_robust = resolve_agg_robust(args, codec=self._codec)
         icfg = IntegrityConfig.from_args(args)
@@ -245,6 +272,32 @@ class FedMLServerManager(FedMLCommManager):
         self._screened_out: set = set()
         # ring 3's restore point: the round-open state
         self._pre_round_state: Optional[dict] = None
+
+    def _replay_journal(self):
+        """The journal's open round, if it is the one the checkpoint resumes
+        at and it is not masked; anything else is reset away."""
+        reg = get_registry()
+        t0 = time.perf_counter()
+        records = self._journal.records(device=self.aggregator.device)
+        if not records:
+            return None
+        reg.counter("resilience/restarts").inc()
+        sal = salvage_round(records, int(self.args.round_idx))
+        if sal is not None and sal.secagg:
+            # the pairwise masks died with the session: the salvaged masked
+            # uploads can never unmask, so the round restarts from the
+            # checkpoint boundary, loudly
+            reg.counter("secagg/resume_aborts").inc()
+            logger.error("secagg round %d cannot resume mid-round after a restart (masks "
+                         "are irrecoverable without the session): dropping %d journaled "
+                         "masked upload(s) and restarting the round from the checkpoint "
+                         "boundary", sal.round_idx, len(sal.uploads))
+            sal = None
+        if sal is None:
+            self._journal.reset()  # stale records: the checkpoint covers them
+        reg.histogram("resilience/journal_replay_ms").observe(
+            (time.perf_counter() - t0) * 1e3)
+        return sal
 
     def _check_secagg_compat(self) -> None:
         """A masked round never exposes one client's model, so every trust
@@ -328,6 +381,7 @@ class FedMLServerManager(FedMLCommManager):
             self._completing = False
             self._screened_out = set()
             cohort = list(self.client_id_list_in_this_round)
+        self._journal_round_open()
         self._send_round_config(cohort, payload, sa_header, init)
         self._arm_round_deadline()
 
@@ -393,6 +447,11 @@ class FedMLServerManager(FedMLCommManager):
                 self._send_finish()
                 self.finish()
                 return
+            with self._round_lock:
+                salvaged = self._salvaged is not None
+            if salvaged:
+                self._resume_salvaged_round()
+                return
             self._select_round_clients()
             self.send_init_msg()
 
@@ -429,7 +488,7 @@ class FedMLServerManager(FedMLCommManager):
 
     def handle_message_receive_model_from_client(self, msg: Message) -> None:
         sender = msg.get_sender_id()
-        model_params = msg.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS)
+        model_params = wire = msg.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS)
         msg_round = msg.get(MyMessage.MSG_ARG_KEY_ROUND)
         missing = None
         screened = None
@@ -462,11 +521,20 @@ class FedMLServerManager(FedMLCommManager):
                     if sent:
                         self._latency.observe(sender, self.args.round_idx,
                                               time.time() - sent)
+                    if self._journal is not None:
+                        # durable before it is applied, in its wire form
+                        self._journal_upload(msg, sender, wire)
                     self.aggregator.add_local_trained_result(
                         cohort.index(sender), model_params,
                         msg.get(MyMessage.MSG_ARG_KEY_NUM_SAMPLES),
                         local_steps=msg.get("local_steps"))
                 missing = self._try_close_round(cohort)
+        if (self._kill_window is not None and not stale and invalid is None
+                and screened is None):
+            # the chaos seam: after the upload is journaled, so exactly this
+            # upload is salvaged and never retrained
+            self._kill_window.maybe_kill(int(self.args.round_idx),
+                                         self.aggregator.n_received())
         if invalid is not None:
             get_registry().counter("secagg/invalid_uploads").inc()
             logger.warning("dropping invalid masked upload from client %s: %s", sender,
@@ -539,6 +607,12 @@ class FedMLServerManager(FedMLCommManager):
         missing_idx = self.aggregator.close_round_quorum(expected)
         self._round_closed = True
         self._deadline.cancel()
+        if self._journal is not None:
+            # a replay of a closed, uncommitted round closes on exactly this
+            # missing set; not synced: a lost marker only re-closes the round
+            self._journal.append("quorum_close", durable=False,
+                                 round=int(self.args.round_idx),
+                                 missing=[int(i) for i in missing_idx])
         return [cohort[i] for i in missing_idx]
 
     def _on_round_deadline(self, round_idx: int) -> None:
@@ -737,10 +811,17 @@ class FedMLServerManager(FedMLCommManager):
                 return
             self._guard.accept(metrics.get("test_loss"))
         self._m_round_ms.observe((time.perf_counter() - self._round_t0) * 1e3)
-        # after ring 3: a rejected round never becomes durable
-        if self._ckpt is not None and should_save(self.args, self.args.round_idx):
+        # after ring 3: a rejected round never becomes durable. The journal
+        # resets at every commit, so under durability every commit is
+        # checkpoint-backed, whatever checkpoint_frequency says
+        if self._ckpt is not None and (self._journal is not None
+                                       or should_save(self.args, self.args.round_idx)):
             self._ckpt.save(self.args.round_idx,
                             self._round_state(self.args.round_idx + 1, global_params))
+        if self._journal is not None:
+            self._journal.append("aggregate_committed", durable=False,
+                                 round=int(self.args.round_idx))
+            self._journal.reset()
         self.args.round_idx += 1
         if self.args.round_idx >= self.round_num:
             # the last close can come from the receive thread (all uploads
@@ -815,10 +896,95 @@ class FedMLServerManager(FedMLCommManager):
                 logger.warning("rollback suspects %s cover every remaining client — "
                                "re-running unquarantined (bounded by max_rollbacks)",
                                suspects)
+        if self._journal is not None:
+            # the rolled-back round's uploads must never be salvaged
+            self._journal.append("round_rolled_back", round=round_idx, reason=str(reason),
+                                 suspects=[int(c) for c in suspects])
+            self._journal.reset()
         logger.warning("round %d rolled back to %s; suspects %s — re-running the round "
                        "with a fresh cohort", round_idx, restored_from, suspects)
         self._select_round_clients()
         self._open_round(self.aggregator.get_global_model_params(), init=False)
+
+    # -- durability: the write-ahead journal and the mid-round replay ---------
+    def _journal_round_open(self) -> None:
+        """The round's identity, durable before any broadcast leaves: a crash
+        at any later instant replays into this round with this cohort."""
+        if self._journal is None:
+            return
+        with self._round_lock:
+            cohort = list(self.client_id_list_in_this_round or [])
+            silo = dict(self.data_silo_index_of_client or {})
+        self._journal.append(
+            "round_open", round=int(self.args.round_idx), cohort=[int(c) for c in cohort],
+            silo_index={int(k): int(v) for k, v in silo.items()},
+            seed=int(getattr(self.args, "random_seed", 0)),
+            codec=self._codec.spec if self._codec is not None else None,
+            secagg=self._secagg is not None)
+
+    def _journal_upload(self, msg: Message, sender: int, wire) -> None:
+        """One admitted upload, as it crossed the wire, fsynced."""
+        t0 = time.perf_counter()
+        nbytes = self._journal.append(
+            "upload_received", round=int(self.args.round_idx), client=int(sender),
+            msg_id=msg.get(Message.MSG_ARG_KEY_MSG_ID),
+            n_samples=int(msg.get(MyMessage.MSG_ARG_KEY_NUM_SAMPLES) or 1),
+            local_steps=msg.get("local_steps"), payload=wire)
+        reg = get_registry()
+        reg.histogram("resilience/journal_upload_ms").observe((time.perf_counter() - t0) * 1e3)
+        reg.histogram("resilience/journal_upload_bytes").observe(nbytes)
+
+    def _resume_salvaged_round(self) -> None:
+        """Re-enter the journaled round after a restart (parity:
+        fedml_server_manager.py:1262-1331): the salvaged uploads go straight
+        into the aggregator (those clients never retrain; a resend of the
+        same logical message drops on the primed dedup), and only the clients
+        whose uploads died with the old process get the round's broadcast
+        again: they retrain the same seeded round, so an identity-codec run
+        stays bit-identical. A round that had closed closes again at once."""
+        with self._round_lock:
+            sal, self._salvaged = self._salvaged, None
+        cohort = list(sal.cohort)
+        self._round_t0 = time.perf_counter()
+        self._capture_round_state()
+        with self._round_lock:
+            self.client_id_list_in_this_round = cohort
+            self.data_silo_index_of_client = dict(sal.silo_index)
+            self._round_closed = False
+            # a pre-crash quorum close replays as an expired deadline
+            self._deadline_expired = sal.closed
+            self._deadline_extensions_used = 0
+            self._completing = False
+            self._screened_out = set()
+        # the same params under the same seeded encode key: the delta base
+        # matches what the clients decoded before the crash
+        payload = self._broadcast_payload(self.aggregator.get_global_model_params())
+        for u in sal.uploads:
+            mid = u.get("msg_id")
+            if mid:
+                self._deduper.seen(mid)
+            upload = u.get("payload")
+            if not isinstance(upload, CompressedTree):
+                upload = from_wire_params(upload, self.device)
+            self.aggregator.add_local_trained_result(
+                cohort.index(int(u["client"])), upload, int(u.get("n_samples") or 1),
+                local_steps=u.get("local_steps"))
+        reg = get_registry()
+        reg.counter("resilience/journal_replays").inc()
+        reg.counter("resilience/journal_salvaged").inc(len(sal.uploads))
+        logger.warning("restart: journal replay re-entered round %d mid-flight with %d/%d "
+                       "salvaged upload(s)%s", sal.round_idx, len(sal.uploads), len(cohort),
+                       " (round already quorum-closed)" if sal.closed else "")
+        uploaded = set(sal.uploaded_clients)
+        to_broadcast = [c for c in cohort if c not in uploaded]
+        if not sal.closed and to_broadcast:
+            self._send_round_config(to_broadcast, payload, self._secagg_round_header(),
+                                    init=True)
+            self._arm_round_deadline()
+        with self._round_lock:
+            missing = self._try_close_round(cohort)
+        if missing is not None:
+            self._finish_round(missing)
 
     # -- resilience -----------------------------------------------------------
     def _probe_evicted(self, client_ids: List[int]) -> None:
@@ -878,4 +1044,6 @@ class FedMLServerManager(FedMLCommManager):
             self._finished_once = True
         self._deadline.cancel()
         self._recovery_deadline.cancel()
+        if self._journal is not None:
+            self._journal.close()
         super().finish()

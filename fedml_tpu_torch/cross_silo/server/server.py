@@ -1,17 +1,17 @@
 """Cross-silo Server facade — counterpart of
 ``fedml_tpu/cross_silo/server/server.py``: the aggregator, the initial
 global model on the server's device, and the server FSM — the Bonawitz
-SecAgg FSM under ``secure_aggregation: true`` (``cross_silo/secagg``),
-else the synchronous one (which runs ``secagg: int8`` itself).
-
-The asynchronous server (``async_aggregation`` / ``AsyncFedAvg``) comes
-with ROADMAP A10.3: asking for it raises.
+SecAgg FSM under ``secure_aggregation: true`` (``cross_silo/secagg``), the
+asynchronous FedAsync/FedBuff one under ``async_aggregation`` or
+``federated_optimizer: AsyncFedAvg`` (``async_server_manager``), else the
+synchronous one (which runs ``secagg: int8`` itself).
 """
 from __future__ import annotations
 
 from typing import Any
 
 from fedml_tpu_torch.core.distributed.fedml_comm_manager import COMM_BACKEND_LOCAL
+from fedml_tpu_torch.cross_silo.server.async_server_manager import AsyncFedMLServerManager
 from fedml_tpu_torch.cross_silo.server.fedml_aggregator import FedMLAggregator
 from fedml_tpu_torch.cross_silo.secagg.sa_server_manager import SAServerManager
 from fedml_tpu_torch.cross_silo.server.fedml_server_manager import FedMLServerManager
@@ -28,12 +28,9 @@ def comm_backend(args: Any) -> str:
     return COMM_BACKEND_LOCAL if backend.lower() in ("sp", "mesh") else backend
 
 
-def refuse_async(args: Any) -> None:
-    if bool(getattr(args, "async_aggregation", False)) or (
-            str(getattr(args, "federated_optimizer", "")) == "AsyncFedAvg"):
-        raise NotImplementedError(
-            "async_aggregation / AsyncFedAvg: the asynchronous server comes with "
-            "ROADMAP A10.3")
+def use_async(args: Any) -> bool:
+    return bool(getattr(args, "async_aggregation", False)) or (
+        str(getattr(args, "federated_optimizer", "")) == "AsyncFedAvg")
 
 
 def build_aggregator(args: Any, dev, dataset: FederatedDataset, model: Any,
@@ -55,14 +52,17 @@ def build_aggregator(args: Any, dev, dataset: FederatedDataset, model: Any,
 class Server:
     def __init__(self, args: Any, device: DeviceLike, dataset: FederatedDataset,
                  model: Any, server_aggregator=None):
-        refuse_async(args)
         self.args = args
         dev = resolve_device(device)
         client_num = int(getattr(args, "client_num_per_round", 1))
         self.fedml_aggregator = build_aggregator(args, dev, dataset, model,
                                                  server_aggregator)
-        manager_cls = (SAServerManager if getattr(args, "secure_aggregation", False)
-                       else FedMLServerManager)
+        if getattr(args, "secure_aggregation", False):
+            manager_cls = SAServerManager
+        elif use_async(args):
+            manager_cls = AsyncFedMLServerManager
+        else:
+            manager_cls = FedMLServerManager
         self.manager = manager_cls(args, self.fedml_aggregator, client_rank=0,
                                    client_num=client_num, backend=comm_backend(args),
                                    device=dev)
@@ -70,3 +70,7 @@ class Server:
     def run(self):
         self.manager.run()
         return self.manager.result
+
+    def run_async(self):
+        """The receive loop on a daemon thread (an in-process federation)."""
+        return self.manager.run_async()

@@ -28,6 +28,7 @@ SCAFFOLD's correction), as the reference's program computes it.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -197,20 +198,36 @@ def build_optimizer(args: Any) -> Chain:
     return Chain(*chain)
 
 
+# the TF32 flags are process-wide: trainers on threads of one process (the
+# in-process federations) share one save and restore, made by the first to
+# enter and the last to leave
+_FP32_LOCK = threading.Lock()
+_FP32_STATE = {"depth": 0, "saved": None}
+
+
 @contextlib.contextmanager
 def fp32_precision(device: torch.device):
     """Run convolutions and matmuls on the card in full FP32, TF32 off: the
     simulation's rounds are held to the CPU and to the reference, and TF32
-    would round every product's inputs to 10 bits. Restores the flags."""
+    would round every product's inputs to 10 bits. Restores the flags once
+    no trainer of the process is inside."""
     if torch.device(device).type != "cuda":
         yield
         return
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    with _FP32_LOCK:
+        if _FP32_STATE["depth"] == 0:
+            _FP32_STATE["saved"] = (torch.backends.cudnn.allow_tf32,
+                                    torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        _FP32_STATE["depth"] += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        with _FP32_LOCK:
+            _FP32_STATE["depth"] -= 1
+            if _FP32_STATE["depth"] == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _FP32_STATE["saved"]
 
 
 def build_local_fn(apply_fn: Callable, args: Any) -> Callable:

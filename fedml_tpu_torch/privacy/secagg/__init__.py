@@ -20,7 +20,7 @@ Masks cancel exactly in integer arithmetic (mod ``2^k``), so the aggregate
 equals the never-masked sum bit for bit; the wire carries one mask-domain
 word per element. Trees are in the reference's layout and leaf order. The
 per-edge-cohort mode (``hierarchy.py``) comes with the aggregation tree,
-ROADMAP A10.3.
+ROADMAP A10.3c.
 """
 from fedml_tpu_torch.privacy.secagg.codec import (
     WIRE_VERSION_MASKED,

@@ -1,16 +1,42 @@
-"""Fault tolerance — counterpart of ``fedml_tpu/resilience``: the parts the
-cross-silo comm and server managers use. Retry with deterministic jitter
-(:mod:`policy`), receiver-side dedup (:mod:`dedup`), peer liveness
-(:mod:`liveness`) and round deadlines with quorum (:mod:`quorum`).
+"""Fault tolerance — counterpart of ``fedml_tpu/resilience``.
 
-The chaos injector, the server-kill window and the durability journal are
-the reference's too, but come with a later part of the port (ROADMAP
-A10.3): the functions below return None while no argument asks for them
-and raise when one does.
+- :mod:`policy` — retry with deterministic jitter and the per-run
+  :class:`ResilienceConfig`;
+- :mod:`dedup` — receiver-side :class:`MessageDeduper`, so a resend is
+  applied once;
+- :mod:`liveness` — :class:`PeerLiveness`, last-seen tracking with
+  eviction;
+- :mod:`quorum` — :class:`RoundDeadline` and :func:`quorum_size`;
+- :mod:`chaos` — :class:`ChaosInjector`, the seeded fault injector at the
+  comm boundary (drop, delay, duplicate, kill or partition ranks for a
+  round window, corrupt a rank's model), and :class:`ServerKillWindow`
+  (SIGKILL the server mid-round);
+- :mod:`durability` — the write-ahead round journal (:class:`RoundJournal`)
+  whose replay lets a killed server re-enter the interrupted round with
+  every upload it had received.
+
+The scheduler tier's chaos (``AgentKillWindow``, ``NodeDrain``) raises,
+naming ROADMAP A13. Counters land in the ``resilience/*`` namespace of the
+port's registry.
 """
-from typing import Any, Optional
-
+from fedml_tpu_torch.resilience.chaos import (
+    AgentKillWindow,
+    ChaosInjector,
+    CorruptUpdateWindow,
+    NaNWindow,
+    NodeDrain,
+    ServerKillWindow,
+    chaos_from_args,
+    corrupt_model_payload,
+    run_chaos_scenario,
+)
 from fedml_tpu_torch.resilience.dedup import MessageDeduper
+from fedml_tpu_torch.resilience.durability import (
+    RoundJournal,
+    SalvagedRound,
+    journal_from_args,
+    salvage_round,
+)
 from fedml_tpu_torch.resilience.liveness import PeerLiveness
 from fedml_tpu_torch.resilience.policy import (
     ResilienceConfig,
@@ -23,49 +49,26 @@ from fedml_tpu_torch.resilience.quorum import (
     quorum_size,
 )
 
-
-def chaos_from_args(args: Any) -> None:
-    """The reference's chaos injector for ``args.chaos``: refused."""
-    if getattr(args, "chaos", None):
-        raise NotImplementedError(
-            "chaos: fault injection comes with the durability journal "
-            "(ROADMAP A10.3); the port has not ported it yet")
-    return None
-
-
-def journal_from_args(args: Any) -> None:
-    """The reference's write-ahead round journal (``durability: true``):
-    refused."""
-    if getattr(args, "durability", False):
-        raise NotImplementedError(
-            "durability: the write-ahead round journal comes with ROADMAP "
-            "A10.3; the port has not ported it yet")
-    return None
-
-
-class ServerKillWindow:
-    """The reference's seeded server-kill window (``chaos: kill_server``)."""
-
-    @staticmethod
-    def from_args(args: Any) -> Optional["ServerKillWindow"]:
-        chaos = getattr(args, "chaos", None)
-        if isinstance(chaos, dict) and "kill_server" in chaos:
-            raise NotImplementedError(
-                "chaos kill_server comes with the durability journal "
-                "(ROADMAP A10.3); the port has not ported it yet")
-        return None
-
-
 __all__ = [
+    "AgentKillWindow",
+    "ChaosInjector",
+    "CorruptUpdateWindow",
     "MessageDeduper",
+    "NaNWindow",
+    "NodeDrain",
     "PeerLiveness",
     "ResilienceConfig",
     "RetryPolicy",
     "RoundDeadline",
+    "RoundJournal",
+    "SalvagedRound",
     "ServerKillWindow",
     "adaptive_deadline_s",
     "chaos_from_args",
+    "corrupt_model_payload",
     "journal_from_args",
     "quorum_size",
+    "run_chaos_scenario",
+    "salvage_round",
     "transient_exceptions",
 ]

@@ -1,7 +1,8 @@
 """FedMLRunner — counterpart of ``fedml_tpu/runner.py`` for the training
 types the port has: ``simulation`` and ``cross_silo`` (the server for
-``role: server`` or rank 0, else a client). Hierarchical cross-silo comes
-with ROADMAP A10.3, cross-cloud with A10.4 and cross-device with A13."""
+``role: server`` or rank 0, else a client; the server is the asynchronous one
+under ``async_aggregation``). Hierarchical cross-silo comes with ROADMAP
+A10.3c, cross-cloud with A10.4 and cross-device with A13."""
 from __future__ import annotations
 
 from typing import Any
@@ -21,7 +22,7 @@ class FedMLRunner:
             if str(getattr(args, "scenario", "horizontal")) == "hierarchical":
                 raise NotImplementedError(
                     "scenario 'hierarchical': hierarchical cross-silo comes with "
-                    "ROADMAP A10.3")
+                    "ROADMAP A10.3c")
             is_server = (str(getattr(args, "role", "client")) == "server"
                          or int(getattr(args, "rank", 0)) == 0)
             if is_server:

@@ -182,6 +182,11 @@ class MetricsRegistry:
                   buckets: Optional[Tuple[float, ...]] = None) -> Histogram:
         return self._get(Histogram, name, labels, buckets=buckets)
 
+    def total(self, name: str) -> float:
+        """A counter's value summed over all its label sets (0 when none)."""
+        return float(sum(m.value for m in self._items()
+                         if m.name == name and isinstance(m, Counter)))
+
     def _items(self) -> List:
         with self._lock:
             return sorted(self._metrics.values(), key=lambda m: m.name)

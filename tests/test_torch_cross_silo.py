@@ -389,11 +389,15 @@ REFUSALS = {
     "differential privacy": ({"enable_dp": True}, 1, None),
     "FHE": ({"enable_fhe": True}, 0, r"A13"),
     "contribution": ({"enable_contribution": True}, 0, None),
-    "async server": ({"async_aggregation": True}, 0, r"A10\.3"),
-    "AsyncFedAvg": ({"federated_optimizer": "AsyncFedAvg"}, 0, r"A10\.3"),
-    "hierarchical scenario": ({"scenario": "hierarchical"}, 0, r"A10\.3"),
-    "chaos": ({"chaos": {"drop": 0.1}}, 1, r"A10\.3"),
-    "durability journal": ({"durability": True}, 0, r"A10\.3"),
+    "async server": ({"async_aggregation": True}, 0, None),
+    "AsyncFedAvg": ({"federated_optimizer": "AsyncFedAvg"}, 0, None),
+    "hierarchical scenario": ({"scenario": "hierarchical"}, 0, r"A10\.3c"),
+    "chaos": ({"chaos": {"drop": 0.1}}, 1, None),
+    "durability journal": ({"durability": True}, 0, (ValueError, "needs checkpoint_dir")),
+    "durability with checkpoint_dir": ({"durability": True, "checkpoint_dir": "<tmp>"}, 0,
+                                       None),
+    "kill_server without durability": ({"chaos": {"kill_server": {"round": 1}}}, 0,
+                                        (ValueError, "needs durability")),
     "GRPC": ({"comm_backend": "GRPC"}, 0, r"A10\.4"),
     "TRPC": ({"comm_backend": "TRPC"}, 1, r"A10\.4"),
     "MQTT_S3": ({"comm_backend": "MQTT_S3"}, 0, r"A10\.4"),

@@ -785,3 +785,73 @@ def test_host_loop_round_checkpoint_reloads_on_cuda(tmp_path):
     fresh.load_checkpoint(str(tmp_path / "round_0"))
     x, y = api.dataset.test_data_global
     assert fresh.evaluate(x[:2], y[:2])["eval_loss"] == out["test_loss"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("payload", ["int8", "identity", "plain"])
+def test_journaled_cuda_upload_salvages_bit_for_bit(tmp_path, payload):
+    """One upload of card tensors is journaled (staged to host bytes, fsynced),
+    read back onto the card and salvaged: the same bits, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch.compression import CompressedTree, derive_key, get_codec
+    from fedml_tpu_torch.models.convert import to_reference_layout, to_wire_params
+    from fedml_tpu_torch.resilience.durability import RoundJournal, salvage_round
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tree = {"params/Conv_0/kernel": torch.randn(8, 3, 3, 3, device="cuda", generator=gen),
+            "params/Dense_0/kernel": torch.randn(10, 32, device="cuda", generator=gen),
+            "params/Dense_0/bias": torch.randn(10, device="cuda", generator=gen)}
+    if payload == "plain":
+        wire = to_wire_params(tree)
+    else:
+        wire = get_codec(payload).encode(to_reference_layout(tree),
+                                         key=derive_key(0, 1, 2), is_delta=True)
+    j = RoundJournal(str(tmp_path / "server_round.journal"))
+    j.append("round_open", round=1, cohort=[1, 2], silo_index={1: 0, 2: 1}, seed=0,
+             codec=None, secagg=False)
+    j.append("upload_received", round=1, client=2, msg_id="m:2:1", n_samples=40,
+             local_steps=None, payload=wire)
+    j.close()
+    sal = salvage_round(RoundJournal(j.path).records(device="cuda"), 1)
+    assert sal.uploaded_clients == [2]
+    got = sal.uploads[0]["payload"]
+    if payload == "plain":
+        for k in ("Conv_0", "Dense_0"):
+            for leaf, want in wire["params"][k].items():
+                g = got["params"][k][leaf]
+                assert g.device.type == "cuda" and torch.equal(g, want)
+    else:
+        assert isinstance(got, CompressedTree) and got.structure == wire.structure
+        for pg, pw in zip(got.arrays, wire.arrays):
+            for g, w in zip(pg, pw):
+                assert g.device.type == "cuda" and torch.equal(g, w)
+
+
+@pytest.mark.requires_cuda
+def test_async_fedbuff_federation_on_cuda():
+    """The async server with FedBuff (K=3) and int8 deltas, in process on the
+    card: the budget in whole-buffer flushes, and a loss below the cold one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.cross_silo.run_inproc import run_cross_silo_inproc
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.models.model_hub import create
+
+    args = fedml_tpu_torch.init(load_arguments_from_dict({
+        "common_args": {"training_type": "cross_silo", "random_seed": 0,
+                        "run_id": "cuda_fedbuff"},
+        "data_args": {"dataset": "synthetic", "train_size": 400, "test_size": 100,
+                      "class_num": 4, "feature_dim": 12},
+        "model_args": {"model": "lr"},
+        "train_args": {"federated_optimizer": "FedAvg", "async_aggregation": True,
+                       "async_total_updates": 9, "async_buffer_size": 3,
+                       "compression": "int8", "client_num_in_total": 3,
+                       "client_num_per_round": 3, "comm_round": 3, "epochs": 1,
+                       "batch_size": 32, "learning_rate": 0.3}}))
+    ds = load_federated(args)
+    res = run_cross_silo_inproc(args, ds, create(args, ds.class_num), timeout=120)
+    assert res["updates"] == 9 and res["flushes"] == 3
+    assert res["test_loss"] < 1.0, res

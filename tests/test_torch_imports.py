@@ -178,6 +178,24 @@ def test_secagg_slice_modules_are_scanned(module):
     assert module in PORT_MODULES
 
 
+@pytest.mark.parametrize("module", [
+    "fedml_tpu_torch.resilience.chaos",
+    "fedml_tpu_torch.resilience.durability",
+    "fedml_tpu_torch.resilience.durability.journal",
+    "fedml_tpu_torch.resilience.durability.recover",
+    "fedml_tpu_torch.scheduler",
+    "fedml_tpu_torch.scheduler.supervision",
+    "fedml_tpu_torch.hierarchy",
+    "fedml_tpu_torch.hierarchy.fedbuff",
+    "fedml_tpu_torch.cross_silo.server.async_server_manager",
+])
+def test_durability_and_async_slice_modules_are_scanned(module):
+    """The durability, chaos and async slice's modules (the journal, the
+    injector, the kill-and-respawn runner and its supervision policy,
+    FedBuff, the async server) are among those both scans cover."""
+    assert module in PORT_MODULES
+
+
 def _refusal(case):
     import types
 

@@ -29,12 +29,12 @@ from fedml_tpu.resilience.chaos import corrupt_model_payload
 from fedml_tpu.telemetry import get_registry as jregistry
 from fedml_tpu_torch import compression as tc
 from fedml_tpu_torch import integrity as ti
-from fedml_tpu_torch.compression.codecs import _is_float_meta
 from fedml_tpu_torch.core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
 from fedml_tpu_torch.core.security.attacker import FedMLAttacker
 from fedml_tpu_torch.core.security.defender import FedMLDefender
 from fedml_tpu_torch.integrity.robust_agg import masked_robust_leaf, trim_k
 from fedml_tpu_torch.ml.aggregator.agg_operator import FedMLAggOperator as TAgg
+from fedml_tpu_torch.resilience import chaos as tchaos
 from fedml_tpu_torch.telemetry import get_registry as tregistry
 
 LEAVES = (("w", (8, 6)), ("b", (6,)), ("k", (3, 3, 2, 4)))
@@ -75,23 +75,9 @@ def _encode_pair(codec, flat, cid, seed=0):
             tc.get_codec(codec).encode(_tt(flat), key=key_t, is_delta=True))
 
 
-def port_corrupt(ct, mode, factor=50.0):
-    """The reference's ``corrupt_model_payload`` on a port wire tree: NaN into
-    the first float leaf's scale (or first value), or every float part
-    scaled."""
-    arrays = [[p.clone() for p in parts] for parts in ct.arrays]
-    for (dt, _), parts in zip(ct.meta, arrays):
-        if not _is_float_meta(dt):
-            continue
-        if mode == "nan":
-            k = 1 if len(parts) > 1 else 0
-            parts[k].reshape(-1)[0] = float("nan")
-            break
-        for k, p in enumerate(parts):
-            if p.is_floating_point():
-                parts[k] = p * np.float32(factor)
-    return tc.CompressedTree(ct.codec, ct.version, ct.is_delta, ct.raw_nbytes, ct.meta,
-                             ct.structure, arrays)
+# the reference's ``corrupt_model_payload`` on a port wire tree: the port's
+# own, in ``resilience.chaos``
+port_corrupt = tchaos.corrupt_model_payload
 
 
 def _plant(ct, jax_side, leaf, value):

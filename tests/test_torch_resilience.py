@@ -180,12 +180,25 @@ def test_send_retries_a_transient_failure_with_the_same_id():
         mgr.send_message(Message("X", 1, 0))
 
 
-def test_unported_resilience_options_raise_naming_their_item():
-    assert T.chaos_from_args(types.SimpleNamespace()) is None
+def test_unported_resilience_options_raise_naming_their_item(tmp_path):
+    """The journal, chaos and the server-kill window are ported: each is
+    None without its argument and builds with it (the journal refuses a
+    missing checkpoint_dir, as the reference does); the scheduler tier's
+    chaos still raises, naming its item."""
+    assert T.chaos_from_args(types.SimpleNamespace(), 0) is None
     assert T.journal_from_args(types.SimpleNamespace()) is None
     assert T.ServerKillWindow.from_args(types.SimpleNamespace()) is None
-    for fn, args in [(T.chaos_from_args, {"chaos": {"drop": 0.1}}),
-                     (T.journal_from_args, {"durability": True}),
-                     (T.ServerKillWindow.from_args, {"chaos": {"kill_server": {}}})]:
-        with pytest.raises(NotImplementedError, match=r"A10\.3"):
-            fn(types.SimpleNamespace(**args))
+    assert isinstance(T.chaos_from_args(types.SimpleNamespace(chaos={"drop": 0.1}), 1),
+                      T.ChaosInjector)
+    with pytest.raises(ValueError, match="checkpoint_dir"):
+        T.journal_from_args(types.SimpleNamespace(durability=True))
+    journal = T.journal_from_args(types.SimpleNamespace(durability=True,
+                                                        checkpoint_dir=str(tmp_path)))
+    assert journal.path == str(tmp_path / "server_round.journal")
+    journal.close()
+    window = T.ServerKillWindow.from_args(
+        types.SimpleNamespace(chaos={"kill_server": {"round": 2}}))
+    assert (window.round, window.after_uploads) == (2, 1)
+    for cls in (T.AgentKillWindow, T.NodeDrain):
+        with pytest.raises(NotImplementedError, match=r"A13"):
+            cls("n1")
