@@ -202,13 +202,37 @@ the final ``ok`` line:
     the other 2, and its flush must equal an uninterrupted server's flush of
     the same 4, bit for bit; last, an instant-apply run (no buffer, 4
     updates) checkpoints every version. It prints updates/s, flush ms (CUDA
-    events), the staleness histogram and the checkpoint ms a version. Each
-    phase prints its seconds.
+    events), the staleness histogram and the checkpoint ms a version;
+(n) the aggregation tree (``hierarchy.TreeRunner``, no hand kernel on this
+    path), int8 at every tier. (n1) ``TreeTopology.build(256, 4)`` (levels
+    1, 6, 40, 256) over phase h's ResNet-18 in the reference's layout as
+    the template, seed 0, quorum 0.75, chunks of 8, 2 rounds; leaf client 17
+    dead in round 0 and an ``EdgeKillWindow`` crashing tier-1 node 0 in
+    round 1 after one accepted partial sum, with its journal in a temporary
+    directory. It fails unless the run ends ``final_digest``-equal to the
+    same run without the crash, with one restart and a salvaged partial sum,
+    leaf client 17 evicted and rejoined once, no tier buffering 5% of the
+    clients' f32 trees and an upload under 0.35 of an f32 tree; it prints
+    seconds a round, leaf uploads/s, per-tier upload and buffer bytes, the
+    leaf chunks' device ms (CUDA events), the busy share of one round
+    (profiler device time over its unprofiled wall), the edge journal's
+    append ms and bytes a partial sum, and the peak memory. (n2) ``python -m
+    fedml_tpu_torch.cli tree --clients 100000 --tiers 3 --rounds 2 --params
+    128 --codec int8 --quorum 0.5 --kill-tier 1 --kill-node 3 --kill-round
+    1 --device cuda`` in a child process, then the same run in process: both
+    complete with equal digests, a quorum close at the root and an evicted
+    edge, under the same gates; it prints rounds/s, the command's wall and
+    per-tier bytes. (n3) per-edge-cohort SecAgg on ``(1, 4, 16)`` with the
+    ResNet-18 template, seed 3, quorum 0.5, chunks of 4, leaf client 5 dead
+    in round 1, 2 rounds, twice: equal digests, a recovery, and round 1's
+    unmasked sum of client 5's cohort equal word for word to its survivors'
+    clipped, shared-scale quantized words summed with zero masks; it prints
+    seconds a round and the host ms on masks. Each phase prints its seconds.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with code 2 and prints no result. The full per-shape results also go to
-``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklm``) runs
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklmn``) runs
 (a) and the phases named, and prints no kernels or ok line (phase g sets
 its round beside phase e's only when both run). ``--parent DIR`` builds the dequant and flash-forward kernels of
 another checkout (DIR, e.g. the parent commit unpacked by ``git archive``)
@@ -545,6 +569,30 @@ result = run_managers_to_completion([server.manager] + [c.manager for c in clien
 print("REF " + json.dumps({"digest": digest(server.fedml_aggregator.get_global_model_params()),
                            "result": result, "untrained_test_loss": untrained}), flush=True)
 """
+
+# Phase (n), the aggregation tree (ROADMAP A10.3c), int8 at every tier. n1:
+# TreeTopology.build(256, 4) (levels 1, 6, 40, 256) with phase h's ResNet-18
+# in the reference's layout as the template (62 leaves, 11,173,962
+# parameters, from random_seed alone: the tree draws no stand-in images),
+# seed 0, quorum 0.75, chunks of 8 clients, 2 rounds; leaf client 17 dead in
+# round 0 (evicted, rejoins in round 1), and tier-1 node 0 crashed in round 1
+# after 1 accepted partial sum and restarted from its journal. n2: the
+# reference's 100k-client acceptance (tests/test_hierarchy.py) through the
+# ``tree`` command in a child process, then replayed in process. n3:
+# per-edge-cohort SecAgg on (1, 4, 16) with the ResNet-18 template, seed 3,
+# quorum 0.5, chunks of 4, leaf client 5 dead in round 1, 2 rounds, twice.
+TREE_N1 = dict(clients=256, tiers=4, seed=0, quorum=0.75, chunk=8, rounds=2)
+TREE_N1_LEVELS = (1, 6, 40, 256)
+TREE_N1_KILL = (3, 17, 0)          # KillWindow(tier, node, round)
+TREE_N1_EDGE_KILL = (1, 0, 1, 1)   # EdgeKillWindow(tier, node, round, after_children)
+TREE_N2_ARGS = ("--clients", "100000", "--tiers", "3", "--rounds", "2", "--params", "128",
+                "--codec", "int8", "--quorum", "0.5", "--kill-tier", "1", "--kill-node", "3",
+                "--kill-round", "1")
+TREE_N3 = dict(levels=(1, 4, 16), seed=3, quorum=0.5, chunk=4, rounds=2)
+TREE_N3_KILL = (2, 5, 1)
+TREE_PEAK_FRAC = 0.05   # no tier buffers 5% of the clients' f32 trees (the reference's gate)
+TREE_WIRE_FRAC = 0.35   # an int8 upload under 0.35 of the f32 tree (the reference's gate)
+TREE_CLI_TIMEOUT_S = 600
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s and bf16 FLOP/s.
 PEAKS = (
@@ -3782,6 +3830,323 @@ def async_phase(card: str):
                 instant_test_loss=inst_result["test_loss"])
 
 
+def resnet_wire_template(dev: str = "cuda"):
+    """Phase h's ResNet-18 (GroupNorm, 2 groups) from ``random_seed``, as a
+    tree in the reference's layout (``models.convert.to_wire_params``)."""
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.models.convert import to_wire_params
+    from fedml_tpu_torch.models.model_hub import create, init_params
+
+    args = load_arguments_from_dict(SP_CONFIG)
+    params = init_params(create(args, 10), args, torch.zeros(2, 32, 32, 3), dev)
+    return to_wire_params(params)
+
+
+def _tree_counters(tiers: int):
+    names = [f"tier/{d}/{k}" for d in range(tiers)
+             for k in ("evicted", "rejoined", "quorum_closes", "quorum_failures",
+                       "upload_bytes", "contributions", "restarts")]
+    return names + ["resilience/restarts", "resilience/journal_salvaged",
+                    "secagg/hier_recoveries", "secagg/hier_cohort_rounds"]
+
+
+class _Counted:
+    """Counter deltas of a block: ``with _Counted(names) as c: ...; c.delta``."""
+
+    def __init__(self, names):
+        from fedml_tpu_torch.telemetry import get_registry
+
+        self.reg, self.names = get_registry(), list(names)
+
+    def __enter__(self):
+        self.before = {n: self.reg.counter(n).value for n in self.names}
+        return self
+
+    def __exit__(self, *exc):
+        self.delta = {n: self.reg.counter(n).value - self.before[n] for n in self.names}
+        return False
+
+
+def _tree_gates(out: dict, what: str) -> None:
+    """The reference's acceptance gates: no tier buffered 5% of the clients'
+    f32 trees, and an upload is under 0.35 of an f32 tree."""
+    f32_all = out["f32_tree_nbytes"] * out["clients"]
+    for d, row in out["per_tier"].items():
+        if not row["peak_buffer_bytes"] < TREE_PEAK_FRAC * f32_all:
+            raise RuntimeError(f"{what}: tier {d} buffered {row['peak_buffer_bytes']} B, not "
+                               f"under {TREE_PEAK_FRAC} of {f32_all} B")
+    if not out["per_client_wire_bytes"] < TREE_WIRE_FRAC * out["f32_tree_nbytes"]:
+        raise RuntimeError(f"{what}: {out['per_client_wire_bytes']} B an upload against "
+                           f"{out['f32_tree_nbytes']} B of f32")
+
+
+def _sync(dev: str) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def tree_resnet_phase(card: str, dev: str = "cuda", template=None, n1=TREE_N1,
+                      levels=TREE_N1_LEVELS, profile_round: bool = True):
+    """Phase (n1): the ResNet-18-wide tree with a leaf client killed and an
+    interior aggregator crashed and journal-restored (see the constants)."""
+    import tempfile
+
+    from fedml_tpu_torch.hierarchy import edge as edge_mod
+    from fedml_tpu_torch.hierarchy import (
+        EdgeKillWindow,
+        KillWindow,
+        TreeRunner,
+        TreeTopology,
+    )
+    from fedml_tpu_torch.models.convert import flatten_paths
+    from fedml_tpu_torch.resilience.durability import journal as journal_mod
+    from fedml_tpu_torch.telemetry import get_registry
+
+    template = resnet_wire_template(dev) if template is None else template
+    leaves = list(flatten_paths(template).values())
+    n_leaves, n_params = len(leaves), sum(int(x.numel()) for x in leaves)
+    topo = TreeTopology.build(n1["clients"], tiers=n1["tiers"])
+    if topo.levels != tuple(levels):
+        raise RuntimeError(f"n1: levels {topo.levels}, expected {levels}")
+    print(f"  {card}: n1 template resnet18 (reference layout): {n_leaves} leaves, "
+          f"{n_params} parameters; levels {topo.levels}", flush=True)
+    is_cuda = torch.device(dev).type == "cuda"
+    chunk_ms, appends = [], []
+    inner_chunk = edge_mod.leaf_chunk
+    inner_append = journal_mod.RoundJournal.append
+
+    def timed_chunk(*a, **kw):
+        if not is_cuda:
+            return inner_chunk(*a, **kw)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner_chunk(*a, **kw)
+        end.record()
+        chunk_ms.append((start, end))
+        return out
+
+    def timed_append(self, kind, durable=True, **fields):
+        t0 = time.perf_counter()
+        nbytes = inner_append(self, kind, durable=durable, **fields)
+        if kind == "upload_received":
+            appends.append(((time.perf_counter() - t0) * 1e3, nbytes))
+        return nbytes
+
+    def run(edge_kill: bool, work=None):
+        chaos = [KillWindow(*TREE_N1_KILL)]
+        if edge_kill:
+            chaos.append(EdgeKillWindow(*TREE_N1_EDGE_KILL[:3],
+                                        after_children=TREE_N1_EDGE_KILL[3]))
+        walls, marks, uploads = [], [None], []
+        leaf_uploads = get_registry().counter(f"tier/{topo.leaf_tier}/contributions")
+
+        def on_round(r, params):
+            _sync(dev)
+            now = time.perf_counter()
+            walls.append(now - marks[0])
+            marks[0] = now
+            uploads.append(leaf_uploads.value - sum(uploads) - marks[1])
+
+        runner = TreeRunner(topo, template=template, codec="int8", seed=n1["seed"],
+                            quorum=n1["quorum"], chunk=n1["chunk"], chaos=chaos,
+                            durability_dir=work, on_round=on_round, device=dev)
+        with _Counted(_tree_counters(topo.n_tiers)) as counted:
+            _sync(dev)
+            marks[:] = [time.perf_counter(), leaf_uploads.value]
+            out = runner.run(n1["rounds"])
+        return runner, out, counted.delta, walls, uploads
+
+    if is_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    edge_mod.leaf_chunk = timed_chunk
+    try:
+        base_runner, base, base_c, base_walls, uploads = run(False)
+        _sync(dev)
+        chunk_dev_ms = [a.elapsed_time(b) for a, b in chunk_ms]
+        chunk_ms.clear()
+        journal_mod.RoundJournal.append = timed_append
+        with tempfile.TemporaryDirectory() as work:
+            _, killed, killed_c, killed_walls, _ = run(True, work)
+    finally:
+        edge_mod.leaf_chunk = inner_chunk
+        journal_mod.RoundJournal.append = inner_append
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if is_cuda else None
+    L = topo.leaf_tier
+    checks = {
+        "digest equal to the unkilled run": killed["final_digest"] == base["final_digest"],
+        "one restart": killed_c["resilience/restarts"] == 1,
+        "partial sums salvaged": killed_c["resilience/journal_salvaged"] >= 1,
+        f"tier/{L}/evicted 1": killed_c[f"tier/{L}/evicted"] == 1 == base_c[f"tier/{L}/evicted"],
+        f"tier/{L}/rejoined 1": (killed_c[f"tier/{L}/rejoined"] == 1
+                                 == base_c[f"tier/{L}/rejoined"]),
+        "finite globals": all(bool(torch.isfinite(x).all()) for x in base_runner.global_leaves),
+    }
+    _tree_gates(killed, "n1")
+    print(f"  {card}: n1 unkilled run: rounds {[round(w, 3) for w in base_walls]} s, "
+          f"leaf uploads/s {[round(u / w, 1) for u, w in zip(uploads, base_walls)]}; killed "
+          f"run: rounds {[round(w, 3) for w in killed_walls]} s; digests "
+          f"{base['final_digest']} / {killed['final_digest']}", flush=True)
+    print(f"  {card}: n1 per tier (nodes, peak round upload B, peak buffer B): "
+          f"{[(r['nodes'], r['peak_round_upload_bytes'], r['peak_buffer_bytes']) for r in killed['per_tier'].values()]}; "
+          f"an upload {killed['per_client_wire_bytes']} B of {killed['f32_tree_nbytes']} B f32",
+          flush=True)
+    if chunk_dev_ms:
+        print(f"  {card}: n1 leaf chunks (CUDA events, unkilled run): {len(chunk_dev_ms)} "
+              f"chunks of {n1['chunk']}, {sum(chunk_dev_ms):.1f} ms in all, "
+              f"{np.median(chunk_dev_ms):.2f} ms median a chunk", flush=True)
+    append_ms = [a for a, _ in appends]
+    append_b = [b for _, b in appends]
+    if appends:
+        print(f"  {card}: n1 edge journal: {len(appends)} partial-sum appends (fsynced), "
+              f"{np.median(append_ms):.1f} ms median ({min(append_ms):.1f}-"
+              f"{max(append_ms):.1f}), {int(np.median(append_b))} B each; counters "
+              f"{ {k: v for k, v in killed_c.items() if v} }", flush=True)
+    busy = None
+    if profile_round and is_cuda:
+        # busy share: profiler device time of one more round (round 0 again, on
+        # the unkilled runner) over the unprofiled wall of round 0; the card's
+        # activity alone (a round launches ~10^5 kernels, and host-side op
+        # records would cost minutes to collect)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            base_runner.run(1)
+            torch.cuda.synchronize()
+        n_events, dev_ms = _device_events_ms(prof)
+        busy = dev_ms / (base_walls[0] * 1e3) if dev_ms else None
+        print(f"  {card}: n1 one round: {base_walls[0] * 1e3:.1f} ms unprofiled wall; device "
+              + ("time not measured" if busy is None else
+                 f"{dev_ms:.1f} ms (profiler, {n_events} device events), busy share "
+                 f"{busy:.3f}") + f"; the profiled round took "
+              f"{time.perf_counter() - t0:.1f} s with collection", flush=True)
+    print(f"  {card}: n1 peak memory " + ("not measured" if peak_gb is None else
+                                         f"{peak_gb:.2f} GB") + f"; checks {checks}", flush=True)
+    if not all(checks.values()):
+        raise RuntimeError(f"n1 failed: {checks}")
+    return dict(levels=list(topo.levels), n_leaves=n_leaves, n_params=n_params,
+                round_s=base_walls, killed_round_s=killed_walls,
+                leaf_uploads_per_s=[u / w for u, w in zip(uploads, base_walls)],
+                per_tier=killed["per_tier"], per_client_wire_bytes=killed["per_client_wire_bytes"],
+                f32_tree_nbytes=killed["f32_tree_nbytes"], chunk_device_ms=chunk_dev_ms,
+                journal_append_ms=append_ms, journal_append_bytes=append_b,
+                busy_share=busy, peak_gb=peak_gb, digest=killed["final_digest"],
+                counters=killed_c)
+
+
+def _device_events_ms(prof):
+    """(count, summed ms) of a profile's device events, read from the raw
+    results (building the profiler's event tree for ~10^5 kernels takes
+    longer than the round)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    try:
+        durations = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == cuda]
+        return len(durations), sum(durations) / 1e6
+    except AttributeError:  # another torch: the parsed events
+        kernels = [e for e in prof.events() if e.device_type == cuda]
+        return len(kernels), sum(e.self_device_time_total for e in kernels) / 1e3
+
+
+def tree_100k_phase(card: str, dev: str = "cuda", cli_args=TREE_N2_ARGS):
+    """Phase (n2): the reference's 100k-client acceptance through the
+    ``tree`` command in a child process, then replayed in process."""
+    from fedml_tpu_torch.hierarchy import KillWindow, TreeRunner, TreeTopology, default_template
+
+    opts = dict(zip(cli_args[0::2], cli_args[1::2]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fedml_tpu_torch.cli", "tree", *cli_args,
+                           "--device", dev], capture_output=True, text=True,
+                          timeout=TREE_CLI_TIMEOUT_S)
+    cli_wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"n2: the tree command exited {proc.returncode}: "
+                           f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    cli_out = json.loads(lines[-1])
+    topo = TreeTopology.build(int(opts["--clients"]), tiers=int(opts["--tiers"]))
+    with _Counted(_tree_counters(topo.n_tiers)) as counted:
+        runner = TreeRunner(topo, template=default_template(int(opts["--params"])),
+                            codec=opts["--codec"], seed=0, quorum=float(opts["--quorum"]),
+                            chaos=[KillWindow(int(opts["--kill-tier"]), int(opts["--kill-node"]),
+                                              int(opts["--kill-round"]))], device=dev)
+        out = runner.run(int(opts["--rounds"]))
+    c = counted.delta
+    checks = {
+        "both completed": bool(cli_out.get("completed")) and out["completed"],
+        "digests equal": cli_out.get("final_digest") == out["final_digest"],
+        "tier/0/quorum_closes >= 1": c["tier/0/quorum_closes"] >= 1,
+        "tier/1/evicted >= 1": c["tier/1/evicted"] >= 1,
+    }
+    _tree_gates(cli_out, "n2 (the command)")
+    _tree_gates(out, "n2 (in process)")
+    print(f"  {card}: n2 the tree command: {cli_wall:.1f} s wall (process included), "
+          f"{cli_out['rounds_per_s']:.3f} rounds/s inside; in process "
+          f"{out['wall_s']:.2f} s = {out['rounds_per_s']:.3f} rounds/s; levels "
+          f"{out['levels']}; per tier (peak round upload B, peak buffer B) "
+          f"{[(r['peak_round_upload_bytes'], r['peak_buffer_bytes']) for r in out['per_tier'].values()]}; "
+          f"digest {out['final_digest']}; checks {checks}", flush=True)
+    if not all(checks.values()):
+        raise RuntimeError(f"n2 failed: {checks}; the command said {cli_out}")
+    return dict(cli_wall_s=cli_wall, cli_rounds_per_s=cli_out["rounds_per_s"],
+                rounds_per_s=out["rounds_per_s"], wall_s=out["wall_s"], levels=out["levels"],
+                per_tier=out["per_tier"], digest=out["final_digest"], counters=c)
+
+
+def tree_secagg_phase(card: str, dev: str = "cuda", template=None, n3=TREE_N3):
+    """Phase (n3): per-edge-cohort SecAgg at ResNet-18 width, run twice."""
+    from fedml_tpu_torch.hierarchy import KillWindow, TreeRunner, TreeTopology
+
+    template = resnet_wire_template(dev) if template is None else template
+    topo = TreeTopology(n3["levels"])
+    killed = TREE_N3_KILL[1]
+    recovered = {}
+
+    def run(check: bool):
+        runner = TreeRunner(topo, template=template, codec="int8", seed=n3["seed"],
+                            quorum=n3["quorum"], chunk=n3["chunk"], secagg=True,
+                            chaos=[KillWindow(*TREE_N3_KILL)], device=dev)
+        if check:
+            cohort = runner.cohorts[topo.parent(topo.leaf_tier, killed)]
+            reduce = cohort.reduce
+
+            def checked(r, alive):
+                out = reduce(r, alive)
+                if r == TREE_N3_KILL[2]:
+                    live = np.nonzero(np.asarray(alive) & ~cohort.evicted_mask)[0]
+                    plain = cohort.chunk_words(r, live, None)
+                    recovered["equal"] = all(torch.equal(a, b) for a, b in
+                                             zip(cohort.last_words, plain))
+                    recovered["survivors"] = len(live)
+                return out
+
+            cohort.reduce = checked
+        with _Counted(_tree_counters(topo.n_tiers)) as counted:
+            t0 = time.perf_counter()
+            out = runner.run(n3["rounds"])
+            wall = time.perf_counter() - t0
+        mask_s = sum(c.host_mask_s for c in runner.cohorts)
+        return out, counted.delta, wall, mask_s
+
+    first, c1, wall1, mask1 = run(True)
+    second, c2, wall2, mask2 = run(False)
+    checks = {
+        "digests equal": first["final_digest"] == second["final_digest"],
+        "recoveries >= 1": c1["secagg/hier_recoveries"] >= 1,
+        "the recovered cohort sum is the survivors' unmasked words":
+            bool(recovered.get("equal")),
+    }
+    per_round = [wall1 / n3["rounds"], wall2 / n3["rounds"]]
+    print(f"  {card}: n3 secagg tree {topo.levels}: {[round(x, 3) for x in per_round]} s a "
+          f"round (two runs), host masks and recovery {mask1 * 1e3:.0f} / {mask2 * 1e3:.0f} "
+          f"ms a run ({mask1 * 1e3 / n3['rounds']:.0f} ms a round); round "
+          f"{TREE_N3_KILL[2]}: {recovered.get('survivors')} survivors, counters "
+          f"{ {k: v for k, v in c1.items() if v} }; "
+          f"checks {checks}", flush=True)
+    if not all(checks.values()):
+        raise RuntimeError(f"n3 failed: {checks}")
+    return dict(round_s=per_round, host_mask_ms=[mask1 * 1e3, mask2 * 1e3],
+                digest=first["final_digest"], counters=c1)
+
+
 def step_sum(results, key, rows=DECODE_ROWS):
     """One pass's total over its 225 launches at ``rows`` rows (None where
     a time was not measured)."""
@@ -3795,7 +4160,7 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="bcdefghijklm",
+    parser.add_argument("--phases", default="bcdefghijklmn",
                         help="phases to run after (a), e.g. 'd' for the flash kernels "
                              "alone (default: all; only a full run prints the kernels "
                              "and ok lines)")
@@ -3838,7 +4203,7 @@ def main(argv=None) -> int:
               f"{info.get('stack')} bytes", flush=True)
 
     results = serve = flash = train = quantized = qlora = sp = cross_silo = trust = None
-    secure = checkpoints = durable = None
+    secure = checkpoints = durable = tree = None
     phase_s = {}
     parent_dequant = parent_fwd = None
     if opts.parent:
@@ -3939,13 +4304,24 @@ def main(argv=None) -> int:
         print("(m2) the async server over LOCAL: 4 silos, int8, FedBuff of 4, 8 updates, "
               "a journal refill, then instant apply", flush=True)
         durable["m2"] = timed("m2", lambda: async_phase(card))
+    if "n" in phases:
+        print("(n1) the aggregation tree: resnet18-wide, 256 clients over 4 tiers, int8, a "
+              "leaf client killed and an interior aggregator crashed and journal-restored, "
+              "2 rounds", flush=True)
+        tree = dict(n1=timed("n1", lambda: tree_resnet_phase(card)))
+        print("(n2) the 100k-client acceptance: the tree command in a child process, then "
+              "in process", flush=True)
+        tree["n2"] = timed("n2", lambda: tree_100k_phase(card))
+        print("(n3) per-edge-cohort secagg at resnet18 width: (1, 4, 16), a leaf client "
+              "killed, 2 rounds, twice", flush=True)
+        tree["n3"] = timed("n3", lambda: tree_secagg_phase(card))
     os.makedirs("results", exist_ok=True)
     record = {"card": card, "torch": torch.__version__, "build_s": build_s, "ptxas": ptxas,
               "shapes": results, "serve": serve, "flash": flash, "train": train,
               "quantized": quantized, "qlora": qlora, "sp": sp, "cross_silo": cross_silo,
               "trust": trust, "secure": secure, "checkpoints": checkpoints,
-              "durable": durable, "phase_s": phase_s}
-    if sorted(phases) != list("bcdefghijklm"):
+              "durable": durable, "tree": tree, "phase_s": phase_s}
+    if sorted(phases) != list("bcdefghijklmn"):
         with open(os.path.join("results", "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
         print(f"phases {phases} passed (a partial run prints no kernels or ok line)")

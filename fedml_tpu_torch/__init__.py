@@ -25,8 +25,12 @@ and the Bonawitz and LightSecAgg protocols (``core.mpc``,
 resume (``core.checkpoint``: the sp engine, the cross-silo server, the LLM
 trainer and ``serve --checkpoint``), contribution assessment
 (``core.contribution``), the gradient-reconstruction attacks and the
-host-loop FedLLM round. Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``.
+host-loop FedLLM round, the durable and asynchronous cross-silo servers,
+and the aggregation tree (``hierarchy``: ``TreeRunner``, edge aggregators,
+partial sums, per-cohort SecAgg) with hierarchical cross-silo
+(:func:`run_hierarchical_cross_silo_server` /
+:func:`run_hierarchical_cross_silo_client`). Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
 """
 import random
 from typing import Any, Optional
@@ -38,10 +42,12 @@ from fedml_tpu_torch.device import DeviceLike, resolve_device
 
 def init(args: Any) -> Any:
     """Counterpart of ``fedml_tpu.init`` for an args namespace: seed
-    Python's and numpy's generators and configure the trust-stack
-    singletons (``FedMLAttacker``, ``FedMLDefender``,
+    Python's and numpy's generators, apply the per-silo config overrides
+    (``arguments.update_client_specific_args``) and configure the
+    trust-stack singletons (``FedMLAttacker``, ``FedMLDefender``,
     ``FedMLDifferentialPrivacy``) from ``args``. They are per process:
     ``reset()`` them between in-process runs."""
+    from fedml_tpu_torch.arguments import update_client_specific_args
     from fedml_tpu_torch.compression import check_trust_stack
     from fedml_tpu_torch.core.dp.fedml_differential_privacy import (
         FedMLDifferentialPrivacy,
@@ -53,6 +59,7 @@ def init(args: Any) -> Any:
     seed = int(getattr(args, "random_seed", 0))
     random.seed(seed)
     np.random.seed(seed)
+    update_client_specific_args(args)
     FedMLAttacker.get_instance().init(args)
     FedMLDefender.get_instance().init(args)
     FedMLDifferentialPrivacy.get_instance().init(args)
@@ -77,7 +84,8 @@ def run_simulation(args: Optional[Any] = None, device: DeviceLike = "cuda"):
     return FedMLRunner(args, dev, dataset, model).run()
 
 
-def _run_cross_silo(role: str, args: Optional[Any], device: DeviceLike):
+def _run_cross_silo(role: str, args: Optional[Any], device: DeviceLike,
+                    scenario: Optional[str] = None):
     from fedml_tpu_torch.arguments import apply_defaults, load_arguments
     from fedml_tpu_torch.data.data_loader import load_federated
     from fedml_tpu_torch.models.model_hub import create
@@ -86,6 +94,8 @@ def _run_cross_silo(role: str, args: Optional[Any], device: DeviceLike):
     dev = resolve_device(device)
     args = load_arguments("cross_silo") if args is None else apply_defaults(args)
     args.role = role
+    if scenario is not None:
+        args.scenario = scenario
     init(args)
     dataset = load_federated(args)
     model = create(args, dataset.class_num)
@@ -107,5 +117,23 @@ def run_cross_silo_client(args: Optional[Any] = None, device: DeviceLike = "cuda
     return _run_cross_silo("client", args, device)
 
 
+def run_hierarchical_cross_silo_server(args: Optional[Any] = None,
+                                       device: DeviceLike = "cuda"):
+    """The server of a hierarchical cross-silo federation — counterpart of
+    ``fedml_tpu.run_hierarchical_cross_silo_server``: the cross-silo server
+    with ``scenario: hierarchical``, which loads ``server_config_path`` on
+    top of the config."""
+    return _run_cross_silo("server", args, device, scenario="hierarchical")
+
+
+def run_hierarchical_cross_silo_client(args: Optional[Any] = None,
+                                       device: DeviceLike = "cuda"):
+    """One silo of a hierarchical cross-silo federation (``--rank r``): loads
+    entry r-1 of ``client_silo_config_paths`` on top of the config. A silo
+    over several devices (``n_proc_in_silo > 1``) raises, naming ROADMAP A11."""
+    return _run_cross_silo("client", args, device, scenario="hierarchical")
+
+
 __all__ = ["init", "resolve_device", "run_cross_silo_client", "run_cross_silo_server",
+           "run_hierarchical_cross_silo_client", "run_hierarchical_cross_silo_server",
            "run_simulation"]

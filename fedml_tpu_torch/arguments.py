@@ -4,7 +4,12 @@ whose YAML sections (``common_args``, ``data_args``, ``train_args``, ...)
 are flattened onto one namespace, the ``--cf``, ``--run_id``, ``--rank``
 and ``--role`` command-line flags, and the reference's defaults.
 
-PyYAML is imported only inside :meth:`Arguments.load_yaml_config`, and a
+:func:`update_client_specific_args` applies the per-silo config overrides
+(``data_silo_config``, and under ``scenario: hierarchical`` the
+``server_config_path`` / ``client_silo_config_paths``), as the reference's
+``fedml_tpu.init`` does.
+
+PyYAML is imported only inside :func:`read_config`, and a
 machine without it (the card's has none) reads a config written in YAML's
 JSON form with ``json``; a config built in code
 (:func:`load_arguments_from_dict`) needs neither.
@@ -63,21 +68,7 @@ class Arguments:
             self.load_yaml_config(config_file)
 
     def load_yaml_config(self, path: str | os.PathLike) -> None:
-        with open(path, "r") as f:
-            text = f.read()
-        try:
-            import yaml  # only here: the card's machine has no PyYAML
-        except ImportError:
-            try:  # JSON is YAML: a config in that form needs no PyYAML
-                cfg = json.loads(text)
-            except json.JSONDecodeError as e:
-                raise RuntimeError(
-                    f"{path}: PyYAML is not installed, and the config is not in "
-                    f"YAML's JSON form ({e})") from None
-        else:
-            cfg = yaml.safe_load(text)
-        cfg = cfg or {}
-        self.set_attr_from_config(cfg)
+        self.set_attr_from_config(read_config(path))
         self.yaml_paths = [str(path)]
 
     def set_attr_from_config(self, configuration: dict) -> None:
@@ -87,6 +78,58 @@ class Arguments:
                     setattr(self, k, v)
             else:
                 setattr(self, section, payload)
+
+
+def read_config(path: str | os.PathLike) -> dict:
+    """A YAML config file as a dict (``{}`` when empty); without PyYAML, a
+    config in YAML's JSON form."""
+    with open(path, "r") as f:
+        text = f.read()
+    try:
+        import yaml  # only here: the card's machine has no PyYAML
+    except ImportError:
+        try:  # JSON is YAML: a config in that form needs no PyYAML
+            cfg = json.loads(text)
+        except json.JSONDecodeError as e:
+            raise RuntimeError(
+                f"{path}: PyYAML is not installed, and the config is not in "
+                f"YAML's JSON form ({e})") from None
+    else:
+        cfg = yaml.safe_load(text)
+    return cfg or {}
+
+
+def update_client_specific_args(args: Any) -> None:
+    """Per-silo config overrides, the reference's rule: ``data_silo_config``
+    lists one config a client silo, and rank r > 0 loads entry r-1 on top of
+    the global config (setting ``worker_num`` to the silo count; a rank past
+    the list raises); else under ``scenario: hierarchical`` rank 0 loads
+    ``server_config_path`` and rank r > 0 entry r-1 of
+    ``client_silo_config_paths``. Relative paths resolve against the main
+    config's directory."""
+    rank = int(getattr(args, "rank", 0))
+
+    def _apply(path: str) -> None:
+        if not os.path.isabs(path):
+            base = os.path.dirname((getattr(args, "yaml_paths", None) or [""])[0])
+            path = os.path.join(base, path) if base else path
+        args.set_attr_from_config(read_config(path))
+
+    silo_cfgs = getattr(args, "data_silo_config", None)
+    if silo_cfgs:
+        args.worker_num = len(silo_cfgs)
+        if rank > 0:
+            if rank > len(silo_cfgs):
+                raise ValueError(f"rank {rank} but data_silo_config lists only "
+                                 f"{len(silo_cfgs)} silos")
+            _apply(str(silo_cfgs[rank - 1]))
+    elif str(getattr(args, "scenario", "")) == "hierarchical":
+        if rank == 0 and getattr(args, "server_config_path", None):
+            _apply(str(args.server_config_path))
+        elif rank > 0 and getattr(args, "client_silo_config_paths", None):
+            paths = args.client_silo_config_paths
+            if rank <= len(paths):
+                _apply(str(paths[rank - 1]))
 
 
 def add_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:

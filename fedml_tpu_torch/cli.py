@@ -1,9 +1,10 @@
 """Command line of the port (argparse; counterpart of the ``serve``,
-``deploy broker`` and ``chaos`` commands of ``fedml_tpu/cli.py``).
+``deploy broker``, ``chaos`` and ``tree`` commands of ``fedml_tpu/cli.py``).
 
     python -m fedml_tpu_torch.cli serve --model llama3_8b --quantize int8
     python -m fedml_tpu_torch.cli deploy broker --port 18923
     python -m fedml_tpu_torch.cli chaos --kill-server --seed 7 --rounds 4
+    python -m fedml_tpu_torch.cli tree --clients 100000 --tiers 3 --codec int8
 
 ``chaos`` runs a seeded fault scenario against a cross-silo federation and
 prints one JSON line (exit 1 unless it completed): message drop, duplicate
@@ -15,6 +16,15 @@ as OS processes over the broker (``resilience.durability.
 run_recover_scenario``: MTTR, salvaged uploads, the final digest). It runs
 on ``--device`` (``cuda`` unless ``cpu`` is asked for). The scheduler
 tier's ``--drain`` and ``--agent-kill`` come with ROADMAP A13.
+
+``tree`` runs a seeded hierarchical (aggregation-tree) federation in
+process (``hierarchy.TreeRunner`` on ``--device``): virtual leaf clients
+upload compressed deltas, edge aggregators forward partial sums in the
+compressed block domain, every tier closes on quorum and survives a kill
+window (``--kill-tier``/``--kill-node``/``--kill-round``). It prints one
+JSON line and exits 1 on a below-quorum abort; the same ``--seed``
+reproduces the same ``final_digest``. ``--metrics-port`` and
+``--trace-rounds`` come with the telemetry stack, ROADMAP A12.
 
 ``deploy broker`` runs the federation's TCP pub/sub broker until
 interrupted; a cross-silo server and its clients
@@ -122,7 +132,59 @@ def build_parser() -> argparse.ArgumentParser:
     chaos.add_argument("--agent-kill", action="store_true",
                        help="scheduler-tier agent kill (not ported: ROADMAP A13)")
     chaos.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    tree = sub.add_parser("tree", help="run a seeded hierarchical (aggregation-tree) "
+                                       "federation scenario; prints one JSON line")
+    tree.add_argument("--clients", type=int, default=100_000,
+                      help="virtual leaf clients in the cohort")
+    tree.add_argument("--tiers", type=int, default=3,
+                      help="tree depth incl. root and leaves")
+    tree.add_argument("--rounds", type=int, default=2)
+    tree.add_argument("--params", type=int, default=256,
+                      help="virtual model size (elements)")
+    tree.add_argument("--codec", default="int8",
+                      help="wire codec at every tier (identity/bf16/int8/topk)")
+    tree.add_argument("--seed", type=int, default=0,
+                      help="scenario seed: two runs reproduce bit-identically")
+    tree.add_argument("--quorum", type=float, default=2.0 / 3.0,
+                      help="per-cohort close fraction")
+    tree.add_argument("--kill-tier", type=int, default=None,
+                      help="chaos: tier of the node to kill (e.g. 1 = edge)")
+    tree.add_argument("--kill-node", type=int, default=0)
+    tree.add_argument("--kill-round", type=int, default=1)
+    tree.add_argument("--revive-round", type=int, default=None,
+                      help="round the killed node comes back (default: +1)")
+    tree.add_argument("--metrics-port", type=int, default=None,
+                      help="live /metrics endpoint (not ported: ROADMAP A12)")
+    tree.add_argument("--trace-rounds", default="",
+                      help="rounds to capture a device trace of (not ported: ROADMAP A12)")
+    tree.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return parser
+
+
+def run_tree(args: argparse.Namespace) -> dict:
+    """The ``tree`` command's scenario; returns its JSON-safe summary
+    (``{"completed": False, "error": ...}`` on a below-quorum abort)."""
+    from fedml_tpu_torch.hierarchy import (
+        KillWindow,
+        TreeRunner,
+        TreeTopology,
+        default_template,
+    )
+
+    if args.metrics_port is not None or args.trace_rounds:
+        raise NotImplementedError("tree --metrics-port / --trace-rounds: live telemetry "
+                                  "and device traces come with ROADMAP A12")
+    chaos = []
+    if args.kill_tier is not None:
+        chaos.append(KillWindow(args.kill_tier, args.kill_node, args.kill_round,
+                                until=args.revive_round))
+    runner = TreeRunner(TreeTopology.build(args.clients, tiers=args.tiers),
+                        template=default_template(args.params), codec=args.codec,
+                        seed=args.seed, quorum=args.quorum, chaos=chaos, device=args.device)
+    try:
+        return runner.run(args.rounds)
+    except RuntimeError as e:
+        return {"completed": False, "error": str(e)}
 
 
 def run_chaos(args: argparse.Namespace) -> dict:
@@ -211,8 +273,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "deploy":
         run_broker(args)
-    elif args.command == "chaos":
-        out = run_chaos(args)
+    elif args.command in ("chaos", "tree"):
+        out = run_chaos(args) if args.command == "chaos" else run_tree(args)
         print(json.dumps(out), flush=True)
         return 0 if out["completed"] else 1
     elif args.command == "serve":

@@ -193,6 +193,41 @@ class Codec:
         enc = self._encode_leaves(leaves, meta, key)
         return dict(zip(keys, self._decode_leaves(enc, meta)))
 
+    # -- batched forms: a chunk's clients stacked on axis 0 ---------------
+    def encode_leaf_batch(self, x: torch.Tensor, keys: torch.Tensor) -> List[torch.Tensor]:
+        """Encode ``[C, *shape]`` with key row ``c`` for row ``c``: part ``p``
+        stacked ``[C, ...]``, row ``c`` equal to ``encode_leaf(x[c], keys[c])``.
+        This default encodes row by row; the elementwise codecs and int8 do
+        the whole chunk at once."""
+        rows = [self.encode_leaf(x[c], keys[c].cpu()) for c in range(x.shape[0])]
+        return [torch.stack([r[p] for r in rows]) for p in range(len(rows[0]))]
+
+    def encode_batch(self, leaves: Sequence[torch.Tensor], meta,
+                     keys: torch.Tensor) -> List[List[torch.Tensor]]:
+        """The batched ``_encode_leaves``: leaves stacked ``[C, *shape]``,
+        ``keys`` ``[C, 2]``; leaf ``i`` of row ``c`` is encoded under
+        ``fold_in(keys[c], i)``, as ``jax.vmap`` of the reference's."""
+        out = []
+        for i, (leaf, (dt, _)) in enumerate(zip(leaves, meta)):
+            if _is_float_meta(dt):
+                out.append(self.encode_leaf_batch(leaf, threefry.fold_in_batch(keys, i)))
+            else:
+                out.append([leaf])
+        return out
+
+    def decode_leaf_batch(self, parts: Sequence[torch.Tensor], dt: str,
+                          shape: Tuple[int, ...]) -> torch.Tensor:
+        """``[C, *shape]``: row ``c`` is ``decode_leaf`` of the parts' row ``c``."""
+        return torch.stack([self.decode_leaf([p[c] for p in parts], dt, shape)
+                            for c in range(parts[0].shape[0])])
+
+    def weighted_rows(self, parts: Sequence[torch.Tensor], w: torch.Tensor, dt: str,
+                      shape: Tuple[int, ...]) -> torch.Tensor:
+        """``[C, *shape]`` f32 rows ``w_c · decode(row c)``; the caller sums
+        them in a fixed order (:func:`ordered_row_sum`)."""
+        dec = self.decode_leaf_batch(parts, dt, shape).float()
+        return dec * w.reshape((-1,) + (1,) * len(shape))
+
     # -- wire validation ---------------------------------------------------
     def check_wire(self, ct: CompressedTree) -> None:
         """Reject wire payloads whose scale-like parts are non-finite (a
@@ -277,6 +312,17 @@ def _raw_weighted_sum(leaf_stacked: torch.Tensor, w: torch.Tensor) -> torch.Tens
     return torch.sum(leaf_stacked * wb, 0, dtype=leaf_stacked.dtype)
 
 
+def ordered_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ over axis 0 as a fixed pairwise tree of elementwise adds (halves,
+    then halves of those), so the f32 rounding is the same on every device
+    and in every run; ``torch.sum`` and ``einsum`` choose their order by
+    device and shape."""
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        x = torch.cat([x[:h] + x[h:2 * h], x[2 * h:]]) if x.shape[0] % 2 else x[:h] + x[h:]
+    return x[0]
+
+
 def tree_delta(new: Tree, ref: Tree) -> Tree:
     """Delta of ``new`` against ``ref`` — float leaves only; int/bool leaves
     ride as absolute values (:func:`tree_undelta` is the inverse)."""
@@ -344,6 +390,12 @@ class IdentityCodec(Codec):
     def decode_leaf(self, parts, dt, shape):
         return parts[0]
 
+    def encode_leaf_batch(self, x, keys):
+        return [x]
+
+    def decode_leaf_batch(self, parts, dt, shape):
+        return parts[0]
+
 
 class Bf16Codec(Codec):
     name = "bf16"
@@ -352,6 +404,12 @@ class Bf16Codec(Codec):
         return [x.to(torch.bfloat16)]
 
     def decode_leaf(self, parts, dt, shape):
+        return parts[0].to(_dtype_from_str(dt))
+
+    def encode_leaf_batch(self, x, keys):
+        return [x.to(torch.bfloat16)]
+
+    def decode_leaf_batch(self, parts, dt, shape):
         return parts[0].to(_dtype_from_str(dt))
 
 
@@ -364,18 +422,60 @@ class Int8Codec(Codec):
     name = "int8"
 
     def encode_leaf(self, x, key):
-        xf = x.float()
-        amax = xf.abs().max()
-        scale = torch.where(amax > 0, amax * _F32_1_OVER_127,
-                            torch.ones_like(amax))
-        v = xf / scale  # tensor / tensor: a true division on every device
-        q = torch.floor(v + threefry.uniform(key, xf.shape, xf.device))
-        q = torch.clamp(q, -127.0, 127.0).to(torch.int8)
-        return [q, scale]
+        q, scale = self._quantize_rows(
+            x[None], threefry.uniform(key, (x.numel(),), x.device)[None])
+        return [q[0], scale[0]]
 
     def decode_leaf(self, parts, dt, shape):
         q, scale = parts
         return (q.float() * scale).to(_dtype_from_str(dt))
+
+    @staticmethod
+    def _quantize_rows(x, u):
+        """``[C, *shape]`` with its ``[C, size]`` uniform draws → ``[q, scale]``
+        stacked: one scale a row, ``amax * f32(1/127)`` as the reference's
+        jitted program rounds it, and a tensor / tensor division by it (a
+        true division on every device)."""
+        xf = x.float().reshape(x.shape[0], -1)
+        amax = xf.abs().amax(1)
+        scale = torch.where(amax > 0, amax * _F32_1_OVER_127, torch.ones_like(amax))
+        q = torch.floor(xf / scale[:, None] + u)
+        return [torch.clamp(q, -127.0, 127.0).to(torch.int8).reshape(x.shape), scale]
+
+    def _encode_leaves(self, leaves, meta, key):
+        # a whole tree as a chunk of one: one threefry hash draws every float
+        # leaf's noise, the same bits as a draw a leaf under fold_in(key, i)
+        if not leaves:
+            return []
+        rows = self.encode_batch([x[None] for x in leaves], meta,
+                                 key.to(leaves[0].device)[None])
+        return [[p[0] for p in parts] if _is_float_meta(dt) else [leaf]
+                for parts, leaf, (dt, _) in zip(rows, leaves, meta)]
+
+    def encode_batch(self, leaves, meta, keys):
+        # one threefry hash draws the noise of every float leaf of the chunk
+        ids = [i for i, (dt, _) in enumerate(meta) if _is_float_meta(dt)]
+        sizes = [_numel(meta[i][1]) for i in ids]
+        u = threefry.uniform_leaves(keys, ids, sizes) if ids else None
+        out, off = [], 0
+        for leaf, (dt, sh) in zip(leaves, meta):
+            if not _is_float_meta(dt):
+                out.append([leaf])
+                continue
+            n = _numel(sh)
+            out.append(self._quantize_rows(leaf, u[:, off:off + n]))
+            off += n
+        return out
+
+    def decode_leaf_batch(self, parts, dt, shape):
+        q, scale = parts
+        return (q.float() * scale.reshape((-1,) + (1,) * len(shape))).to(
+            _dtype_from_str(dt))
+
+    def weighted_rows(self, parts, w, dt, shape):
+        # (w_c · s_c) folds the client's weight and its scale, as the fused sum
+        q, scale = parts
+        return q.float() * (w * scale).reshape((-1,) + (1,) * len(shape))
 
     def check_wire(self, ct):
         for parts, (dt, _) in zip(ct.arrays, ct.meta):
@@ -709,16 +809,14 @@ def derive_key_data_batch(seed: int, round_idx: int,
                           client_ids: np.ndarray) -> np.ndarray:
     """:func:`derive_key_data` for a whole id array at once, ``[n, 2]``."""
     base = threefry.fold_in(threefry.key(int(seed) & 0x7FFFFFFF), int(round_idx))
-    cids = torch.from_numpy(np.asarray(client_ids, np.int64).reshape(-1)
-                            & 0x7FFFFFFF)
-    a, b = threefry.threefry2x32(base[0], base[1], 0, cids)
-    return torch.stack([a, b], 1).numpy().astype(np.uint32)
+    cids = torch.from_numpy(np.asarray(client_ids, np.int64).reshape(-1) & 0x7FFFFFFF)
+    return threefry.fold_in_batch(base.expand(len(cids), 2), cids).numpy().astype(np.uint32)
 
 
 __all__ = [
     "WIRE_VERSION", "WIRE_VERSION_MASKED", "MASKABLE_CODECS", "NF4_CODEBOOK", "Codec", "CompressedTree", "IdentityCodec",
     "Bf16Codec", "Int8Codec", "TopKCodec", "Int4Codec", "Nf4Codec",
     "available_codecs", "derive_key", "derive_key_data", "derive_key_data_batch",
-    "fused_weighted_sum", "get_codec", "register_codec", "tree_delta",
+    "fused_weighted_sum", "get_codec", "ordered_row_sum", "register_codec", "tree_delta",
     "tree_undelta",
 ]

@@ -1,25 +1,55 @@
-"""Hierarchical federation — counterpart of ``fedml_tpu/hierarchy``.
+"""Hierarchical federation — counterpart of ``fedml_tpu/hierarchy``:
+aggregation trees and buffered-async (FedBuff).
 
-Ported: FedBuff (:mod:`fedml_tpu_torch.hierarchy.fedbuff`), the bounded,
-staleness-weighted buffer of delta contributions the asynchronous
-cross-silo server flushes through the fused weighted sum.
+- **Aggregation trees** — leaf clients upload compressed deltas to edge
+  aggregators; every tier reduces its cohort with the dequant-fused
+  weighted sum and forwards a :class:`~fedml_tpu_torch.hierarchy.
+  partial_sum.PartialSum` (re-encoded blocks + accumulated weight) upward,
+  so no tier builds a per-contributor f32 tree. Each cohort closes on
+  all-received or quorum, evicts the missing and readmits rejoiners (EF
+  rows reset at the edge); an interior aggregator journals its buffer and
+  restarts from it. :class:`TreeRunner` runs a 100k+-client N-tier
+  federation in one process on one device, a leaf chunk at a time in one
+  batched pass, with chaos at any tier and per-tier ``tier/<d>/...``
+  counters; ``secagg=True`` masks each edge's cohort
+  (``privacy/secagg/hierarchy.py``).
+- **FedBuff** (:mod:`fedml_tpu_torch.hierarchy.fedbuff`) — the bounded,
+  staleness-weighted buffer of delta contributions the asynchronous
+  cross-silo server flushes through the fused weighted sum.
 
-The aggregation trees (``TreeTopology``, ``EdgeAggregator``, the partial
-sums, ``TreeRunner``) come with ROADMAP A10.3c: asking this package for
-one raises, naming that item.
+``python -m fedml_tpu_torch.cli tree`` runs a seeded scenario and prints
+one JSON line.
 """
+from fedml_tpu_torch.hierarchy.edge import EdgeAggregator, LeafCohort
 from fedml_tpu_torch.hierarchy.fedbuff import FedBuffBuffer, staleness_weight
+from fedml_tpu_torch.hierarchy.partial_sum import (
+    PartialSum,
+    compressed_nbytes,
+    finalize_root,
+    flat_reference,
+    reduce_cohort,
+)
+from fedml_tpu_torch.hierarchy.runner import (
+    EdgeKillWindow,
+    KillWindow,
+    TreeRunner,
+    default_template,
+)
+from fedml_tpu_torch.hierarchy.tree import TreeTopology
 
-__all__ = ["FedBuffBuffer", "staleness_weight"]
-
-_TREE_NAMES = frozenset({
-    "EdgeAggregator", "EdgeKillWindow", "KillWindow", "LeafCohort", "PartialSum",
-    "TreeRunner", "TreeTopology", "compressed_nbytes", "default_template",
-    "finalize_root", "flat_reference", "reduce_cohort"})
-
-
-def __getattr__(name: str):
-    if name in _TREE_NAMES:
-        raise NotImplementedError(
-            f"hierarchy.{name}: the aggregation tree comes with ROADMAP A10.3c")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = [
+    "EdgeAggregator",
+    "EdgeKillWindow",
+    "FedBuffBuffer",
+    "KillWindow",
+    "LeafCohort",
+    "PartialSum",
+    "TreeRunner",
+    "TreeTopology",
+    "compressed_nbytes",
+    "default_template",
+    "finalize_root",
+    "flat_reference",
+    "reduce_cohort",
+    "staleness_weight",
+]

@@ -19,8 +19,8 @@ Quick tour::
 Masks cancel exactly in integer arithmetic (mod ``2^k``), so the aggregate
 equals the never-masked sum bit for bit; the wire carries one mask-domain
 word per element. Trees are in the reference's layout and leaf order. The
-per-edge-cohort mode (``hierarchy.py``) comes with the aggregation tree,
-ROADMAP A10.3c.
+per-edge-cohort mode of the aggregation tree is ``hierarchy.py``
+(``SecAggLeafCohort``, ``TreeRunner(secagg=True)``).
 """
 from fedml_tpu_torch.privacy.secagg.codec import (
     WIRE_VERSION_MASKED,

@@ -121,7 +121,8 @@ class CorruptUpdateWindow:
     until)`` (one round by default): ``mode='nan'`` pokes NaN into the first
     float block or scale, ``mode='scale'`` multiplies every scale (or leaf)
     by ``factor``. ``tier`` targets a node's uplink inside an aggregation
-    tree (ROADMAP A10.3c); None is a flat federation rank at the comm seam.
+    tree (``hierarchy.TreeRunner``); None is a flat federation rank at the
+    comm seam.
     """
 
     __slots__ = ("rank", "round", "until", "mode", "factor", "tier")

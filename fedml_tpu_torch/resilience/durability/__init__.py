@@ -12,8 +12,8 @@ replay.
   and bit-identity against an uninterrupted run.
 
 Wired into the synchronous cross-silo server (mid-round re-entry) and the
-async server's FedBuff buffer. The edge aggregators of the aggregation tree
-come with it (ROADMAP A10.3c). Counters: ``resilience/journal_*`` and
+async server's FedBuff buffer, and into the aggregation tree's edge
+aggregators (``hierarchy.EdgeAggregator.bind_journal``). Counters: ``resilience/journal_*`` and
 ``resilience/restarts`` in the port's registry.
 """
 from fedml_tpu_torch.resilience.durability.journal import (

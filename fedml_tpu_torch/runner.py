@@ -1,8 +1,11 @@
 """FedMLRunner — counterpart of ``fedml_tpu/runner.py`` for the training
 types the port has: ``simulation`` and ``cross_silo`` (the server for
 ``role: server`` or rank 0, else a client; the server is the asynchronous one
-under ``async_aggregation``). Hierarchical cross-silo comes with ROADMAP
-A10.3c, cross-cloud with A10.4 and cross-device with A13."""
+under ``async_aggregation``). ``scenario: hierarchical`` runs the same roles
+once ``init`` has applied the per-silo config overrides
+(``arguments.update_client_specific_args``); a silo trained over several
+devices (``n_proc_in_silo > 1``) comes with the multi-GPU layer, ROADMAP A11.
+Cross-cloud comes with A10.4 and cross-device with A13."""
 from __future__ import annotations
 
 from typing import Any
@@ -19,10 +22,6 @@ class FedMLRunner:
             self.runner = create_simulator(args, device, dataset, model,
                                            client_trainer, server_aggregator)
         elif tt == "cross_silo":
-            if str(getattr(args, "scenario", "horizontal")) == "hierarchical":
-                raise NotImplementedError(
-                    "scenario 'hierarchical': hierarchical cross-silo comes with "
-                    "ROADMAP A10.3c")
             is_server = (str(getattr(args, "role", "client")) == "server"
                          or int(getattr(args, "rank", 0)) == 0)
             if is_server:

@@ -14,7 +14,7 @@ reference's (``tests/test_hierarchy.py``'s FedBuff and async tests and
 * the in-process async federation (instant apply, with int8 deltas, and
   FedBuff) completes its budget with the reference's counts and accuracy;
   a top-k compressed full model is refused loudly;
-* the aggregation tree (ROADMAP A10.3c) raises, naming its item.
+* the aggregation tree's names (ROADMAP A10.3c) resolve to the port's own.
 """
 import random
 
@@ -254,7 +254,15 @@ def test_async_refuses_topk_full_model_loudly():
 @pytest.mark.parametrize("name", ["TreeTopology", "EdgeAggregator", "PartialSum",
                                   "TreeRunner", "reduce_cohort"])
 def test_aggregation_tree_raises_naming_a10_3c(name):
+    """ROADMAP A10.3c has landed: the names it refused now resolve to the
+    port's own tree (held against the reference's in
+    ``tests/test_torch_hierarchy.py``), and the package no longer raises for
+    them; an unknown name is still an AttributeError."""
     import fedml_tpu_torch.hierarchy as hierarchy
+    from fedml_tpu import hierarchy as jhierarchy
 
-    with pytest.raises(NotImplementedError, match=r"A10\.3c"):
-        getattr(hierarchy, name)
+    obj = getattr(hierarchy, name)
+    assert obj.__module__.startswith("fedml_tpu_torch.hierarchy.")
+    assert obj.__name__ == getattr(jhierarchy, name).__name__
+    with pytest.raises(AttributeError):
+        getattr(hierarchy, "NoSuchTreeName")

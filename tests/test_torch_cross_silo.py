@@ -391,7 +391,7 @@ REFUSALS = {
     "contribution": ({"enable_contribution": True}, 0, None),
     "async server": ({"async_aggregation": True}, 0, None),
     "AsyncFedAvg": ({"federated_optimizer": "AsyncFedAvg"}, 0, None),
-    "hierarchical scenario": ({"scenario": "hierarchical"}, 0, r"A10\.3c"),
+    "hierarchical scenario": ({"scenario": "hierarchical"}, 0, None),
     "chaos": ({"chaos": {"drop": 0.1}}, 1, None),
     "durability journal": ({"durability": True}, 0, (ValueError, "needs checkpoint_dir")),
     "durability with checkpoint_dir": ({"durability": True, "checkpoint_dir": "<tmp>"}, 0,
@@ -676,3 +676,83 @@ def test_mixed_federation_with_integrity_over_the_broker(server_side, tmp_path,
     assert fed.server.manager._agg_robust == "median"
     assert fed.server.manager.result["rounds"] == 3
     _hold(fed, ref, "int8")
+
+
+# -- scenario: hierarchical (per-silo config overrides) --------------------
+def _silo_configs(tmp_path):
+    (tmp_path / "server.yaml").write_text("train_args: {silo_role: aggregator}\n")
+    (tmp_path / "silo1.yaml").write_text("train_args: {silo_name: a, batch_size: 32}\n")
+    (tmp_path / "silo2.yaml").write_text("train_args: {silo_name: b}\n")
+    main = tmp_path / "main.yaml"
+    main.write_text("common_args: {training_type: cross_silo, scenario: hierarchical}\n"
+                    "train_args: {client_num_in_total: 2, client_num_per_round: 2}\n"
+                    "device_args: {server_config_path: server.yaml,\n"
+                    "              client_silo_config_paths: [silo1.yaml, silo2.yaml]}\n")
+    return main
+
+
+@pytest.mark.parametrize("mode", ["hierarchical", "data_silo_config"])
+def test_per_silo_overrides_match_the_reference(tmp_path, mode):
+    main = _silo_configs(tmp_path)
+    if mode == "data_silo_config":
+        main.write_text("common_args: {training_type: cross_silo}\n"
+                        "client_specific_args: {data_silo_config: [silo1.yaml, silo2.yaml]}\n")
+    got = {}
+    for rank in (0, 1, 2, 3):
+        ja = jarguments.load_arguments_from_yaml_path(str(main))
+        ta = targuments.Arguments()
+        ta.load_yaml_config(str(main))
+        targuments.apply_defaults(ta)
+        ja.rank = ta.rank = rank
+        if mode == "data_silo_config" and rank == 3:
+            with pytest.raises(ValueError, match="lists only 2"):
+                jarguments.update_client_specific_args(ja)
+            with pytest.raises(ValueError, match="lists only 2"):
+                targuments.update_client_specific_args(ta)
+            continue
+        jarguments.update_client_specific_args(ja)
+        targuments.update_client_specific_args(ta)
+        for k in ("silo_role", "silo_name", "batch_size", "worker_num", "scenario"):
+            assert getattr(ta, k, None) == getattr(ja, k, None), (mode, rank, k)
+        got[rank] = getattr(ta, "silo_name", None)
+    assert (got[1], got[2]) == ("a", "b")
+
+
+def test_hierarchical_scenario_inproc_matches_the_horizontal_run(tmp_path):
+    """Two silos with ``scenario: hierarchical`` built through the runner,
+    each after ``init`` applied its silo's overrides, train the horizontal
+    federation's parameters bit for bit."""
+    main = _silo_configs(tmp_path)
+    cfg = _cfg(client_num_in_total=2, client_num_per_round=2, comm_round=2)
+    args = targuments.load_arguments_from_dict(copy.deepcopy(cfg))
+    ds = tdl.load_federated(args)
+    model = thub.create(args, ds.class_num)
+    server, clients = build_cross_silo_inproc(args, ds, model, "cpu")
+    horizontal = Fed(server, clients, jax_side=False)
+    _run_local(horizontal)
+
+    cfg_h = copy.deepcopy(cfg)
+    cfg_h["common_args"]["run_id"] = cfg["common_args"]["run_id"] + "_h"
+    cfg_h["common_args"]["scenario"] = "hierarchical"
+    cfg_h["device_args"] = {"server_config_path": str(tmp_path / "server.yaml"),
+                            "client_silo_config_paths": [str(tmp_path / "silo1.yaml"),
+                                                         str(tmp_path / "silo2.yaml")]}
+    runners = []
+    for rank in range(3):
+        a = targuments.load_arguments_from_dict(copy.deepcopy(cfg_h))
+        a.rank, a.role = rank, "server" if rank == 0 else "client"
+        fedml_tpu_torch.init(a)
+        assert a.scenario == "hierarchical"
+        assert (a.silo_role if rank == 0 else a.silo_name) == ["aggregator", "a", "b"][rank]
+        runners.append(FedMLRunner(a, "cpu", ds, model).runner)
+    hier = Fed(runners[0], runners[1:], jax_side=False)
+    hier.initial = horizontal.initial
+    hier.server.fedml_aggregator.set_global_model_params(
+        {k: v.clone() for k, v in horizontal.initial.items()})
+    result = _run_local(hier)
+    assert result["rounds"] == 2
+    assert hier.silos == horizontal.silos
+    for pg, hg in zip(hier.globals, horizontal.globals):
+        for k in hg:
+            assert torch.equal(pg[k], hg[k]), k
+    assert main.exists()

@@ -855,3 +855,55 @@ def test_async_fedbuff_federation_on_cuda():
     res = run_cross_silo_inproc(args, ds, create(args, ds.class_num), timeout=120)
     assert res["updates"] == 9 and res["flushes"] == 3
     assert res["test_loss"] < 1.0, res
+
+
+@pytest.mark.requires_cuda
+def test_batched_threefry_on_cuda_matches_cpu_bit_for_bit():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch.compression import threefry
+
+    keys = torch.randint(0, 2 ** 32, (8, 2), dtype=torch.int64,
+                         generator=torch.Generator().manual_seed(0))
+    ids, sizes = [0, 3, 7], [1000, 17, 1]
+    for fn in (threefry.uniform_leaves, threefry.normal_leaves):
+        got, want = fn(keys.cuda(), ids, sizes).cpu(), fn(keys, ids, sizes)
+        assert torch.equal(got, want) if fn is threefry.uniform_leaves else (
+            (got - want).abs().max().item() <= 2e-6)
+    assert torch.equal(threefry.fold_in_batch(keys.cuda(), 5).cpu(),
+                       threefry.fold_in_batch(keys, 5))
+    assert torch.equal(threefry.uniform_batch(keys.cuda(), (33, 3)).cpu(),
+                       threefry.uniform_batch(keys, (33, 3)))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("codec", ["int8", "identity"])
+def test_leaf_chunk_on_cuda_matches_cpu_bit_for_bit(codec):
+    """One leaf chunk (uniform deltas, EF, the encode, the weighted rows
+    summed in the fixed pairwise order) on the card and on the CPU: the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch.compression import get_codec, threefry
+    from fedml_tpu_torch.hierarchy.edge import leaf_chunk
+
+    meta = (("float32", (64,)), ("float32", (3, 3, 16, 8)))
+    sizes = [64, 3 * 3 * 16 * 8]
+
+    def delta_fn(keys):
+        flat = threefry.uniform_leaves(keys, [0, 1], sizes) - 0.5
+        return (flat[:, :64], flat[:, 64:].reshape(keys.shape[0], 3, 3, 16, 8))
+
+    keys = torch.randint(0, 2 ** 32, (8, 2), dtype=torch.int64,
+                         generator=torch.Generator().manual_seed(1))
+    w = torch.tensor([1.0, 2.0, 0.0, 1.0, 3.0, 1.0, 0.0, 1.0])
+    res = tuple(torch.randn((8,) + sh, generator=torch.Generator().manual_seed(2)) * 0.01
+                for _, sh in meta)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        summed, new_res = leaf_chunk(get_codec(codec), meta, delta_fn, True, "mean", 0.0,
+                                     keys.to(dev), w.to(dev), tuple(r.to(dev) for r in res))
+        out[dev] = [x.cpu() for x in (*summed, *new_res)]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a, b)
+

@@ -643,3 +643,96 @@ def test_fp32_precision_under_a_thread_storm():
     finally:
         sys.setswitchinterval(switch)
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+# -- per-tier edge recovery (the aggregation tree) -------------------------
+def _edge_partial(pkg, seed):
+    """A PartialSum of an int8 tree under derive_key(0, 0, seed), built by the
+    reference (``pkg`` "jax") or the port — the same wire arrays either way."""
+    if pkg == "jax":
+        from fedml_tpu.hierarchy import PartialSum as JPartialSum
+
+        ct = jc.get_codec("int8").encode({"w": np.ones((8, 4), np.float32) * (1 + seed)},
+                                         key=jc.derive_key(0, 0, seed), is_delta=True)
+        return JPartialSum(ct, 2.0, 2)
+    from fedml_tpu_torch.compression import derive_key, get_codec
+    from fedml_tpu_torch.hierarchy import PartialSum
+
+    ct = get_codec("int8").encode({"w": torch.ones(8, 4) * (1 + seed)},
+                                  key=derive_key(0, 0, seed), is_delta=True)
+    return PartialSum(ct, 2.0, 2)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_edge_aggregator_restores_a_journal_written_by_either_package(tmp_path, writer):
+    """An edge killed after two offers: a fresh aggregator of the OTHER
+    package restores the open round from the journal and closes it as the
+    uninterrupted edge does, bit for bit; the close resets the journal."""
+    from fedml_tpu.hierarchy import EdgeAggregator as JEdge
+    from fedml_tpu.resilience.durability import RoundJournal as JJournal
+    from fedml_tpu_torch.compression import derive_key, get_codec
+    from fedml_tpu_torch.hierarchy import EdgeAggregator
+
+    path = str(tmp_path / "edge.journal")
+    if writer == "jax":
+        a = JEdge(1, 0, [10, 11, 12], jc.get_codec("int8"), quorum_frac=1.0)
+        a.bind_journal(JJournal(path))
+    else:
+        a = EdgeAggregator(1, 0, [10, 11, 12], get_codec("int8"), quorum_frac=1.0,
+                           device="cpu")
+        a.bind_journal(RoundJournal(path))
+    a.begin_round(4)
+    assert a.offer(10, _edge_partial(writer, 1)) and a.offer(11, _edge_partial(writer, 2))
+    reader = "port" if writer == "jax" else "jax"
+    if reader == "jax":
+        b = JEdge(1, 0, [10, 11, 12], jc.get_codec("int8"), quorum_frac=1.0)
+        b.bind_journal(JJournal(path))
+    else:
+        b = EdgeAggregator(1, 0, [10, 11, 12], get_codec("int8"), quorum_frac=1.0,
+                           device="cpu")
+        b.bind_journal(RoundJournal(path))
+    assert b.restore_from_journal() == 2
+    assert b.received() == 2 and b._round == 4
+    assert not b.offer(10, _edge_partial(reader, 9))  # a duplicate is still refused
+    assert b.offer(12, _edge_partial(reader, 3))
+    key = jc.derive_key(0, 4, 99) if reader == "jax" else derive_key(0, 4, 99)
+    restored, missing = b.close_round(key)
+    assert missing == [] and restored is not None and restored.weight == 6.0
+    c = EdgeAggregator(1, 0, [10, 11, 12], get_codec("int8"), quorum_frac=1.0, device="cpu")
+    c.begin_round(4)
+    for child, seed in ((10, 1), (11, 2), (12, 3)):
+        c.offer(child, _edge_partial("port", seed))
+    direct, _ = c.close_round(derive_key(0, 4, 99))
+    for pa, pb in zip(restored.ct.arrays, direct.ct.arrays):
+        for x, y in zip(pa, pb):
+            np.testing.assert_array_equal(_as_np(x), _as_np(y))
+    assert b.restore_from_journal() == 0  # the close reset the journal
+
+
+def test_tree_runner_edge_kill_is_digest_identical(tmp_path):
+    from fedml_tpu_torch.hierarchy import (
+        EdgeKillWindow,
+        TreeRunner,
+        TreeTopology,
+        default_template,
+    )
+
+    def run(chaos, dur_dir):
+        return TreeRunner(TreeTopology.build(500, tiers=4), template=default_template(64),
+                          codec="int8", seed=3, chaos=chaos, durability_dir=dur_dir,
+                          device="cpu").run(3)
+
+    base = run([], None)
+    before = (_counter("resilience/restarts"), _counter("resilience/journal_salvaged"),
+              _counter("tier/1/restarts"))
+    killed = run([EdgeKillWindow(1, 0, 1, after_children=1)], str(tmp_path / "tree"))
+    assert killed["final_digest"] == base["final_digest"]
+    assert _counter("resilience/restarts") == before[0] + 1
+    assert _counter("resilience/journal_salvaged") >= before[1] + 1
+    assert _counter("tier/1/restarts") == before[2] + 1
+    assert sorted(os.listdir(tmp_path / "tree"))[:2] == ["edge_t0_n0.journal",
+                                                         "edge_t1_n0.journal"]
+    # an EdgeKillWindow without a journal to restart from is refused
+    with pytest.raises(ValueError, match="durability_dir"):
+        TreeRunner(TreeTopology.build(100, tiers=3), chaos=[EdgeKillWindow(1, 0, 1)],
+                   device="cpu")

@@ -352,3 +352,44 @@ def test_cross_silo_entry_points_refuse_missing_cuda(monkeypatch):
         run_cross_silo_inproc(args, ds, create(args, ds.class_num))
     assert run_cross_silo_inproc(args, ds, create(args, ds.class_num), timeout=60,
                                  device="cpu")["rounds"] == 1
+
+
+@pytest.mark.parametrize("module", [
+    "fedml_tpu_torch.hierarchy.tree",
+    "fedml_tpu_torch.hierarchy.partial_sum",
+    "fedml_tpu_torch.hierarchy.edge",
+    "fedml_tpu_torch.hierarchy.runner",
+    "fedml_tpu_torch.privacy.secagg.hierarchy",
+])
+def test_tree_slice_modules_are_scanned(module):
+    """The aggregation tree's modules (the topology, the partial sums, the
+    edge aggregators and leaf cohorts, the runner, the per-cohort SecAgg) are
+    among those both scans cover."""
+    assert module in PORT_MODULES
+
+
+def test_tree_entry_points_refuse_missing_cuda(monkeypatch):
+    """The tree's runner, its aggregators, the ``tree`` command and the
+    hierarchical cross-silo launchers default to ``cuda`` and raise without
+    it."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch import cli
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.compression import get_codec
+    from fedml_tpu_torch.hierarchy import EdgeAggregator, TreeRunner, TreeTopology
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TreeRunner(TreeTopology((1, 4, 16)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EdgeAggregator(1, 0, [1, 2], get_codec("int8"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["tree", "--clients", "16"])
+    args = load_arguments_from_dict({
+        "common_args": {"training_type": "cross_silo", "run_id": "no_cuda_h"},
+        "train_args": {"comm_round": 1}, "data_args": {"train_size": 64, "test_size": 16}})
+    for fn in (fedml_tpu_torch.run_hierarchical_cross_silo_server,
+               fedml_tpu_torch.run_hierarchical_cross_silo_client):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(args)
+    assert TreeRunner(TreeTopology((1, 4, 16)), device="cpu").run(1)["completed"]

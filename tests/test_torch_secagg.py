@@ -770,3 +770,100 @@ def test_secagg_multiprocess_example_config_runs_on_the_port(tmp_path):
     result = out[0]
     assert result["rounds"] == cfg["train_args"]["comm_round"] == 2
     assert result["test_acc"] > 0.5, result
+
+
+# -- the aggregation tree: per-edge-cohort secagg --------------------------
+def _uniform_delta_fns(meta):
+    """Deltas ``(uniform - 0.5) / 4`` per leaf under ``fold_in(key, leaf)``:
+    exact in f32 on both sides and inside the ±0.1 clip only in part."""
+    from fedml_tpu_torch.compression import threefry
+
+    shapes = [sh for _, sh in meta]
+
+    def jfn(key):
+        return tuple((jax.random.uniform(jax.random.fold_in(key, i), sh) - 0.5) * 0.25
+                     for i, sh in enumerate(shapes))
+
+    ids, sizes = list(range(len(shapes))), [int(np.prod(sh)) for sh in shapes]
+
+    def tfn(keys):
+        flat = (threefry.uniform_leaves(keys, ids, sizes) - 0.5) * 0.25
+        out, off = [], 0
+        for sh, n in zip(shapes, sizes):
+            out.append(flat[:, off:off + n].reshape((keys.shape[0],) + tuple(sh)))
+            off += n
+        return tuple(out)
+
+    return jfn, tfn
+
+
+def test_tree_cohort_masked_sums_match_the_reference_word_for_word():
+    """``tests/test_secagg.py``'s tree scenario on both packages: every
+    cohort's unmasked sum, round by round — through the recovery after the
+    kill — equals the reference's bit for bit; the recovered sum equals the
+    survivors' quantized words summed with zero masks; two port runs end
+    digest-identical."""
+    from fedml_tpu.hierarchy import runner as jrunner
+    from fedml_tpu.hierarchy.tree import TreeTopology as JTopology
+    from fedml_tpu_torch.hierarchy import KillWindow, TreeRunner, TreeTopology
+    from fedml_tpu_torch.hierarchy import runner as trunner
+    from fedml_tpu_torch.telemetry import get_registry
+
+    tmpl = jrunner.default_template(128)
+    meta = tuple(("float32", tmpl[k].shape) for k in sorted(tmpl))  # b, w
+    jfn, tfn = _uniform_delta_fns(meta)
+
+    def record(runner, sink, port):
+        for cohort in runner.cohorts:
+            reduce = cohort.reduce
+
+            def wrapped(r, alive, cohort=cohort, reduce=reduce):
+                out = reduce(r, alive)
+                leaves = [np.asarray(x) if not port else x.numpy() for x in out[0]]
+                sink.append((r, cohort.edge_id, leaves, out[1], out[2]))
+                if port and r == 1 and not np.asarray(alive).all():
+                    live = np.nonzero(np.asarray(alive) & ~cohort.evicted_mask)[0]
+                    plain = cohort.chunk_words(r, live, None)
+                    sink.append(("plain", [torch.equal(a, b) for a, b in
+                                           zip(cohort.last_words, plain)]))
+                return out
+
+            cohort.reduce = wrapped
+        return runner
+
+    kw = dict(codec="int8", seed=3, quorum=0.5, chunk=16, secagg=True)
+    jsums, tsums = [], []
+    before = get_registry().counter("secagg/hier_recoveries").value
+    jr = record(jrunner.TreeRunner(JTopology([1, 2, 24]), template=tmpl, delta_fn=jfn,
+                                   chaos=[jrunner.KillWindow(2, 5, 1)], **kw), jsums, False)
+    jout = jr.run(3)
+    t1 = record(TreeRunner(TreeTopology([1, 2, 24]), template=trunner.default_template(128),
+                           delta_fn=tfn, chaos=[KillWindow(2, 5, 1)], device="cpu", **kw),
+                tsums, True)
+    tout = t1.run(3)
+    assert get_registry().counter("secagg/hier_recoveries").value - before >= 1
+    plain = [s for s in tsums if s[0] == "plain"]
+    assert plain == [("plain", [True, True])]
+    tsums = [s for s in tsums if s[0] != "plain"]
+    assert len(tsums) == len(jsums) == 6
+    for (jr_, je, jl, jw, jn), (tr_, te, tl, tw, tn) in zip(jsums, tsums):
+        assert (jr_, je, jw, jn) == (tr_, te, tw, tn)
+        for a, b in zip(jl, tl):
+            np.testing.assert_array_equal(a, b)
+    assert tout["secagg"] is jout["secagg"] is True
+    assert tout["root_total_weight"] == jout["root_total_weight"]
+    again = TreeRunner(TreeTopology([1, 2, 24]), template=trunner.default_template(128),
+                       delta_fn=tfn, chaos=[KillWindow(2, 5, 1)], device="cpu", **kw).run(3)
+    assert again["final_digest"] == tout["final_digest"]
+
+
+@pytest.mark.parametrize("option,match", [({"ef": True}, "EF"),
+                                          ({"agg_robust": "median"}, "agg_robust"),
+                                          ({"screen": True}, "screening"),
+                                          ({"secagg_mod_bits": 4}, "mod_bits")])
+def test_tree_secagg_refusals(option, match):
+    from fedml_tpu_torch.hierarchy import TreeRunner, TreeTopology
+
+    with pytest.raises(ValueError, match=match):
+        TreeRunner(TreeTopology([1, 2, 24]), codec="int8", secagg=True, device="cpu",
+                   **option)
