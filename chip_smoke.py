@@ -99,8 +99,9 @@ the final ``ok`` line:
     went through the store, and prints the bytes published on the broker
     and written to the store, the ``safe_dumps`` / ``safe_loads`` ms of the
     broadcast and of one upload, and the round's wall;
-(j) the aggregation-side trust stack on phase h's model and data (no hand
-    kernel on this path). (j1) the sp simulation, 10 of 10 clients, int8,
+(j) the aggregation-side trust stack on phase h's model and data, j1 and
+    j2 on half its training images (no hand kernel on this path). (j1) the
+    sp simulation, 10 of 10 clients, int8,
     2 rounds, ``integrity: true`` with ``agg_robust: trimmed_mean@0.2``;
     in round 0 one upload arrives with a NaN scale and one scaled ×100. It
     fails unless the NaN upload is screened and its sender quarantined out
@@ -227,12 +228,33 @@ the final ``ok`` line:
     in round 1, 2 rounds, twice: equal digests, a recovery, and round 1's
     unmasked sum of client 5's cohort equal word for word to its survivors'
     clipped, shared-scale quantized words summed with zero masks; it prints
-    seconds a round and the host ms on masks. Each phase prints its seconds.
+    seconds a round and the host ms on masks;
+(o) the other transports and cross-cloud (no hand kernel on this path):
+    three federations at once, each a server and 2 silos as OS processes
+    started through the entry points, on phase i2's cut of phase h's model
+    and data (8 hetero parts, a part a silo), int8 uplinks, 1 round, cuDNN's
+    deterministic algorithms. (o1) ``comm_backend: TRPC`` on a free
+    rendezvous port; (o2) ``training_type: cross_cloud`` over the port's
+    C++ epoll broker (``deploy broker --native`` in a child process) with
+    ``remote_storage: s3`` at a SigV4-checking stub on 127.0.0.1 and the
+    payload offload at 64 KiB, each silo applying its own override file
+    (its transport keys and its S3 region); (o3) ``comm_backend: GRPC`` on
+    free ports. It fails unless every process exits 0 within
+    O_TIMEOUT_S, each server ran 1 round, each test loss ends below the
+    untrained model's, the stub verified every signature and served the
+    broadcast to both silos, each silo echoes its override file's values,
+    and the three final global models are digest-equal. It prints per leg
+    the wall, the round ms, the wire bytes out and in by backend, the bytes
+    through the native broker and the store, and the SigV4 PUT and GET ms.
+    Each phase prints its seconds.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
-``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
-with code 2 and prints no result. The full per-shape results also go to
-``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklmn``) runs
+``{"ok": true, "device": {...}}``, after the whole script's seconds.
+Without a CUDA device the script exits with code 2 and prints no result;
+with one, it runs itself again under ``PYTHONHASHSEED=0`` unless that is
+set, so every phase and every process it starts draws the same CIFAR-10
+stand-in. The full per-shape results also go to
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklmno``) runs
 (a) and the phases named, and prints no kernels or ok line (phase g sets
 its round beside phase e's only when both run). ``--parent DIR`` builds the dequant and flash-forward kernels of
 another checkout (DIR, e.g. the parent commit unpacked by ``git archive``)
@@ -244,8 +266,10 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -413,11 +437,16 @@ CS_TIMED_REPS = 5
 # ``integrity: true`` with
 # norm-difference clipping (bound TRUST_NORM_BOUND) and local DP (ε 8,
 # δ 1e-5, sensitivity 1e-3: noise of σ 6.1e-4, ~2.0 of L2 over the model).
-TRUST_SP_CONFIG = {**SP_CONFIG, "train_args": {
+# j1 and j2 draw half of the stand-in's training images (25,000, the test
+# set whole) to keep the script inside its 1,200 s on a slow host: their
+# three full-size sp rounds took 53-66 s each on an H100 host that ran the
+# host-bound phases ~25% slower than others.
+TRUST_DATA = {**SP_CONFIG["data_args"], "train_size": 25_000}
+TRUST_SP_CONFIG = {**SP_CONFIG, "data_args": TRUST_DATA, "train_args": {
     **SP_CONFIG["train_args"], "comm_round": 2, "integrity": True,
     "agg_robust": "trimmed_mean@0.2", "integrity_norm_mult": 1e6,
     "integrity_z_threshold": 1e6}}
-TRUST_DECODE_CONFIG = {**SP_CONFIG, "train_args": {
+TRUST_DECODE_CONFIG = {**SP_CONFIG, "data_args": TRUST_DATA, "train_args": {
     **SP_CONFIG["train_args"], "comm_round": 1, "enable_attack": True,
     "attack_type": "byzantine", "attack_mode": "random", "byzantine_client_num": 2,
     "enable_defense": True, "defense_type": "krum", "krum_param_k": 1}}
@@ -593,6 +622,21 @@ TREE_N3_KILL = (2, 5, 1)
 TREE_PEAK_FRAC = 0.05   # no tier buffers 5% of the clients' f32 trees (the reference's gate)
 TREE_WIRE_FRAC = 0.35   # an int8 upload under 0.35 of the f32 tree (the reference's gate)
 TREE_CLI_TIMEOUT_S = 600
+
+# Phase (o), the other transports and cross-cloud (ROADMAP A10.4): phase i2's
+# federation (phase h's model and data in CS_BROKER_PARTS hetero parts, a
+# part a silo), three legs of a server and O_SILOS silos at once: tRPC, the
+# cross-cloud federation over the C++ broker and the S3 stub, and gRPC. The
+# legs differ only in transport, so they must end digest-equal. On 2 of 20
+# parts one round did not train: the test loss rose above the untrained
+# model's on hetero parts (2.80187 -> 3.20508) and barely fell on IID ones
+# (-> 2.78345), on the card.
+O_PARTS = CS_BROKER_PARTS
+O_SILOS = 2
+O_TIMEOUT_S = 240
+O_S3_KEYS = ("AKIDCHIPSMOKE", "chip/smoke+secret")
+O_S3_REGIONS = ("us-east-1", "eu-west-1", "ap-northeast-1")  # the server's, each silo's
+O_BROKER_TIMEOUT_S = 60   # deploy broker --native prints its address within this
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s and bf16 FLOP/s.
 PEAKS = (
@@ -1235,12 +1279,12 @@ def steady_decode(engine, rng, n_steps: int = 30, n_prof: int = 5):
     step_s = (time.perf_counter() - t0) / n_steps
     # device time per step from the profiler's kernel records; the wall time
     # is the unprofiled one above (the profiler slows the host side)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n_prof):
             engine.step()
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    dev_step_ms = dev_us / 1e3 / n_prof if dev_us > 0 else None
+        torch.cuda.synchronize()
+    dev_ms = sum(ms for _, ms in _device_kernels(prof).values())
+    dev_step_ms = dev_ms / n_prof if dev_ms > 0 else None
     busy = dev_step_ms / (step_s * 1e3) if dev_step_ms else None
     print(f"  decode at {engine.n_slots} slots: {step_s * 1e3:.2f} ms/step, "
           f"{engine.n_slots / step_s:.1f} tokens/s; device time "
@@ -1421,14 +1465,14 @@ def train_phase(light: bool = False, **overrides):
     t0 = time.perf_counter()
     one_round()
     round_wall_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         one_round()
+        torch.cuda.synchronize()
     by_class, by_kernel = {}, []
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            ms_ = e.self_device_time_total / 1e3
-            by_kernel.append((ms_, e.count, e.key))
-            c = kernel_class(e.key)
+    for key, (count, ms_) in _device_kernels(prof).items():
+        if ms_ > 0:
+            by_kernel.append((ms_, count, key))
+            c = kernel_class(key)
             by_class[c] = by_class.get(c, 0.0) + ms_
     dev_ms = sum(by_class.values())
     busy = dev_ms / (round_wall_s * 1e3) if dev_ms else None
@@ -2013,10 +2057,9 @@ def sp_phase(card: str):
         tr.train(api.global_params, window, "cuda", args)
         torch.cuda.synchronize()
     by_class = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            c = sp_kernel_class(e.key)
-            by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total / 1e3
+    for key, (_, ms_) in _device_kernels(prof).items():
+        c = sp_kernel_class(key)
+        by_class[c] = by_class.get(c, 0.0) + ms_
     dev_ms = sum(by_class.values())
     busy = dev_ms / (window_s * 1e3) if dev_ms else None
     steady = rounds[-1]["round_sec"]
@@ -2293,59 +2336,190 @@ print("CHILD " + json.dumps({"role": role, "result": result,
 """
 
 
-def _broker_federation(run_id: str, n_silos: int, **train):
-    """A server and ``n_silos`` silos as OS processes over the port's broker
-    and a shared object store, started through the entry points with a
-    config this writes (phase h's model and data, ``train`` over
-    CS_CONFIG's training arguments). Returns each process's CHILD record,
-    the wall and the bytes published on the broker; fails unless every
-    process exits 0 within CS_BROKER_TIMEOUT_S."""
+class S3Stub:
+    """An S3 endpoint on 127.0.0.1 for one key pair: path-style PUT, GET and
+    DELETE of ``/{bucket}/{key}``, each request's SigV4 signature recomputed
+    from the AWS specification (independently of the port's ``s3_store``)
+    with the region its credential scope names, and each PUT's body held
+    to its ``x-amz-content-sha256``. A request that fails either check gets
+    403 or 400 and lands in ``failures``; ``requests`` counts the rest by
+    method, ``log`` lists them (method, path, the region signed), and
+    ``bytes_in`` / ``bytes_out`` count their bodies."""
+
+    _AUTH = re.compile(r"AWS4-HMAC-SHA256 Credential=([^/]+)/(\d{8})/([^/]+)/s3/aws4_request, "
+                       r"SignedHeaders=host;x-amz-content-sha256;x-amz-date, "
+                       r"Signature=([0-9a-f]{64})$")
+
+    def __init__(self, access_key: str, secret_key: str):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.access_key, self.secret_key = access_key, secret_key
+        self.blobs: dict = {}
+        self.requests: dict = {}
+        self.log: list = []
+        self.failures: list = []
+        self.bytes_in = self.bytes_out = 0
+        self._lock = threading.Lock()
+        stub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_PUT(self):
+                stub._serve(self)
+
+            do_GET = do_DELETE = do_PUT
+
+            def log_message(self, *a):
+                pass
+
+        self._srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._thread = threading.Thread(target=self._srv.serve_forever, daemon=True)
+
+    @property
+    def endpoint(self) -> str:
+        return f"http://127.0.0.1:{self._srv.server_address[1]}"
+
+    def start(self) -> "S3Stub":
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._srv.shutdown()
+        self._srv.server_close()
+
+    def signature(self, method, path, host, amz_date, payload_hash, region) -> str:
+        import hashlib
+        import hmac
+
+        creq = "\n".join([method, path, "", f"host:{host}\nx-amz-content-sha256:"
+                          f"{payload_hash}\nx-amz-date:{amz_date}\n",
+                          "host;x-amz-content-sha256;x-amz-date", payload_hash])
+        scope = f"{amz_date[:8]}/{region}/s3/aws4_request"
+        sts = "\n".join(["AWS4-HMAC-SHA256", amz_date, scope,
+                         hashlib.sha256(creq.encode()).hexdigest()])
+        k = ("AWS4" + self.secret_key).encode()
+        for part in (amz_date[:8], region, "s3", "aws4_request"):
+            k = hmac.new(k, part.encode(), hashlib.sha256).digest()
+        return hmac.new(k, sts.encode(), hashlib.sha256).hexdigest()
+
+    def _serve(self, h) -> None:
+        import hashlib
+
+        method, path = h.command, h.path
+        body = h.rfile.read(int(h.headers.get("Content-Length", 0) or 0))
+        amz_date = h.headers.get("x-amz-date", "")
+        payload_hash = h.headers.get("x-amz-content-sha256", "")
+        m = self._AUTH.match(h.headers.get("Authorization", ""))
+        ok = (m is not None and m.group(1) == self.access_key and m.group(2) == amz_date[:8]
+              and m.group(4) == self.signature(method, path, h.headers.get("Host", ""),
+                                               amz_date, payload_hash, m.group(3)))
+        if not ok or hashlib.sha256(body).hexdigest() != payload_hash:
+            with self._lock:
+                self.failures.append((method, path))
+            h.send_error(403 if not ok else 400)
+            return
+        with self._lock:
+            self.requests[method] = self.requests.get(method, 0) + 1
+            self.log.append((method, path, m.group(3)))
+            self.bytes_in += len(body)
+            if method == "PUT":
+                self.blobs[path] = body
+                blob = b""
+            elif method == "GET":
+                blob = self.blobs.get(path)
+            else:
+                self.blobs.pop(path, None)
+                blob = b""
+            if blob is not None:
+                self.bytes_out += len(blob)
+        if blob is None:
+            h.send_error(404, "NoSuchKey")
+            return
+        h.send_response(200 if method != "DELETE" else 204)
+        h.send_header("Content-Length", str(len(blob)))
+        h.end_headers()
+        h.wfile.write(blob)
+
+
+def free_port_base(n: int) -> int:
+    """A base port with ``n`` consecutive ports free on 127.0.0.1 (bound and
+    released here)."""
+    import random
+    import socket
+
+    rng = random.Random(os.getpid() ^ time.monotonic_ns())
+    while True:
+        base = rng.randrange(20000, 60000 - n)
+        socks = []
+        try:
+            for i in range(n):
+                sock = socket.socket()
+                socks.append(sock)
+                sock.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+
+
+def _federation_processes(run_id: str, n_silos: int, comm: dict, train: dict,
+                          child: str = CS_CHILD, child_args=(), silo_configs=None,
+                          env=None, timeout: float = CS_BROKER_TIMEOUT_S):
+    """A server and ``n_silos`` silos as OS processes, started through the
+    entry points with a config this writes (CS_CONFIG with ``train`` over
+    its training arguments and ``comm`` as its transport; ``silo_configs``,
+    one dict a silo, become the silos' override files). Returns each
+    process's CHILD record and the wall; fails unless every process exits 0
+    within ``timeout``."""
     import shutil
     import tempfile
 
-    from fedml_tpu_torch.core.distributed.communication.broker import PubSubBroker
-    from fedml_tpu_torch.telemetry import get_registry
-
     here = os.path.dirname(os.path.abspath(__file__))
-    published0 = get_registry().counter("broker/bytes_in").value
     work = tempfile.mkdtemp(prefix="chip_smoke_cs_")
-    broker = PubSubBroker("127.0.0.1", 0).start()
     procs = []
     try:
-        host, port = broker.address
         cfg = json.loads(json.dumps(CS_CONFIG))
         cfg["common_args"]["run_id"] = run_id
-        cfg["train_args"].update(client_num_in_total=n_silos, client_num_per_round=n_silos,
-                                 comm_round=1)
+        cfg["train_args"].update(client_num_in_total=n_silos,
+                                 client_num_per_round=n_silos, comm_round=1)
         cfg["train_args"].update(train)
-        cfg["comm_args"] = {"comm_backend": "BROKER", "broker_host": host,
-                            "broker_port": port, "object_store_dir": os.path.join(work, "store"),
-                            "payload_offload_bytes": 65536}
+        cfg["comm_args"] = {"object_store_dir": os.path.join(work, "store"),
+                            "payload_offload_bytes": 65536, **comm}
+        if silo_configs:
+            paths = []
+            for r, silo in enumerate(silo_configs, 1):
+                paths.append(os.path.join(work, f"silo{r}.json"))
+                with open(paths[-1], "w") as f:
+                    json.dump(silo, f)
+            cfg["client_specific_args"] = {"data_silo_config": paths}
         path = os.path.join(work, "fedml_config.yaml")
         with open(path, "w") as f:  # YAML in its JSON form: the card has no PyYAML
             json.dump(cfg, f, indent=1)
-        env = dict(os.environ, PYTHONHASHSEED=CS_HASHSEED,
+        env = dict(os.environ, PYTHONHASHSEED=CS_HASHSEED, **(env or {}),
                    PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        for k in ("MASTER_ADDR", "MASTER_PORT"):  # the config names the rendezvous
+            env.pop(k, None)
         t0 = time.perf_counter()
         for rank in range(n_silos + 1):
             role = "server" if rank == 0 else "client"
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", CS_CHILD, role, "--cf", path, "--rank", str(rank),
-                 "--role", role], cwd=here, env=env, stdout=subprocess.PIPE,
+                [sys.executable, "-c", child, role, *child_args, "--cf", path, "--rank",
+                 str(rank), "--role", role], cwd=here, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True))
         outs = []
         for p in procs:
-            left = max(1.0, CS_BROKER_TIMEOUT_S - (time.perf_counter() - t0))
+            left = max(1.0, timeout - (time.perf_counter() - t0))
             try:
                 outs.append(p.communicate(timeout=left))
             except subprocess.TimeoutExpired:
-                raise RuntimeError(f"a process of the broker federation did not exit within "
-                                   f"{CS_BROKER_TIMEOUT_S} s") from None
+                raise RuntimeError(f"a process of federation {run_id} did not exit within "
+                                   f"{timeout} s") from None
         wall = time.perf_counter() - t0
         codes = [p.returncode for p in procs]
         if any(codes):
             tails = "\n".join(err[-2000:] for _, err in outs)
-            raise RuntimeError(f"the broker federation's processes exited {codes}:\n{tails}")
+            raise RuntimeError(f"federation {run_id}'s processes exited {codes}:\n{tails}")
         kids = [json.loads(next(ln for ln in out.splitlines() if ln.startswith("CHILD "))[6:])
                 for out, _ in outs]
     finally:
@@ -2353,10 +2527,29 @@ def _broker_federation(run_id: str, n_silos: int, **train):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        broker.stop()
-        published = get_registry().counter("broker/bytes_in").value - published0
         shutil.rmtree(work, ignore_errors=True)
-    return kids, wall, published
+    return kids, wall
+
+
+def _broker_federation(run_id: str, n_silos: int, **train):
+    """A server and ``n_silos`` silos as OS processes over the port's broker
+    and a shared object store (phase h's model and data, ``train`` over
+    CS_CONFIG's training arguments). Returns each process's CHILD record,
+    the wall and the bytes published on the broker; fails unless every
+    process exits 0 within CS_BROKER_TIMEOUT_S."""
+    from fedml_tpu_torch.core.distributed.communication.broker import PubSubBroker
+    from fedml_tpu_torch.telemetry import get_registry
+
+    published0 = get_registry().counter("broker/bytes_in").value
+    broker = PubSubBroker("127.0.0.1", 0).start()
+    try:
+        host, port = broker.address
+        kids, wall = _federation_processes(
+            run_id, n_silos, {"comm_backend": "BROKER", "broker_host": host,
+                              "broker_port": port}, train)
+    finally:
+        broker.stop()
+    return kids, wall, get_registry().counter("broker/bytes_in").value - published0
 
 
 def cross_silo_broker(card: str):
@@ -2397,6 +2590,205 @@ def cross_silo_broker(card: str):
                 store_bytes_written=store_bytes, serialization_ms=ser,
                 result=server["result"], process_walls_s=[k["wall_s"] for k in kids],
                 peak_gb=[k["peak_gb"] for k in kids])
+
+
+# what each process of phase (o) runs: its entry point (``run_cross_silo_*``,
+# or ``run_cross_cloud_*`` for the cross-cloud leg) under cuDNN's
+# deterministic algorithms, then its result and registry; the server adds
+# the untrained model's test loss (taken before the round) and the final
+# digest, a silo the transport keys it applied
+O_CHILD = r"""
+import json, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+import fedml_tpu_torch
+from chip_smoke import _registry_flat
+from fedml_tpu_torch import runner as runner_mod
+from fedml_tpu_torch.resilience.durability.recover import digest
+from fedml_tpu_torch.telemetry import get_registry
+t0 = time.perf_counter()
+role, kind = sys.argv[1], sys.argv[2]
+built = {}
+build = runner_mod.FedMLRunner.__init__
+def recording_build(self, args, *a, **kw):
+    build(self, args, *a, **kw)
+    built["args"], built["runner"] = args, self.runner
+    if role == "server":
+        agg = self.runner.fedml_aggregator
+        built["untrained"] = agg.test_on_server_for_all_clients(-1)["test_loss"]
+runner_mod.FedMLRunner.__init__ = recording_build
+fn = getattr(fedml_tpu_torch, f"run_{kind}_{role}")
+result = fn()
+torch.cuda.synchronize()
+a = built["args"]
+record = {"role": role, "result": result, "wall_s": time.perf_counter() - t0,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "training_type": a.training_type, "runner": type(built["runner"]).__name__,
+          "applied": {k: getattr(a, k, None) for k in (
+              "comm_backend", "broker_host", "broker_port", "remote_storage", "s3_endpoint",
+              "s3_bucket", "s3_region")},
+          "metrics": _registry_flat(get_registry())}
+if role == "server":
+    record["untrained_test_loss"] = built["untrained"]
+    record["digest"] = digest(built["runner"].fedml_aggregator.get_global_model_params())
+print("CHILD " + json.dumps(record), flush=True)
+"""
+
+
+def _start_native_broker_command():
+    """``python -m fedml_tpu_torch.cli deploy broker --native --port 0`` in
+    its own session; returns the process and the address it prints."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen([sys.executable, "-m", "fedml_tpu_torch.cli", "deploy", "broker",
+                             "--native", "--port", "0"], cwd=here, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    box = []
+    reader = threading.Thread(target=lambda: box.append(proc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(O_BROKER_TIMEOUT_S)
+    line = (box[0] if box else "").strip()
+    if not (line.startswith("broker on ") and line.endswith("(native)")):
+        _stop_session(proc)
+        raise RuntimeError(f"deploy broker --native printed {line!r}: "
+                           f"{proc.stderr.read()[-2000:] if proc.poll() is not None else ''}")
+    host, port = line.split()[2].rsplit(":", 1)
+    return proc, (host, int(port))
+
+
+def _stop_session(proc) -> None:
+    """Interrupt a command started in its own session (its finally stops
+    what it started), then kill the whole session if it lingers."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            pass
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)  # the broker binary, were it orphaned
+    except ProcessLookupError:
+        pass
+    if proc.poll() is None:
+        proc.wait()
+    for f in (proc.stdout, proc.stderr):
+        f.close()
+
+
+def _leg_numbers(kids) -> dict:
+    """A leg's wire bytes by backend, broker and store bytes, and mean S3
+    request ms, summed over its processes' registries."""
+    def total(key):
+        return sum(k["metrics"].get(key, 0) for k in kids)
+
+    def mean_ms(key):
+        hs = [k["metrics"][key] for k in kids if key in k["metrics"]]
+        n = sum(h["count"] for h in hs)
+        return sum(h["sum"] for h in hs) / n if n else None
+
+    wire = {b: {"out": total(f"comm/wire_bytes_out{{backend={b}}}"),
+                "in": total(f"comm/wire_bytes_in{{backend={b}}}")} for b in ("grpc", "trpc")}
+    wire["broker"] = {"out": total("comm/wire_bytes_out"), "in": total("comm/wire_bytes_in")}
+    sm = kids[0]["metrics"].get("cross_silo/round_ms", {})
+    return dict(wire_bytes={b: v for b, v in wire.items() if v["out"] or v["in"]},
+                broker_client_bytes_out=total("broker/client_bytes_out"),
+                broker_client_bytes_in=total("broker/client_bytes_in"),
+                store_bytes_written=total("comm/offload_wire_bytes"),
+                s3_put_ms=mean_ms("store/s3_ms{method=PUT}"),
+                s3_get_ms=mean_ms("store/s3_ms{method=GET}"),
+                round_ms=sm["sum"] / sm["count"] if sm.get("count") else None)
+
+
+def transports_phase(card: str):
+    """Phase (o): three federations at once over tRPC, the cross-cloud
+    engine on the C++ broker with the S3 stub, and gRPC (see the module
+    doc)."""
+    train = dict(client_num_in_total=O_PARTS)
+    stub = S3Stub(*O_S3_KEYS).start()
+    broker_proc, (host, port) = _start_native_broker_command()
+    legs = {}
+    try:
+        s3 = {"remote_storage": "s3", "s3_endpoint": stub.endpoint,
+              "s3_bucket": "fedml-cross-cloud"}
+        silo_files = [{"comm_args": {"broker_host": host, "broker_port": port, **s3,
+                                     "s3_region": O_S3_REGIONS[r]}}
+                      for r in range(1, O_SILOS + 1)]
+        plans = {
+            "o1": (dict(comm_backend="TRPC", trpc_master_addr="127.0.0.1",
+                        trpc_master_port=free_port_base(1)), "cross_silo", None, None),
+            "o2": (dict(comm_backend="BROKER", broker_host=host, broker_port=port, **s3,
+                        s3_region=O_S3_REGIONS[0]), "cross_cloud", silo_files,
+                   dict(AWS_ACCESS_KEY_ID=O_S3_KEYS[0], AWS_SECRET_ACCESS_KEY=O_S3_KEYS[1])),
+            "o3": (dict(comm_backend="GRPC", grpc_base_port=free_port_base(O_SILOS + 1)),
+                   "cross_silo", None, None),
+        }
+        with ThreadPoolExecutor(len(plans)) as pool:
+            futures = {leg: pool.submit(
+                _federation_processes, f"chip_smoke_{leg}", O_SILOS, comm, train,
+                child=O_CHILD, child_args=(kind,), silo_configs=silos, env=env,
+                timeout=O_TIMEOUT_S) for leg, (comm, kind, silos, env) in plans.items()}
+            legs = {leg: f.result() for leg, f in futures.items()}
+    finally:
+        _stop_session(broker_proc)
+        stub.stop()
+    out, digests, faults = {}, {}, []
+    for leg, (kids, wall) in legs.items():
+        server = kids[0]
+        loss, untrained = server["result"]["test_loss"], server["untrained_test_loss"]
+        numbers = _leg_numbers(kids)
+        out[leg] = dict(wall_s=wall, result=server["result"], untrained_test_loss=untrained,
+                        digest=server["digest"], runners=[k["runner"] for k in kids],
+                        process_walls_s=[k["wall_s"] for k in kids],
+                        peak_gb=[k["peak_gb"] for k in kids], **numbers)
+        digests[leg] = server["digest"]
+        print(f"  {card}: {leg} ({plans[leg][0]['comm_backend']}, {plans[leg][1]}): "
+              f"{O_SILOS + 1} processes exited 0 in {wall:.3f} s (limit {O_TIMEOUT_S} s), "
+              f"the round {numbers['round_ms']} ms (the server's clock); test loss untrained "
+              f"{untrained:.5f} -> {loss:.5f}; wire bytes out/in by backend "
+              f"{numbers['wire_bytes']}; digest {server['digest']}; process walls "
+              + ", ".join(f"{k['role']} {k['wall_s']:.1f} s" for k in kids), flush=True)
+        if server["result"].get("rounds") != 1:
+            faults.append(f"{leg}: the server did not run 1 round: {server['result']}")
+        if not (math.isfinite(loss) and loss < untrained):
+            faults.append(f"{leg}: the test loss {loss} is not below the untrained model's "
+                          f"{untrained}")
+    o2 = out["o2"]
+    kids2 = legs["o2"][0]
+    gets = [p for (m, p, _) in stub.log if m == "GET" and "/chip_smoke_o2/r0/" in p]
+    regions = sorted({r for (_, _, r) in stub.log})
+    o2.update(stub_requests=dict(stub.requests), stub_failures=len(stub.failures),
+              stub_bytes_in=stub.bytes_in, stub_bytes_out=stub.bytes_out,
+              broadcast_gets=len(gets), regions_signed=regions,
+              applied=[k["applied"] for k in kids2])
+    print(f"  {card}: o2 the native broker carried {o2['broker_client_bytes_out']} B "
+          f"published, {o2['broker_client_bytes_in']} B delivered (the clients' counts); "
+          f"the S3 stub {o2['stub_requests']} requests, {o2['stub_failures']} failed, "
+          f"{o2['stub_bytes_in']} B in and {o2['stub_bytes_out']} B out (the processes "
+          f"offloaded {o2['store_bytes_written']} B), SigV4 PUT {o2['s3_put_ms']} ms, GET "
+          f"{o2['s3_get_ms']} ms a request (mean, client clock, signing included); "
+          f"regions signed {regions}; silos applied "
+          f"{[a['s3_region'] for a in o2['applied'][1:]]}", flush=True)
+    if stub.failures or o2["broadcast_gets"] != O_SILOS or regions != sorted(O_S3_REGIONS):
+        faults.append(f"o2: the S3 stub saw failures {stub.failures[:4]}, "
+                      f"{o2['broadcast_gets']} broadcast fetches, regions {regions}")
+    for r, (kid, silo) in enumerate(zip(kids2[1:], silo_files), 1):
+        want = silo["comm_args"]
+        if any(kid["applied"][k] != v for k, v in want.items()) or (
+                kid["training_type"], kid["runner"]) != ("cross_cloud", "CloudClient"):
+            faults.append(f"o2: silo {r} applied {kid['applied']} ({kid['training_type']}, "
+                          f"{kid['runner']}), not {want}")
+    if kids2[0]["runner"] != "CloudServer":
+        faults.append(f"o2: the server ran as {kids2[0]['runner']}")
+    if len(set(digests.values())) != 1:
+        faults.append(f"o: the legs' final global models differ: {digests}")
+    if faults:
+        raise RuntimeError("phase o failed:\n" + "\n".join(faults))
+    return out
 
 
 def _reset_trust():
@@ -4011,7 +4403,8 @@ def tree_resnet_phase(card: str, dev: str = "cuda", template=None, n1=TREE_N1,
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             base_runner.run(1)
             torch.cuda.synchronize()
-        n_events, dev_ms = _device_events_ms(prof)
+        kernels = _device_kernels(prof).values()
+        n_events, dev_ms = sum(n for n, _ in kernels), sum(ms for _, ms in kernels)
         busy = dev_ms / (base_walls[0] * 1e3) if dev_ms else None
         print(f"  {card}: n1 one round: {base_walls[0] * 1e3:.1f} ms unprofiled wall; device "
               + ("time not measured" if busy is None else
@@ -4032,18 +4425,23 @@ def tree_resnet_phase(card: str, dev: str = "cuda", template=None, n1=TREE_N1,
                 counters=killed_c)
 
 
-def _device_events_ms(prof):
-    """(count, summed ms) of a profile's device events, read from the raw
-    results (building the profiler's event tree for ~10^5 kernels takes
-    longer than the round)."""
+def _device_kernels(prof) -> dict:
+    """``{name: [launches, ms]}`` of a profile's device events (kernels,
+    copies, sets), read from the raw results: building the profiler's event
+    tree costs more than the window it covers."""
     cuda = torch.autograd.DeviceType.CUDA
     try:
-        durations = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-                     if e.device_type() == cuda]
-        return len(durations), sum(durations) / 1e6
+        events = [(e.name(), e.duration_ns() / 1e6)
+                  for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
     except AttributeError:  # another torch: the parsed events
-        kernels = [e for e in prof.events() if e.device_type == cuda]
-        return len(kernels), sum(e.self_device_time_total for e in kernels) / 1e3
+        events = [(e.name, e.self_device_time_total / 1e3) for e in prof.events()
+                  if e.device_type == cuda]
+    out = {}
+    for name, ms in events:
+        slot = out.setdefault(name, [0, 0.0])
+        slot[0] += 1
+        slot[1] += ms
+    return out
 
 
 def tree_100k_phase(card: str, dev: str = "cuda", cli_args=TREE_N2_ARGS):
@@ -4160,7 +4558,7 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="bcdefghijklmn",
+    parser.add_argument("--phases", default="bcdefghijklmno",
                         help="phases to run after (a), e.g. 'd' for the flash kernels "
                              "alone (default: all; only a full run prints the kernels "
                              "and ok lines)")
@@ -4168,11 +4566,22 @@ def main(argv=None) -> int:
                         help="a checkout whose dequant and flash-forward kernels are "
                              "timed beside this tree's (phases b and d)")
     opts = parser.parse_args(argv)
+    t_start = time.perf_counter()
     phases = opts.phases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 2
+    if os.environ.get("PYTHONHASHSEED") != CS_HASHSEED:
+        # one draw of the CIFAR-10 stand-in for every phase, in this process
+        # and in those the phases start: its seed has hash("cifar10") in it,
+        # salted per process unless PYTHONHASHSEED is fixed (on one unpinned
+        # draw k1's test loss rose above the untrained model's)
+        sys.stdout.flush()
+        os.execve(sys.executable,
+                  [sys.executable, os.path.abspath(__file__),
+                   *(sys.argv[1:] if argv is None else argv)],
+                  dict(os.environ, PYTHONHASHSEED=CS_HASHSEED))
     from fedml_tpu_torch.ops import flash_attention as fa  # fails outside the repo
 
     share_stand_in_draws()
@@ -4203,7 +4612,7 @@ def main(argv=None) -> int:
               f"{info.get('stack')} bytes", flush=True)
 
     results = serve = flash = train = quantized = qlora = sp = cross_silo = trust = None
-    secure = checkpoints = durable = tree = None
+    secure = checkpoints = durable = tree = transports = None
     phase_s = {}
     parent_dequant = parent_fwd = None
     if opts.parent:
@@ -4315,13 +4724,22 @@ def main(argv=None) -> int:
         print("(n3) per-edge-cohort secagg at resnet18 width: (1, 4, 16), a leaf client "
               "killed, 2 rounds, twice", flush=True)
         tree["n3"] = timed("n3", lambda: tree_secagg_phase(card))
+    if "o" in phases:
+        print(f"(o) the other transports, at once: a server and {O_SILOS} silos as processes "
+              "each over tRPC (o1), cross-cloud over the C++ broker with an S3 store (o2) "
+              "and gRPC (o3); resnet18, int8, 1 round", flush=True)
+        transports = timed("o", lambda: transports_phase(card))
+    whole_s = time.perf_counter() - t_start
+    print(f"    whole script: {whole_s:.1f} s from main's start (the limit is 1200 s)",
+          flush=True)
     os.makedirs("results", exist_ok=True)
     record = {"card": card, "torch": torch.__version__, "build_s": build_s, "ptxas": ptxas,
               "shapes": results, "serve": serve, "flash": flash, "train": train,
               "quantized": quantized, "qlora": qlora, "sp": sp, "cross_silo": cross_silo,
               "trust": trust, "secure": secure, "checkpoints": checkpoints,
-              "durable": durable, "tree": tree, "phase_s": phase_s}
-    if sorted(phases) != list("bcdefghijklmn"):
+              "durable": durable, "tree": tree, "transports": transports,
+              "phase_s": phase_s, "whole_s": whole_s}
+    if sorted(phases) != list("bcdefghijklmno"):
         with open(os.path.join("results", "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
         print(f"phases {phases} passed (a partial run prints no kernels or ok line)")

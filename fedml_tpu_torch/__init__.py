@@ -29,9 +29,14 @@ host-loop FedLLM round, the durable and asynchronous cross-silo servers,
 and the aggregation tree (``hierarchy``: ``TreeRunner``, edge aggregators,
 partial sums, per-cohort SecAgg) with hierarchical cross-silo
 (:func:`run_hierarchical_cross_silo_server` /
-:func:`run_hierarchical_cross_silo_client`). Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``.
+:func:`run_hierarchical_cross_silo_client`), and the other transports
+(gRPC, tRPC, MQTT, the C++ epoll broker, the S3 and web3/Theta stores in
+``core.distributed.communication``) with cross-cloud training
+(:func:`run_cross_cloud_server` / :func:`run_cross_cloud_client`,
+``cross_cloud``). Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
+import os
 import random
 from typing import Any, Optional
 
@@ -40,13 +45,31 @@ import numpy as np
 from fedml_tpu_torch.device import DeviceLike, resolve_device
 
 
+def _refuse_multihost(args: Any) -> None:
+    """The reference's multi-host slice runtime (one silo over several
+    hosts: ``FEDML_MULTIHOST=auto``, or ``FEDML_COORDINATOR_ADDRESS`` with
+    ``FEDML_NUM_PROCESSES`` or their config keys) comes with the multi-GPU
+    layer."""
+    def pick(env: str, attr: str):
+        v = os.environ.get(env)
+        return getattr(args, attr, None) if v is None else v
+
+    if (str(os.environ.get("FEDML_MULTIHOST", "")).lower() == "auto"
+            or (pick("FEDML_COORDINATOR_ADDRESS", "coordinator_address") is not None
+                and pick("FEDML_NUM_PROCESSES", "num_processes") is not None)):
+        raise NotImplementedError(
+            "the multi-host runtime (FEDML_MULTIHOST / FEDML_COORDINATOR_ADDRESS + "
+            "FEDML_NUM_PROCESSES) comes with the multi-GPU layer, ROADMAP A11")
+
+
 def init(args: Any) -> Any:
     """Counterpart of ``fedml_tpu.init`` for an args namespace: seed
     Python's and numpy's generators, apply the per-silo config overrides
     (``arguments.update_client_specific_args``) and configure the
     trust-stack singletons (``FedMLAttacker``, ``FedMLDefender``,
     ``FedMLDifferentialPrivacy``) from ``args``. They are per process:
-    ``reset()`` them between in-process runs."""
+    ``reset()`` them between in-process runs. A multi-host environment
+    raises, naming ROADMAP A11."""
     from fedml_tpu_torch.arguments import update_client_specific_args
     from fedml_tpu_torch.compression import check_trust_stack
     from fedml_tpu_torch.core.dp.fedml_differential_privacy import (
@@ -55,6 +78,7 @@ def init(args: Any) -> Any:
     from fedml_tpu_torch.core.security.attacker import FedMLAttacker
     from fedml_tpu_torch.core.security.defender import FedMLDefender
 
+    _refuse_multihost(args)
     check_trust_stack(args)
     seed = int(getattr(args, "random_seed", 0))
     random.seed(seed)
@@ -85,15 +109,18 @@ def run_simulation(args: Optional[Any] = None, device: DeviceLike = "cuda"):
 
 
 def _run_cross_silo(role: str, args: Optional[Any], device: DeviceLike,
-                    scenario: Optional[str] = None):
+                    scenario: Optional[str] = None, training_type: Optional[str] = None):
     from fedml_tpu_torch.arguments import apply_defaults, load_arguments
     from fedml_tpu_torch.data.data_loader import load_federated
     from fedml_tpu_torch.models.model_hub import create
     from fedml_tpu_torch.runner import FedMLRunner
 
     dev = resolve_device(device)
-    args = load_arguments("cross_silo") if args is None else apply_defaults(args)
+    args = (load_arguments(training_type or "cross_silo") if args is None
+            else apply_defaults(args))
     args.role = role
+    if training_type is not None:  # the launcher's type wins over the config's
+        args.training_type = training_type
     if scenario is not None:
         args.scenario = scenario
     init(args)
@@ -134,6 +161,20 @@ def run_hierarchical_cross_silo_client(args: Optional[Any] = None,
     return _run_cross_silo("client", args, device, scenario="hierarchical")
 
 
-__all__ = ["init", "resolve_device", "run_cross_silo_client", "run_cross_silo_server",
+def run_cross_cloud_server(args: Optional[Any] = None, device: DeviceLike = "cuda"):
+    """The server of a cross-cloud federation — counterpart of
+    ``fedml_tpu.run_cross_cloud_server``: the cross-silo server as
+    ``cross_cloud.CloudServer`` (``training_type: cross_cloud``)."""
+    return _run_cross_silo("server", args, device, training_type="cross_cloud")
+
+
+def run_cross_cloud_client(args: Optional[Any] = None, device: DeviceLike = "cuda"):
+    """One cloud silo of a cross-cloud federation (``--rank r``): entry r-1
+    of ``data_silo_config`` applies its own transport and settings."""
+    return _run_cross_silo("client", args, device, training_type="cross_cloud")
+
+
+__all__ = ["init", "resolve_device", "run_cross_cloud_client", "run_cross_cloud_server",
+           "run_cross_silo_client", "run_cross_silo_server",
            "run_hierarchical_cross_silo_client", "run_hierarchical_cross_silo_server",
            "run_simulation"]

@@ -29,8 +29,9 @@ reproduces the same ``final_digest``. ``--metrics-port`` and
 ``deploy broker`` runs the federation's TCP pub/sub broker until
 interrupted; a cross-silo server and its clients
 (``run_cross_silo_server`` / ``run_cross_silo_client`` with ``comm_backend:
-BROKER``) dial it, JAX peers included. ``--native`` (the reference's C++
-broker) comes with ROADMAP A10.4.
+BROKER``) dial it, JAX peers included. ``--native`` runs the C++ epoll
+broker instead (``ops/csrc/broker.cpp``, built with the host compiler into
+``build/fedml_tpu_torch/`` at first use), on the same frame protocol.
 
 ``serve``
 boots a continuous-batching Llama endpoint on one CUDA device: weights
@@ -91,7 +92,8 @@ def build_parser() -> argparse.ArgumentParser:
     broker.add_argument("--host", default="127.0.0.1")
     broker.add_argument("--port", type=int, default=18923)
     broker.add_argument("--native", action="store_true",
-                        help="the C++ epoll broker (not ported: ROADMAP A10.4)")
+                        help="the C++ epoll broker (ops/csrc/broker.cpp) instead of "
+                             "the Python one")
     chaos = sub.add_parser("chaos", help="run a seeded chaos scenario against a "
                                           "federation; prints one JSON line")
     chaos.add_argument("--seed", type=int, default=0,
@@ -218,13 +220,15 @@ def run_chaos(args: argparse.Namespace) -> dict:
 
 def run_broker(args: argparse.Namespace) -> None:
     """Serve the pub/sub broker until interrupted."""
-    from fedml_tpu_torch.core.distributed.communication.broker import PubSubBroker
+    from fedml_tpu_torch.core.distributed.communication.broker import (
+        NativePubSubBroker,
+        PubSubBroker,
+    )
 
-    if args.native:
-        raise NotImplementedError(
-            "deploy broker --native: the C++ epoll broker comes with ROADMAP A10.4")
-    broker = PubSubBroker(args.host, args.port).start()
-    print(f"broker on {broker.address[0]}:{broker.address[1]}", flush=True)
+    cls = NativePubSubBroker if args.native else PubSubBroker
+    broker = cls(args.host, args.port).start()
+    print(f"broker on {broker.address[0]}:{broker.address[1]}"
+          + (" (native)" if args.native else ""), flush=True)
     try:
         while True:
             time.sleep(3600)

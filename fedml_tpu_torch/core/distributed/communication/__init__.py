@@ -1,2 +1,4 @@
-"""Transports: the in-process LOCAL broker, and the TCP pub/sub broker with
-its object-store offload (BROKER)."""
+"""Transports: the in-process LOCAL broker; pub/sub over the in-tree broker
+(Python or C++) or MQTT, with the payload offload to a local, S3 or
+content-addressed store (BROKER, MQTT_S3); gRPC (GRPC); and
+``torch.distributed.rpc`` (TRPC)."""

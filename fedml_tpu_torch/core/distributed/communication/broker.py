@@ -9,15 +9,18 @@ round:
 
 over TCP with MQTT semantics (topic strings, fan-out to every subscriber,
 QoS 0). Any process can host :class:`PubSubBroker`; the others dial it with
-:class:`BrokerClient`. The body is opaque bytes. The reference's trace
-envelope on bodies (ROADMAP A12) and its C++ epoll broker (A10.4) are not
-ported: asking for either raises.
+:class:`BrokerClient`. :class:`NativePubSubBroker` runs the same protocol
+in the port's C++ epoll broker (``ops/csrc/broker.cpp``, built with the
+host compiler at first use) as a child process. The body is opaque bytes.
+The reference's trace envelope on bodies (ROADMAP A12) is not ported:
+asking for it raises.
 """
 from __future__ import annotations
 
 import logging
 import socket
 import struct
+import subprocess
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -190,6 +193,44 @@ class PubSubBroker:
                 conns.update(subs)
         for conn in conns:
             _hard_close(conn)
+
+
+class NativePubSubBroker:
+    """The C++ epoll broker behind :class:`PubSubBroker`'s surface
+    (``address``, ``start``, ``stop``): the counterpart of the JAX package's
+    ``NativePubSubBroker``, on the port's own copy of the source, built into
+    ``build/fedml_tpu_torch/`` (never into ``native/``). The constructor
+    spawns the binary and reads its ``LISTENING <port>`` line; ``stop``
+    terminates and reaps it."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+        from fedml_tpu_torch.ops._build import build_executable
+
+        self._proc = subprocess.Popen([str(build_executable("broker")), str(port), host],
+                                      stdout=subprocess.PIPE, text=True)
+        line = (self._proc.stdout.readline() or "").strip()
+        if not line.startswith("LISTENING "):
+            self._proc.kill()
+            self._proc.wait()
+            raise RuntimeError(f"native broker failed to start: {line!r}")
+        self._addr = (host, int(line.split()[1]))
+
+    @property
+    def address(self) -> Tuple[str, int]:
+        return self._addr
+
+    def start(self) -> "NativePubSubBroker":
+        return self  # the process is already serving
+
+    def stop(self) -> None:
+        if self._proc.poll() is None:
+            self._proc.terminate()
+            try:
+                self._proc.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                self._proc.kill()
+                self._proc.wait()  # reap: no zombie outlives the broker
+        self._proc.stdout.close()
 
 
 class BrokerClient:

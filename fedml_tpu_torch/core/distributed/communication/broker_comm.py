@@ -12,22 +12,26 @@ Messages are :func:`~fedml_tpu_torch.utils.serialization.safe_dumps` bytes,
 the reference's wire, and arrays arrive as tensors on the manager's
 device. Besides the reference's byte counters, ``comm/serialize_ms`` and
 ``comm/deserialize_ms`` (labels ``part``: ``frame`` or ``offload``) time
-the (de)serialization.
+the (de)serialization. The broker client is any
+:class:`~fedml_tpu_torch.core.distributed.communication.mqtt_compat.PubSubClient`:
+``protocol`` names one (``tcp``: the in-tree broker, Python or C++;
+``mqtt``: paho against an MQTT broker), or the caller passes ``client``.
 """
 from __future__ import annotations
 
 import logging
-import queue
 import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from fedml_tpu_torch.core.distributed.communication.base_com_manager import (
-    BaseCommunicationManager,
-    Observer,
+    InboxCommManager,
 )
-from fedml_tpu_torch.core.distributed.communication.broker import BrokerClient
+from fedml_tpu_torch.core.distributed.communication.mqtt_compat import (
+    PubSubClient,
+    create_pubsub_client,
+)
 from fedml_tpu_torch.core.distributed.communication.object_store import (
     ObjectStore,
     create_object_store,
@@ -43,10 +47,12 @@ logger = logging.getLogger(__name__)
 _OFFLOADABLE_KEYS = (Message.MSG_ARG_KEY_MODEL_PARAMS,)
 
 
-class BrokerCommManager(BaseCommunicationManager):
+class BrokerCommManager(InboxCommManager):
     def __init__(self, run_id: str, rank: int, host: str = "127.0.0.1",
                  port: int = 1883, object_store: Optional[ObjectStore] = None,
-                 offload_bytes: int = 64 * 1024, device: DeviceLike = "cpu"):
+                 offload_bytes: int = 64 * 1024, device: DeviceLike = "cpu",
+                 protocol: str = "tcp", client: Optional[PubSubClient] = None):
+        super().__init__()
         self.run_id = str(run_id)
         self.rank = int(rank)
         self.device = torch.device(device)
@@ -58,9 +64,6 @@ class BrokerCommManager(BaseCommunicationManager):
         self._cas_keep_last = 4
         self._cas_min_age_s = 300.0
         self._cas_sent: Dict[int, List[Tuple[str, float]]] = {}
-        self._observers: List[Observer] = []
-        self._inbox: "queue.Queue[Optional[Message]]" = queue.Queue()
-        self._running = False
         reg = get_registry()
         self._m_offload = reg.counter("comm/offload_bytes")
         self._m_offload_wire = reg.counter("comm/offload_wire_bytes")
@@ -70,7 +73,8 @@ class BrokerCommManager(BaseCommunicationManager):
                        for p in ("frame", "offload")}
         self._m_deser = {p: reg.histogram("comm/deserialize_ms", labels={"part": p})
                          for p in ("frame", "offload")}
-        self.client = BrokerClient(host, port)
+        self.client = client if client is not None else create_pubsub_client(
+            protocol, host, port)
         self.client.subscribe(self._topic(self.rank), self._on_frame)
 
     def _topic(self, rank: int) -> str:
@@ -139,30 +143,10 @@ class BrokerCommManager(BaseCommunicationManager):
                 # a CAS blob may still be awaited by sibling receivers
                 if not self.store.content_addressed:
                     self.store.delete_object(store_key)
-            self._inbox.put(Message.construct_from_params(params))
+            self._deliver_local(Message.construct_from_params(params))
         except (ValueError, KeyError, OSError, TypeError):
             logger.exception("rank %d: bad broker frame dropped", self.rank)
 
-    def add_observer(self, observer: Observer) -> None:
-        self._observers.append(observer)
-
-    def remove_observer(self, observer: Observer) -> None:
-        if observer in self._observers:
-            self._observers.remove(observer)
-
-    def handle_receive_message(self) -> None:
-        self._running = True
-        while self._running:
-            try:
-                msg = self._inbox.get(timeout=0.2)
-            except queue.Empty:
-                continue
-            if msg is None:
-                break
-            for obs in list(self._observers):
-                obs.receive_message(msg.get_type(), msg)
-
     def stop_receive_message(self) -> None:
-        self._running = False
-        self._inbox.put(None)
+        self._stop_inbox()
         self.client.close()

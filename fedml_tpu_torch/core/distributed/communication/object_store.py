@@ -2,17 +2,18 @@
 ``fedml_tpu/core/distributed/communication/object_store.py``: the payload
 offload seam of the BROKER transport (the reference's S3).
 
-Two stores: a shared directory (``remote_storage: local``, the default)
-with atomic writes, and its content-addressed twin (``remote_storage:
-cas``: the key is the sha256 of the bytes, so a broadcast fanned out to N
-receivers is one blob). Both are plain files, byte-compatible with the
-reference's. S3, web3/IPFS, Theta and sealed (encrypted) blobs come with
-ROADMAP A10.4; naming one raises.
+:func:`create_object_store` dispatches ``remote_storage`` as the reference
+does: ``local`` (the default) is a shared directory with atomic writes;
+``s3`` the S3 REST protocol with SigV4 (``s3_store``); ``web3``/``ipfs`` and
+``theta`` the content-addressed decentralized stores and ``cas`` their
+offline twin, a directory keyed by the sha256 of the bytes, so a broadcast
+fanned out to N receivers is one blob (``decentralized_storage``). The
+content-addressed stores seal their blobs under ``ipfs_secret_key``. Blobs
+and seals are byte-compatible with the reference's.
 """
 from __future__ import annotations
 
 import abc
-import hashlib
 import os
 import tempfile
 import uuid
@@ -40,7 +41,7 @@ class ObjectStore(abc.ABC):
         return f"{prefix}/{uuid.uuid4().hex}"
 
 
-def _atomic_write(path: str, data: bytes) -> None:
+def atomic_write(path: str, data: bytes) -> None:
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path))
     try:
         with os.fdopen(fd, "wb") as f:
@@ -72,7 +73,7 @@ class LocalDirObjectStore(ObjectStore):
         return path
 
     def put_object(self, key: str, data: bytes) -> str:
-        _atomic_write(self._path(key), data)
+        atomic_write(self._path(key), data)
         return key
 
     def get_object(self, key: str) -> bytes:
@@ -86,57 +87,31 @@ class LocalDirObjectStore(ObjectStore):
             pass
 
 
-class LocalCASObjectStore(ObjectStore):
-    """Content-addressed directory: the key (CID) is the sha256 hex of the
-    bytes, and identical content is one blob."""
-
-    content_addressed = True
-
-    def __init__(self, root: Optional[str] = None):
-        self.root = os.path.abspath(
-            root or os.path.join(tempfile.gettempdir(), "fedml_tpu_cas"))
-        os.makedirs(self.root, exist_ok=True)
-
-    def _path(self, cid: str) -> str:
-        if len(cid) != 64 or not all(c in "0123456789abcdef" for c in cid):
-            raise ValueError(f"not a CID: {cid!r}")
-        return os.path.join(self.root, cid)
-
-    def put_object(self, key: str, data: bytes) -> str:
-        cid = hashlib.sha256(data).hexdigest()
-        path = self._path(cid)
-        if not os.path.exists(path):
-            _atomic_write(path, data)
-        return cid  # the CID, not the advisory key
-
-    def get_object(self, key: str) -> bytes:
-        try:
-            with open(self._path(key), "rb") as f:
-                return f.read()
-        except FileNotFoundError:
-            raise KeyError(key) from None
-
-    def delete_object(self, key: str) -> None:
-        try:
-            os.unlink(self._path(key))
-        except (FileNotFoundError, ValueError):
-            pass
-
-
 def create_object_store(args: Any = None) -> ObjectStore:
-    """The store ``args.remote_storage`` names, rooted at
-    ``args.object_store_dir``."""
+    """The store ``args.remote_storage`` names (the reference's dispatch);
+    an unknown name raises ``ValueError``."""
     kind = (getattr(args, "remote_storage", None) or "local").lower()
-    root = getattr(args, "object_store_dir", None) if args is not None else None
-    if kind in ("s3", "web3", "ipfs", "theta"):
-        raise NotImplementedError(
-            f"remote_storage {kind!r} comes with ROADMAP A10.4; the port has the "
-            "shared-directory stores 'local' and 'cas'")
-    if getattr(args, "ipfs_secret_key", None):
-        raise NotImplementedError(
-            "ipfs_secret_key: sealed (encrypted) blobs come with ROADMAP A10.4")
-    if kind == "cas":
-        return LocalCASObjectStore(root)
+    secret = getattr(args, "ipfs_secret_key", None)
+    if kind == "s3":
+        from fedml_tpu_torch.core.distributed.communication.s3_store import S3ObjectStore
+
+        return S3ObjectStore.from_args(args)
+    if kind in ("web3", "ipfs", "theta", "cas"):
+        from fedml_tpu_torch.core.distributed.communication import (
+            decentralized_storage as ds,
+        )
+
+        if kind == "theta":
+            return ds.ThetaObjectStore(
+                rpc_uri=getattr(args, "theta_rpc_uri", "http://localhost:19888/rpc"),
+                secret_key=secret)
+        if kind == "cas":
+            return ds.LocalCASObjectStore(getattr(args, "object_store_dir", None),
+                                          secret_key=secret)
+        return ds.Web3ObjectStore(
+            upload_uri=getattr(args, "web3_upload_uri", "https://api.web3.storage/upload"),
+            download_uri=getattr(args, "web3_download_uri", "https://w3s.link"),
+            secret_key=secret)
     if kind != "local":
         raise ValueError(f"unknown remote_storage {kind!r}")
-    return LocalDirObjectStore(root)
+    return LocalDirObjectStore(getattr(args, "object_store_dir", None))

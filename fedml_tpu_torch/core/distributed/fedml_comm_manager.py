@@ -6,10 +6,15 @@ It stamps every outgoing message with a unique id, drops duplicates on
 receipt (so a resend is applied once), retries a send under the seeded
 backoff, notes every sender's liveness, and records a raising handler in
 ``handler_error`` and stops its receive loop, so a federation fails loudly
-instead of hanging. The transports are ``LOCAL`` (in-process) and
-``BROKER`` (TCP pub/sub with the object-store offload). ``GRPC``, ``TRPC``
-and ``MQTT_S3`` come with ROADMAP A10.4 and ``XLA_ICI``'s device
-collectives with the multi-GPU layer (A11): naming one raises. With
+instead of hanging. The transports are ``LOCAL`` (in-process), ``BROKER``
+(pub/sub with the object-store offload: the in-tree broker, Python or C++,
+or MQTT under ``broker_protocol: mqtt``), ``MQTT_S3`` (the reference's
+default: the same manager forced to MQTT, at ``mqtt_host``/``mqtt_port``),
+``GRPC`` (a server a rank at ``grpc_base_port + rank``, hosts from
+``grpc_ipconfig``) and ``TRPC`` (``torch.distributed.rpc`` with the
+rendezvous at ``trpc_master_addr``/``trpc_master_port``); ``XLA_ICI``'s
+device collectives come with the multi-GPU layer (A11): naming it raises.
+With
 ``args.chaos`` a seeded :class:`~fedml_tpu_torch.resilience.ChaosInjector`
 sits at the reference's seam: it filters inbound delivery before the dedup,
 and on the way out corrupts a model payload in its window, then decides
@@ -49,13 +54,14 @@ logger = logging.getLogger(__name__)
 
 COMM_BACKEND_LOCAL = "LOCAL"
 COMM_BACKEND_BROKER = "BROKER"
+COMM_BACKEND_MQTT_S3 = "MQTT_S3"
+COMM_BACKEND_GRPC = "GRPC"
+COMM_BACKEND_TRPC = "TRPC"
+# the backends that kick their own FSM once connected
+_SELF_READY_BACKENDS = (COMM_BACKEND_BROKER, COMM_BACKEND_MQTT_S3, COMM_BACKEND_GRPC,
+                        COMM_BACKEND_TRPC)
 # backends of the reference the port does not have yet → the ROADMAP item
-_NOT_PORTED_BACKENDS = {
-    "GRPC": "ROADMAP A10.4",
-    "TRPC": "ROADMAP A10.4",
-    "MQTT_S3": "ROADMAP A10.4",
-    "XLA_ICI": "the multi-GPU layer, ROADMAP A11",
-}
+_NOT_PORTED_BACKENDS = {"XLA_ICI": "the multi-GPU layer, ROADMAP A11"}
 
 
 class FedMLCommManager(Observer):
@@ -113,9 +119,10 @@ class FedMLCommManager(Observer):
 
     def _notify_connection_ready(self) -> None:
         """On a distributed backend each rank kicks its own FSM with
-        CONNECTION_IS_READY; the in-process harness posts it to every rank
-        once all are up."""
-        if str(self.backend).upper() == COMM_BACKEND_BROKER:
+        CONNECTION_IS_READY, as the reference's MQTT manager does from its
+        on_connect; the in-process harness posts it to every rank once all
+        are up."""
+        if str(self.backend).upper() in _SELF_READY_BACKENDS:
             self.receive_message(
                 self.MSG_TYPE_CONNECTION_IS_READY,
                 Message(self.MSG_TYPE_CONNECTION_IS_READY, self.rank, self.rank))
@@ -204,7 +211,7 @@ class FedMLCommManager(Observer):
             )
 
             self.com_manager = LocalCommManager(run_id, self.rank)
-        elif backend == COMM_BACKEND_BROKER:
+        elif backend in (COMM_BACKEND_BROKER, COMM_BACKEND_MQTT_S3):
             from fedml_tpu_torch.core.distributed.communication.broker_comm import (
                 BrokerCommManager,
             )
@@ -212,21 +219,45 @@ class FedMLCommManager(Observer):
                 create_object_store,
             )
 
-            protocol = str(getattr(self.args, "broker_protocol", "tcp"))
-            if protocol != "tcp":
-                raise NotImplementedError(
-                    f"broker_protocol {protocol!r}: the MQTT client comes with "
-                    "ROADMAP A10.4; the port speaks the in-tree TCP broker")
+            a = self.args
+            if backend == COMM_BACKEND_MQTT_S3:
+                protocol = "mqtt"
+                host = getattr(a, "mqtt_host", getattr(a, "broker_host", "127.0.0.1"))
+                port = getattr(a, "mqtt_port", getattr(a, "broker_port", 1883))
+            else:
+                protocol = str(getattr(a, "broker_protocol", "tcp"))
+                host = getattr(a, "broker_host", "127.0.0.1")
+                port = getattr(a, "broker_port", 1883)
             self.com_manager = BrokerCommManager(
-                run_id, self.rank,
-                host=str(getattr(self.args, "broker_host", "127.0.0.1")),
-                port=int(getattr(self.args, "broker_port", 1883)),
-                object_store=create_object_store(self.args),
-                offload_bytes=int(getattr(self.args, "payload_offload_bytes", 64 * 1024)),
+                run_id, self.rank, host=str(host), port=int(port),
+                object_store=create_object_store(a),
+                offload_bytes=int(getattr(a, "payload_offload_bytes", 64 * 1024)),
+                device=self.device, protocol=protocol)
+        elif backend == COMM_BACKEND_GRPC:
+            from fedml_tpu_torch.core.distributed.communication.grpc_comm import (
+                GRPC_BASE_PORT,
+                GRPCCommManager,
+            )
+
+            self.com_manager = GRPCCommManager(
+                ip_config=getattr(self.args, "grpc_ipconfig", None), client_id=self.rank,
+                client_num=self.size - 1,
+                base_port=int(getattr(self.args, "grpc_base_port", GRPC_BASE_PORT)),
+                device=self.device)
+        elif backend == COMM_BACKEND_TRPC:
+            from fedml_tpu_torch.core.distributed.communication.trpc_comm import (
+                TRPCCommManager,
+            )
+
+            # the world is this manager's size: the server and its clients
+            self.com_manager = TRPCCommManager(
+                client_id=self.rank, client_num=self.size - 1,
+                master_addr=getattr(self.args, "trpc_master_addr", None),
+                master_port=getattr(self.args, "trpc_master_port", None),
                 device=self.device)
         elif backend in _NOT_PORTED_BACKENDS:
             raise NotImplementedError(
                 f"comm_backend {backend!r} comes with {_NOT_PORTED_BACKENDS[backend]}; "
-                "the port has LOCAL and BROKER")
+                "the port has LOCAL, BROKER, MQTT_S3, GRPC and TRPC")
         else:
             raise ValueError(f"unknown comm backend {self.backend!r}")

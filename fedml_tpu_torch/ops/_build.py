@@ -5,9 +5,11 @@ seconds (no PyTorch headers) into ``build/fedml_tpu_torch/`` at the root
 of the checkout, at first use, for ``sm_90a`` (Hopper). Each
 ``csrc/<name>.cpp`` is host code (the finite-field LCC kernels of secure
 aggregation) and compiles the same way with the host C++ compiler
-(:func:`build_host`). The library's file name carries a hash of its source
-and flags, so an edited source is rebuilt and a stale one is never loaded.
-Nothing is built when a module is imported: the first call builds it.
+(:func:`build_host`); a ``csrc/<name>.cpp`` with a ``main`` (the epoll
+broker) compiles into an executable (:func:`build_executable`). The file
+name carries a hash of its source and flags, so an edited source is
+rebuilt and a stale one is never loaded. Nothing is built when a module
+is imported: the first call builds it.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fedml_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 CXX_FLAGS = ("-O3", "-std=c++17", "-Wall", "-fPIC", "-shared")
+EXE_FLAGS = ("-O3", "-std=c++17", "-Wall")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -62,14 +65,20 @@ def find_cxx() -> str:
                        "libraries are built from source at first use")
 
 
-def library_path(name: str, suffix: str = ".cu", flags=NVCC_FLAGS) -> Path:
+def _digest(name: str, suffix: str, flags) -> str:
     src = CSRC / f"{name}{suffix}"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
 
 
-def _compile(name: str, suffix: str, compiler: str, flags) -> Path:
-    out = library_path(name, suffix, flags)
+def library_path(name: str, suffix: str = ".cu", flags=NVCC_FLAGS) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(name, suffix, flags)}.so"
+
+
+def executable_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name, '.cpp', EXE_FLAGS)}"
+
+
+def _compile(name: str, suffix: str, compiler: str, flags, out: Path) -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     # compile to a private name, then rename: concurrent builders (several
     # processes on one checkout) never load a half-written library
@@ -88,14 +97,22 @@ def _compile(name: str, suffix: str, compiler: str, flags) -> Path:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library already exists."""
     out = library_path(name)
-    return out if out.exists() else _compile(name, ".cu", find_nvcc(), NVCC_FLAGS)
+    return out if out.exists() else _compile(name, ".cu", find_nvcc(), NVCC_FLAGS, out)
 
 
 def build_host(name: str) -> Path:
     """Compile the host library ``csrc/<name>.cpp`` unless it already
     exists; a failed build raises with the compiler's message."""
     out = library_path(name, ".cpp", CXX_FLAGS)
-    return out if out.exists() else _compile(name, ".cpp", find_cxx(), CXX_FLAGS)
+    return out if out.exists() else _compile(name, ".cpp", find_cxx(), CXX_FLAGS, out)
+
+
+def build_executable(name: str) -> Path:
+    """Compile the host program ``csrc/<name>.cpp`` unless it already
+    exists; a failed build raises with the compiler's message."""
+    with _lock:
+        out = executable_path(name)
+        return out if out.exists() else _compile(name, ".cpp", find_cxx(), EXE_FLAGS, out)
 
 
 def load_host(name: str) -> ctypes.CDLL:

@@ -26,9 +26,14 @@ def _unit_hash(*parts: Any) -> float:
 
 
 def transient_exceptions() -> Tuple[type, ...]:
-    """Exception types worth a resend: socket-level failures (the port has
-    no gRPC transport, so nothing else)."""
-    return (ConnectionError, TimeoutError, OSError)
+    """Exception types worth a resend: socket-level failures, and gRPC's
+    errors where grpcio is installed."""
+    types: Tuple[type, ...] = (ConnectionError, TimeoutError, OSError)
+    try:
+        import grpc
+    except ImportError:
+        return types
+    return types + (grpc.RpcError,)
 
 
 class RetryPolicy:

@@ -14,7 +14,8 @@ CPU, on the same seed and from the same initial weights
 * a round that closes at quorum after its deadline with one silo's trainer
   stalled, with the reference's missing list and aggregate; the silo then
   rejoins and its error feedback resets;
-* the options the slice leaves out raise naming their ROADMAP item, and the
+* the options the slice leaves out raise naming their ROADMAP item, those
+  it has build (the tRPC roles in OS processes, beside their peers), and the
   entry points refuse a missing CUDA device and run on the CPU when asked;
 * the integrity rings in an in-process int8 federation of 4 silos over 5
   rounds — a NaN upload in round 1 and a ×100 upload in round 3 — beside
@@ -25,9 +26,14 @@ CPU, on the same seed and from the same initial weights
   held to the all-JAX run by the int8 bound.
 """
 import copy
+import json
+import os
+import subprocess
+import sys
 import threading
 import types
 import time
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -36,6 +42,7 @@ import torch
 
 import fedml_tpu
 import fedml_tpu_torch
+from chip_smoke import free_port_base
 from fedml_tpu import arguments as jarguments
 from fedml_tpu.core.distributed.communication.broker import PubSubBroker as JBroker
 from fedml_tpu.cross_silo.client.client import Client as JClient
@@ -398,10 +405,10 @@ REFUSALS = {
                                        None),
     "kill_server without durability": ({"chaos": {"kill_server": {"round": 1}}}, 0,
                                         (ValueError, "needs durability")),
-    "GRPC": ({"comm_backend": "GRPC"}, 0, r"A10\.4"),
-    "TRPC": ({"comm_backend": "TRPC"}, 1, r"A10\.4"),
-    "MQTT_S3": ({"comm_backend": "MQTT_S3"}, 0, r"A10\.4"),
-    "cross-cloud": ({"training_type": "cross_cloud"}, 0, r"A10\.4"),
+    "GRPC": ({"comm_backend": "GRPC", "grpc_base_port": "<ports>"}, 0, None),
+    "TRPC": ({"comm_backend": "TRPC", "trpc_master_port": "<ports>"}, 1, "processes"),
+    "MQTT_S3": ({"comm_backend": "MQTT_S3"}, 0, (RuntimeError, "paho")),
+    "cross-cloud": ({"training_type": "cross_cloud"}, 0, None),
     "resume": ({"resume": True, "checkpoint_dir": "<tmp>"}, 0, None),
     "checkpoint_dir": ({"checkpoint_dir": "<tmp>"}, 0, None),
     "live telemetry": ({"live_telemetry": True}, 1, r"A12"),
@@ -409,16 +416,78 @@ REFUSALS = {
 }
 
 
+# builds the role of one rank through FedMLRunner from a config, in its own
+# process, then stops its transport (a tRPC world forms only with every rank)
+ROLE_CHILD = r"""
+import json, sys
+from fedml_tpu_torch import arguments
+from fedml_tpu_torch.data.data_loader import load_federated
+from fedml_tpu_torch.models.model_hub import create
+from fedml_tpu_torch.runner import FedMLRunner
+args = arguments.load_arguments_from_dict(json.loads(sys.argv[1]))
+args.rank = int(sys.argv[2])
+args.role = "server" if args.rank == 0 else "client"
+ds = load_federated(args)
+runner = FedMLRunner(args, "cpu", ds, create(args, ds.class_num)).runner
+print("BUILT " + type(runner).__name__ + " " + type(runner.manager.com_manager).__name__,
+      flush=True)
+runner.manager.finish()
+"""
+
+
+def build_roles_in_processes(cfg: dict, timeout: float = 90.0):
+    """Build every rank's role (the server and ``client_num_per_round``
+    clients) through the runner, each in an OS process of its own; returns
+    each rank's BUILT line. Fails unless all exit 0 within ``timeout``."""
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    env.pop("MASTER_ADDR", None)
+    env.pop("MASTER_PORT", None)
+    n = int(cfg["train_args"]["client_num_per_round"]) + 1
+    procs = [subprocess.Popen([sys.executable, "-c", ROLE_CHILD, json.dumps(cfg), str(r)],
+                              cwd=repo, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(n)]
+    outs = []
+    try:
+        end = time.monotonic() + timeout
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, end - time.monotonic())))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    return [next(ln for ln in out.splitlines() if ln.startswith("BUILT ")) for out, _ in outs]
+
+
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_unported_options_raise_naming_their_item(case, tmp_path):
+    """Item None: the option is ported and the role builds (its transport is
+    stopped again); "processes": the role builds in a world of OS processes
+    beside its peers; else the ROADMAP item (or the reference's own
+    exception) the refusal names."""
     over, rank, item = REFUSALS[case]
+    subst = {"<tmp>": str(tmp_path / "ck"), "<ports>": free_port_base(4)}
+    over = {k: subst.get(v, v) if isinstance(v, str) else v for k, v in over.items()}
+    if item == "processes":
+        cfg = _cfg(**over)
+        built = build_roles_in_processes(cfg)
+        assert built[0] == "BUILT Server TRPCCommManager"
+        assert built[rank] == "BUILT Client TRPCCommManager"
+        return
     args = targuments.load_arguments_from_dict(_cfg())
     for k, v in over.items():
-        setattr(args, k, str(tmp_path / "ck") if v == "<tmp>" else v)
+        setattr(args, k, v)
     args.rank = rank
     ds = tdl.load_federated(args)
     if item is None:
-        FedMLRunner(args, "cpu", ds, thub.create(args, ds.class_num))
+        runner = FedMLRunner(args, "cpu", ds, thub.create(args, ds.class_num)).runner
+        if case in ("GRPC", "cross-cloud"):
+            assert type(runner).__name__ == {"GRPC": "Server",
+                                             "cross-cloud": "CloudServer"}[case]
+            runner.manager.finish()
         return
     exc, match = item if isinstance(item, tuple) else (NotImplementedError, item)
     with pytest.raises(exc, match=match):

@@ -527,6 +527,58 @@ def test_inproc_cross_silo_federation_on_cuda():
     assert all(v.is_cuda and bool(torch.isfinite(v).all()) for v in final.values())
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grpc_message_of_a_cuda_tree_arrives_equal(dtype):
+    """A port gRPC message carrying a tree from the card arrives on the
+    receiver's card with the same bits, and the bytes on the wire are those
+    of the same tree on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import socket
+    import threading
+    import time
+
+    from fedml_tpu_torch.core.distributed.communication.grpc_comm import GRPCCommManager
+    from fedml_tpu_torch.core.distributed.message import Message
+    from fedml_tpu_torch.utils.serialization import safe_dumps
+
+    with socket.socket() as s0, socket.socket() as s1:
+        s0.bind(("127.0.0.1", 0))
+        base = s0.getsockname()[1]
+        s1.bind(("127.0.0.1", base + 1))  # OSError: the next port is taken
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tree = {"conv": torch.randn(64, 32, 3, 3, device="cuda", generator=gen).to(dtype),
+            "bias": torch.randn(64, device="cuda", generator=gen).to(dtype)}
+    tx = GRPCCommManager(client_id=0, client_num=1, base_port=base, device="cuda")
+    rx = GRPCCommManager(client_id=1, client_num=1, base_port=base, device="cuda")
+    got = []
+
+    class Obs:
+        def receive_message(self, t, m):
+            got.append(m)
+
+    rx.add_observer(Obs())
+    threading.Thread(target=rx.handle_receive_message, daemon=True).start()
+    try:
+        msg = Message("M", 0, 1).add_params("model_params", tree)
+        tx.send_message(msg)
+        end = time.monotonic() + 30
+        while not got and time.monotonic() < end:
+            time.sleep(0.01)
+    finally:
+        rx.stop_receive_message()
+        tx.stop_receive_message()
+    assert got, "the message did not arrive"
+    assert safe_dumps(msg.get_params()) == safe_dumps(
+        {**msg.get_params(), "model_params": {k: v.cpu() for k, v in tree.items()}})
+    for k, v in tree.items():
+        back = got[0].get("model_params")[k]
+        assert back.is_cuda and back.dtype == v.dtype
+        assert torch.equal(back.view(torch.int16) if dtype == torch.bfloat16 else back,
+                           v.view(torch.int16) if dtype == torch.bfloat16 else v)
+
+
 # -- the trust stack on the card -------------------------------------------------
 def _trust_deltas(n, seed):
     gen = torch.Generator().manual_seed(seed)

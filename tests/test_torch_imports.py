@@ -393,3 +393,33 @@ def test_tree_entry_points_refuse_missing_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn(args)
     assert TreeRunner(TreeTopology((1, 4, 16)), device="cpu").run(1)["completed"]
+
+
+@pytest.mark.parametrize("module", [
+    "fedml_tpu_torch.core.distributed.communication.mqtt_compat",
+    "fedml_tpu_torch.core.distributed.communication.grpc_comm",
+    "fedml_tpu_torch.core.distributed.communication.trpc_comm",
+    "fedml_tpu_torch.core.distributed.communication.s3_store",
+    "fedml_tpu_torch.core.distributed.communication.decentralized_storage",
+    "fedml_tpu_torch.cross_cloud",
+])
+def test_transport_slice_modules_are_scanned(module):
+    """The other transports' modules (the MQTT seam, gRPC, tRPC, the S3 and
+    web3/Theta stores) and the cross-cloud engine are among those both
+    scans cover."""
+    assert module in PORT_MODULES
+
+
+def test_cross_cloud_entry_points_refuse_missing_cuda(monkeypatch):
+    """The cross-cloud launchers default to ``cuda`` and raise without it,
+    before any transport is opened."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = load_arguments_from_dict({
+        "common_args": {"training_type": "cross_silo", "run_id": "no_cuda_cc"},
+        "train_args": {"comm_round": 1}, "data_args": {"train_size": 64, "test_size": 16}})
+    for fn in (fedml_tpu_torch.run_cross_cloud_server, fedml_tpu_torch.run_cross_cloud_client):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(args)
