@@ -245,7 +245,27 @@ the final ``ok`` line:
     broadcast to both silos, each silo echoes its override file's values,
     and the three final global models are digest-equal. It prints per leg
     the wall, the round ms, the wire bytes out and in by backend, the bytes
-    through the native broker and the store, and the SigV4 PUT and GET ms.
+    through the native broker and the store, and the SigV4 PUT and GET ms;
+(p) federated analytics (``fa``, no hand kernel on this path: the vote
+    tables are a ``bincount``, the merge the fused weighted sum). (p1) the
+    ``fa`` command (``--seed 0``, 6 clients, the FA message FSM in process)
+    for each of the eight tasks, and ``frequency_estimation`` with
+    ``--deadline-s 2 --quorum 0.5``, on the card and on the CPU: each line
+    must equal the CPU's (``avg`` within FA_AVG_TOL) and TrieHH must find
+    ``sun`` and ``moon``. (p2) the reference's 102,400-client heavy-hitter
+    acceptance (see FA_P2): levels (1, 800, 102400), ``votevec@1024/3``,
+    central DP, three leaf kills, an edge kill and a root crash after 2
+    children restarted from its journal, no SecAgg, twice; it fails unless
+    both complete, the root weight is the survivors', the heavy hitters are
+    the plaintext reference's (recall and precision 1.0), a restart was
+    counted, the sketch and DP probes hold, the runs are digest-equal and the
+    upload is 4 B a cell plus its scale. (p3) ``fa --federation
+    --fed-clients 256 --fed-tiers 3`` (SecAgg, ``votevec@4096/3``, levels 1,
+    16, 256) against the same scenario unmasked: equal digests and the
+    reference's heavy hitters. It prints the walls, round seconds, leaf
+    uploads/s, the leaf chunks' event ms (CUDA events), one chunk's device
+    time (profiler) against its wall, the wire bytes a client against the
+    plain sketch's, the host mask ms and the counters.
     Each phase prints its seconds.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
@@ -254,7 +274,7 @@ Without a CUDA device the script exits with code 2 and prints no result;
 with one, it runs itself again under ``PYTHONHASHSEED=0`` unless that is
 set, so every phase and every process it starts draws the same CIFAR-10
 stand-in. The full per-shape results also go to
-``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklmno``) runs
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklmnop``) runs
 (a) and the phases named, and prints no kernels or ok line (phase g sets
 its round beside phase e's only when both run). ``--parent DIR`` builds the dequant and flash-forward kernels of
 another checkout (DIR, e.g. the parent commit unpacked by ``git archive``)
@@ -637,6 +657,36 @@ O_TIMEOUT_S = 240
 O_S3_KEYS = ("AKIDCHIPSMOKE", "chip/smoke+secret")
 O_S3_REGIONS = ("us-east-1", "eu-west-1", "ap-northeast-1")  # the server's, each silo's
 O_BROKER_TIMEOUT_S = 60   # deploy broker --native prints its address within this
+
+# Phase (p), federated analytics (ROADMAP A10.5). p1: the ``fa`` command's
+# FSM for every task, 6 clients, seed 0, on the card and on the CPU, and the
+# frequency task with a 2 s deadline and quorum 0.5. p2: the reference's
+# 102,400-client acceptance (tests/test_fa_sketch.py): levels (1, 800,
+# 102400), votevec@1024/3, vocab 512, 12 hot words at p 0.5, 32 words a
+# client, threshold 0.02, central DP sigma 2.0, quorum 0.5, leaf clients 3,
+# n/2 and n-5 and tier-1 node 1 dead, the root crashed after 2 children and
+# journal-restarted; without SecAgg (the host Philox masks would take ~440 s
+# at this geometry), twice. p3: ``fa --federation`` at 256 clients over 3
+# tiers, SecAgg on (votevec@4096/3), against the same scenario unmasked.
+FA_P1_TASKS = ("avg", "heavy_hitter_triehh", "union", "intersection", "cardinality",
+               "frequency_estimation", "k_percentile_element", "histogram")
+FA_P1_QUORUM = ("--task", "frequency_estimation", "--deadline-s", "2", "--quorum", "0.5")
+FA_AVG_TOL = 1e-6   # avg on the card against the CPU (Python floats: exact so far)
+FA_P2 = dict(n_clients=102_400, levels=(1, 800, 102_400), codec="votevec@1024/3", seed=0,
+             vocab=512, n_hot=12, p_hot=0.5, words_per_client=32, hh_threshold_frac=0.02,
+             quorum=0.5, dp_sigma=2.0)
+FA_P2_DEAD_EDGE = 1
+FA_P2_ROOT_CRASH_AFTER = 2
+FA_P2_PROFILED_COHORT = 5   # a live edge's cohort, reduced once more under the profiler
+FA_P3_ARGS = ("--federation", "--fed-clients", "256", "--fed-tiers", "3")
+FA_P3_LEVELS = (1, 16, 256)
+FA_COUNTERS = ("fa/rounds", "fa/quorum_rounds", "fa/deadline_fired", "fa/aborts",
+               "fa/stale_submissions", "fa/screened", "resilience/restarts",
+               "resilience/journal_salvaged", "resilience/journal_replays", "tier/2/evicted",
+               "tier/2/contributions", "tier/1/evicted", "tier/0/quorum_closes",
+               "tier/1/quorum_closes", "secagg/hier_recoveries", "secagg/hier_cohort_rounds")
+
+ALL_PHASES = "bcdefghijklmnop"
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s and bf16 FLOP/s.
 PEAKS = (
@@ -4243,7 +4293,8 @@ def _tree_counters(tiers: int):
 
 
 class _Counted:
-    """Counter deltas of a block: ``with _Counted(names) as c: ...; c.delta``."""
+    """Counter deltas of a block, each summed over its label sets: ``with
+    _Counted(names) as c: ...; c.delta``."""
 
     def __init__(self, names):
         from fedml_tpu_torch.telemetry import get_registry
@@ -4251,11 +4302,11 @@ class _Counted:
         self.reg, self.names = get_registry(), list(names)
 
     def __enter__(self):
-        self.before = {n: self.reg.counter(n).value for n in self.names}
+        self.before = {n: self.reg.total(n) for n in self.names}
         return self
 
     def __exit__(self, *exc):
-        self.delta = {n: self.reg.counter(n).value - self.before[n] for n in self.names}
+        self.delta = {n: self.reg.total(n) - self.before[n] for n in self.names}
         return False
 
 
@@ -4545,6 +4596,221 @@ def tree_secagg_phase(card: str, dev: str = "cuda", template=None, n3=TREE_N3):
                 digest=first["final_digest"], counters=c1)
 
 
+def _cli_line(argv) -> tuple:
+    """One in-process run of the port's command line: (exit code, its last
+    stdout line as JSON)."""
+    import contextlib
+    import io
+
+    from fedml_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+class _RecordedRunners:
+    """Keep the ``TreeRunner``s the FA federation builds while the block runs
+    (``with _RecordedRunners() as rec: ...; rec.runners``)."""
+
+    def __enter__(self):
+        from fedml_tpu_torch.fa.sketch import federation
+
+        self.mod, self.inner, self.runners = federation, federation.TreeRunner, []
+        outer = self
+
+        class Recording(self.inner):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                outer.runners.append(self)
+
+        federation.TreeRunner = Recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.TreeRunner = self.inner
+        return False
+
+
+def fa_fsm_phase(card: str, dev: str = "cuda"):
+    """Phase (p1): the ``fa`` command's FA message FSM for every task on the
+    card, each line against the same command on the CPU."""
+    cases = [["--task", t] for t in FA_P1_TASKS] + [list(FA_P1_QUORUM)]
+    rows, checks = [], {}
+    with _Counted(FA_COUNTERS) as counted:
+        for argv in cases:
+            t0 = time.perf_counter()
+            rc, got = _cli_line(["fa", *argv, "--seed", "0", "--device", dev])
+            wall = time.perf_counter() - t0
+            rc_cpu, want = _cli_line(["fa", *argv, "--seed", "0", "--device", "cpu"])
+            name = " ".join(argv[1:])
+            if argv[1] == "avg":
+                same = (abs(got.pop("avg") - want.pop("avg")) <= FA_AVG_TOL and got == want)
+            else:
+                same = got == want
+            checks[f"{name}: completed"] = rc == rc_cpu == 0 and got.get("completed") is True
+            checks[f"{name}: equal to the CPU's"] = same
+            rows.append((name, wall, got.get("rounds"), got.get("spec")))
+            if argv[1] == "heavy_hitter_triehh":
+                checks["TrieHH found sun and moon"] = {"sun", "moon"} <= set(got["heavy_hitters"])
+    print(f"  {card}: p1 the fa command, 6 clients (task, wall s on the card, rounds, spec): "
+          f"{[(n, round(w, 3), r, sp) for n, w, r, sp in rows]}; counters (card and CPU runs) "
+          f"{ {k: v for k, v in counted.delta.items() if v} }", flush=True)
+    if not all(checks.values()):
+        raise RuntimeError(f"p1 failed: {[k for k, v in checks.items() if not v]}")
+    return dict(tasks=[dict(zip(("task", "wall_s", "rounds", "spec"), r)) for r in rows],
+                counters=counted.delta)
+
+
+def fa_federation_phase(card: str, dev: str = "cuda"):
+    """Phase (p2): the reference's 102,400-client heavy-hitter acceptance on
+    the card without SecAgg, twice."""
+    import tempfile
+
+    from fedml_tpu_torch.fa.sketch.federation import last_sketch_trace, run_sketch_federation
+    from fedml_tpu_torch.hierarchy import EdgeKillWindow, KillWindow, TreeTopology
+    from fedml_tpu_torch.hierarchy import edge as edge_mod
+    from fedml_tpu_torch.hierarchy.runner import last_dp_trace
+
+    n, levels = FA_P2["n_clients"], FA_P2["levels"]
+    topo = TreeTopology(levels)
+    L = topo.leaf_tier
+    dead_leaves = [3, n // 2, n - 5]
+    cohort = topo.children(L - 1, FA_P2_DEAD_EDGE)
+    survivors = sorted(set(range(n)) - set(dead_leaves) - {int(c) for c in cohort})
+    chunk_ms = []
+    inner_chunk = edge_mod.leaf_chunk
+    is_cuda = torch.device(dev).type == "cuda"
+
+    def timed_chunk(*a, **kw):
+        if not is_cuda:
+            return inner_chunk(*a, **kw)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner_chunk(*a, **kw)
+        end.record()
+        chunk_ms.append((start, end))
+        return out
+
+    def run(work):
+        chaos = [KillWindow(L, c, 0) for c in dead_leaves]
+        chaos.append(KillWindow(L - 1, FA_P2_DEAD_EDGE, 0))
+        chaos.append(EdgeKillWindow(0, 0, 0, after_children=FA_P2_ROOT_CRASH_AFTER))
+        with _Counted(FA_COUNTERS) as counted, _RecordedRunners() as rec:
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = run_sketch_federation(chaos=chaos, durability_dir=work,
+                                        reference_client_ids=survivors, device=dev, **FA_P2)
+            wall = time.perf_counter() - t0
+        probes = (last_sketch_trace()["client_sketch_traced"],
+                  last_dp_trace()["noised_in_program"])
+        return out, counted.delta, wall, rec.runners[-1], probes
+
+    edge_mod.leaf_chunk = timed_chunk
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            first, c1, wall1, runner, probes1 = run(work)
+        _sync(dev)
+        chunk_dev_ms = [a.elapsed_time(b) for a, b in chunk_ms]
+    finally:
+        edge_mod.leaf_chunk = inner_chunk
+    with tempfile.TemporaryDirectory() as work:
+        second, c2, wall2, _, probes2 = run(work)
+    g = runner.global_leaves[0]
+    # one cohort's chunk once more: its device time (profiler, the card's
+    # activity alone) against its wall, which the host's launches set
+    cohort = runner.cohorts[FA_P2_PROFILED_COHORT]
+    alive = np.ones(len(cohort.client_ids), bool)
+    _sync(dev)
+    t0 = time.perf_counter()
+    cohort.reduce(0, alive)
+    _sync(dev)
+    chunk_wall_ms = (time.perf_counter() - t0) * 1e3
+    chunk_kernels = None
+    if is_cuda:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cohort.reduce(0, alive)
+            torch.cuda.synchronize()
+        chunk_kernels = _device_kernels(prof).values()
+    chunk_launches = sum(k for k, _ in chunk_kernels) if chunk_kernels else None
+    chunk_busy_ms = sum(ms for _, ms in chunk_kernels) if chunk_kernels else None
+    round_s = [first["stats"]["wall_s"], second["stats"]["wall_s"]]
+    uploads = c1[f"tier/{L}/contributions"]
+    checks = {
+        "completed": bool(first["stats"]["completed"] and second["stats"]["completed"]),
+        "root weight = the survivors": first["root_total_weight"] == float(len(survivors)),
+        "heavy hitters = the plaintext reference's": (
+            first["heavy_hitters"] == first["ref_heavy_hitters"] == second["heavy_hitters"]
+            and first["hh_recall"] == first["hh_precision"] == 1.0),
+        "resilience/restarts >= 1": c1["resilience/restarts"] >= 1,
+        "sketch and DP probes": all(probes1) and all(probes2),
+        "digest-equal runs": first["final_digest"] == second["final_digest"],
+        "finite global of the template's shape": (
+            tuple(g.shape) == (3, 1024) and bool(torch.isfinite(g).all())),
+        "wire = 4 B a cell + the scale": first["per_client_wire_bytes"] == 4 * 3 * 1024 + 4,
+    }
+    print(f"  {card}: p2 {n} clients {list(levels)}, {first['spec']}, DP sigma "
+          f"{FA_P2['dp_sigma']} (epsilon {first['dp_epsilon']:.3f}): wall {wall1:.2f} / "
+          f"{wall2:.2f} s (reference replay included), round {round_s[0]:.2f} / "
+          f"{round_s[1]:.2f} s, {uploads / round_s[0]:.0f} leaf uploads/s; "
+          + (f"{len(chunk_dev_ms)} leaf chunks (CUDA events), "
+             f"{np.median(chunk_dev_ms):.3f} ms median a chunk, {sum(chunk_dev_ms):.1f} ms in "
+             "all (event to event: the host's launch gaps included)" if chunk_dev_ms
+             else "leaf chunks' event ms not measured")
+          + f"; one cohort's chunk again: {chunk_wall_ms:.2f} ms of wall, "
+          + ("device time not measured" if chunk_busy_ms is None else
+             f"{chunk_busy_ms:.3f} ms of device time in {chunk_launches} device events "
+             f"(profiler), busy share {chunk_busy_ms / chunk_wall_ms:.3f}")
+          + f"; wire {first['per_client_wire_bytes']} B a client against "
+          f"{first['plain_sketch_bytes']} B of plain sketch; heavy hitters "
+          f"{first['heavy_hitters']}; digest {first['final_digest']}; counters "
+          f"{ {k: v for k, v in c1.items() if v} }; checks {checks}", flush=True)
+    if not all(checks.values()):
+        raise RuntimeError(f"p2 failed: {[k for k, v in checks.items() if not v]}")
+    return dict(wall_s=[wall1, wall2], round_s=round_s, leaf_uploads_per_s=uploads / round_s[0],
+                chunk_event_ms=chunk_dev_ms, chunk_wall_ms=chunk_wall_ms,
+                chunk_busy_ms=chunk_busy_ms, chunk_launches=chunk_launches, per_client_wire_bytes=first["per_client_wire_bytes"],
+                plain_sketch_bytes=first["plain_sketch_bytes"], dp_epsilon=first["dp_epsilon"],
+                heavy_hitters=first["heavy_hitters"], digest=first["final_digest"], counters=c1)
+
+
+def fa_secagg_phase(card: str, dev: str = "cuda"):
+    """Phase (p3): the ``fa --federation`` command (SecAgg on) at 256 clients
+    against a plain run of the same scenario."""
+    from fedml_tpu_torch.fa.sketch.federation import run_sketch_federation
+
+    with _Counted(FA_COUNTERS) as counted, _RecordedRunners() as rec:
+        t0 = time.perf_counter()
+        rc, masked = _cli_line(["fa", *FA_P3_ARGS, "--seed", "0", "--device", dev])
+        wall = time.perf_counter() - t0
+    mask_ms = sum(c.host_mask_s for c in rec.runners[-1].cohorts) * 1e3
+    t0 = time.perf_counter()
+    plain = run_sketch_federation(n_clients=int(FA_P3_ARGS[2]), tiers=int(FA_P3_ARGS[4]),
+                                  seed=0, secagg=False, device=dev)
+    plain_wall = time.perf_counter() - t0
+    checks = {
+        "completed": rc == 0 and plain["stats"]["completed"],
+        f"levels {list(FA_P3_LEVELS)}": masked["levels"] == list(FA_P3_LEVELS),
+        "masked digest = plain digest": masked["final_digest"] == plain["final_digest"],
+        "heavy hitters = the reference's": (
+            masked["heavy_hitters"] == masked["ref_heavy_hitters"] == plain["heavy_hitters"]),
+        "secagg cohort rounds": counted.delta["secagg/hier_cohort_rounds"]
+        == FA_P3_LEVELS[1],
+    }
+    print(f"  {card}: p3 fa --federation {masked['clients']} clients {masked['levels']}, "
+          f"{masked['spec']}, SecAgg: command wall {wall:.2f} s, {masked['rounds_per_s']:.3f} "
+          f"rounds/s inside, host masks {mask_ms:.0f} ms; plain run {plain_wall:.2f} s; wire "
+          f"{masked['per_client_wire_bytes']} B a client against "
+          f"{masked['plain_sketch_bytes']} B of plain sketch; digest "
+          f"{masked['final_digest']}; counters "
+          f"{ {k: v for k, v in counted.delta.items() if v} }; checks {checks}", flush=True)
+    if not all(checks.values()):
+        raise RuntimeError(f"p3 failed: {[k for k, v in checks.items() if not v]}")
+    return dict(wall_s=wall, rounds_per_s=masked["rounds_per_s"], host_mask_ms=mask_ms,
+                plain_wall_s=plain_wall, digest=masked["final_digest"], counters=counted.delta)
+
+
 def step_sum(results, key, rows=DECODE_ROWS):
     """One pass's total over its 225 launches at ``rows`` rows (None where
     a time was not measured)."""
@@ -4558,7 +4824,7 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="bcdefghijklmno",
+    parser.add_argument("--phases", default=ALL_PHASES,
                         help="phases to run after (a), e.g. 'd' for the flash kernels "
                              "alone (default: all; only a full run prints the kernels "
                              "and ok lines)")
@@ -4612,7 +4878,7 @@ def main(argv=None) -> int:
               f"{info.get('stack')} bytes", flush=True)
 
     results = serve = flash = train = quantized = qlora = sp = cross_silo = trust = None
-    secure = checkpoints = durable = tree = transports = None
+    secure = checkpoints = durable = tree = transports = analytics = None
     phase_s = {}
     parent_dequant = parent_fwd = None
     if opts.parent:
@@ -4729,6 +4995,17 @@ def main(argv=None) -> int:
               "each over tRPC (o1), cross-cloud over the C++ broker with an S3 store (o2) "
               "and gRPC (o3); resnet18, int8, 1 round", flush=True)
         transports = timed("o", lambda: transports_phase(card))
+    if "p" in phases:
+        print("(p1) federated analytics: the fa command's FSM for every task, 6 clients, on "
+              "the card against the CPU", flush=True)
+        analytics = dict(p1=timed("p1", lambda: fa_fsm_phase(card)))
+        print(f"(p2) the {FA_P2['n_clients']}-client heavy-hitter federation: "
+              f"{FA_P2['codec']}, {list(FA_P2['levels'])}, central DP, leaf and edge kills, "
+              "a root crash with a journal restart, no SecAgg, twice", flush=True)
+        analytics["p2"] = timed("p2", lambda: fa_federation_phase(card))
+        print(f"(p3) fa {' '.join(FA_P3_ARGS)} (SecAgg) against the same scenario unmasked",
+              flush=True)
+        analytics["p3"] = timed("p3", lambda: fa_secagg_phase(card))
     whole_s = time.perf_counter() - t_start
     print(f"    whole script: {whole_s:.1f} s from main's start (the limit is 1200 s)",
           flush=True)
@@ -4738,8 +5015,8 @@ def main(argv=None) -> int:
               "quantized": quantized, "qlora": qlora, "sp": sp, "cross_silo": cross_silo,
               "trust": trust, "secure": secure, "checkpoints": checkpoints,
               "durable": durable, "tree": tree, "transports": transports,
-              "phase_s": phase_s, "whole_s": whole_s}
-    if sorted(phases) != list("bcdefghijklmno"):
+              "analytics": analytics, "phase_s": phase_s, "whole_s": whole_s}
+    if sorted(phases) != list(ALL_PHASES):
         with open(os.path.join("results", "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
         print(f"phases {phases} passed (a partial run prints no kernels or ok line)")

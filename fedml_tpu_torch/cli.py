@@ -1,10 +1,13 @@
 """Command line of the port (argparse; counterpart of the ``serve``,
-``deploy broker``, ``chaos`` and ``tree`` commands of ``fedml_tpu/cli.py``).
+``deploy broker``, ``chaos``, ``tree`` and ``fa`` commands of
+``fedml_tpu/cli.py``).
 
     python -m fedml_tpu_torch.cli serve --model llama3_8b --quantize int8
     python -m fedml_tpu_torch.cli deploy broker --port 18923
     python -m fedml_tpu_torch.cli chaos --kill-server --seed 7 --rounds 4
     python -m fedml_tpu_torch.cli tree --clients 100000 --tiers 3 --codec int8
+    python -m fedml_tpu_torch.cli fa --task heavy_hitter_triehh
+    python -m fedml_tpu_torch.cli fa --federation --fed-clients 102400
 
 ``chaos`` runs a seeded fault scenario against a cross-silo federation and
 prints one JSON line (exit 1 unless it completed): message drop, duplicate
@@ -25,6 +28,15 @@ window (``--kill-tier``/``--kill-node``/``--kill-round``). It prints one
 JSON line and exits 1 on a below-quorum abort; the same ``--seed``
 reproduces the same ``final_digest``. ``--metrics-port`` and
 ``--trace-rounds`` come with the telemetry stack, ROADMAP A12.
+
+``fa`` runs a federated-analytics round over seeded synthetic data on
+``--device`` and prints one JSON line (exit 1 on a failed round): by
+default the FA message FSM in process (``fa.run_fa_inproc``: sketch
+submissions under the negotiated spec, ``--deadline-s``/``--quorum`` round
+close) for any of the eight tasks; with ``--federation`` the heavy-hitter
+vote federation over the aggregation tree with SecAgg and central DP
+(``fa.sketch.federation.run_sketch_federation``). The same ``--seed`` gives
+the same line.
 
 ``deploy broker`` runs the federation's TCP pub/sub broker until
 interrupted; a cross-silo server and its clients
@@ -160,7 +172,89 @@ def build_parser() -> argparse.ArgumentParser:
     tree.add_argument("--trace-rounds", default="",
                       help="rounds to capture a device trace of (not ported: ROADMAP A12)")
     tree.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    fa = sub.add_parser("fa", help="run a federated-analytics round over seeded synthetic "
+                                   "data; prints one JSON line")
+    fa.add_argument("--task", default="frequency_estimation",
+                    help="FA task (frequency_estimation, heavy_hitter_triehh, histogram, "
+                         "k_percentile_element, union, intersection, cardinality, avg)")
+    fa.add_argument("--clients", type=int, default=6, help="FSM clients (in-proc transport)")
+    fa.add_argument("--sketch", default="auto",
+                    help="sketch codec spec (cms@W/D, votevec@W/D, bloom@B/H, hist@N/lo/hi, "
+                         "'auto' picks per task, '' = plaintext)")
+    fa.add_argument("--seed", type=int, default=0)
+    fa.add_argument("--query", default="",
+                    help="comma-separated items to point-query in the result")
+    fa.add_argument("--theta", type=int, default=2, help="TrieHH vote threshold")
+    fa.add_argument("--deadline-s", type=float, default=0.0,
+                    help="round deadline (0 = wait for every client)")
+    fa.add_argument("--quorum", type=float, default=None,
+                    help="round close fraction once the deadline fires")
+    fa.add_argument("--federation", action="store_true",
+                    help="run the tree-scale heavy-hitter federation (secagg + central DP "
+                         "over TreeRunner) instead of FSM rounds")
+    fa.add_argument("--fed-clients", type=int, default=4096,
+                    help="virtual clients for --federation")
+    fa.add_argument("--fed-tiers", type=int, default=3)
+    fa.add_argument("--dp-sigma", type=float, default=0.0,
+                    help="central Gaussian noise std on the root sum (--federation only)")
+    fa.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return parser
+
+
+_FA_WORDS = ("sun", "moon", "star", "rain", "wind", "sea", "sky", "fog", "ice", "ash")
+
+
+def run_fa(args: argparse.Namespace) -> dict:
+    """The ``fa`` command: the FA message FSM in process over seeded data
+    (sketch submissions under the negotiated spec, deadline/quorum close),
+    or with ``--federation`` the heavy-hitter vote federation over the
+    aggregation tree with SecAgg and central DP, on ``--device``. Returns the
+    JSON-safe result (``{"completed": False, "error": ...}`` on a failed
+    round); the same ``--seed`` gives the same result."""
+    import types
+
+    import numpy as np
+
+    from fedml_tpu_torch.device import resolve_device
+
+    device = resolve_device(args.device)
+    if args.federation:
+        from fedml_tpu_torch.fa.sketch.federation import run_sketch_federation
+
+        out = run_sketch_federation(n_clients=args.fed_clients, tiers=args.fed_tiers,
+                                    seed=args.seed, secagg=True, dp_sigma=args.dp_sigma,
+                                    device=device)
+        out.pop("stats", None)
+        return out
+    from fedml_tpu_torch.fa.run_inproc import run_fa_inproc
+
+    rng = np.random.default_rng(args.seed)
+    numeric = args.task in ("histogram", "k_percentile_element", "avg")
+    data = {}
+    for r in range(1, int(args.clients) + 1):
+        if numeric:
+            data[r] = rng.uniform(0, 100, 64).tolist()
+        else:
+            # a zipf-ish head: low word ids dominate, so the heavy-hitter and
+            # frequency tasks have discoverable structure
+            idx = np.minimum(rng.zipf(1.5, 64) - 1, len(_FA_WORDS) - 1)
+            data[r] = [_FA_WORDS[i] for i in idx]
+    fa_args = types.SimpleNamespace(
+        run_id=f"fa_cli_{args.seed}", random_seed=args.seed, rank=0, fa_task=args.task,
+        fa_sketch=args.sketch, fa_theta=args.theta,
+        fa_query_items=[q for q in args.query.split(",") if q])
+    if args.deadline_s > 0:
+        fa_args.round_deadline_s = float(args.deadline_s)
+    if args.quorum is not None:
+        fa_args.round_quorum = float(args.quorum)
+    try:
+        out = run_fa_inproc(fa_args, data, device=device)
+    except (RuntimeError, ValueError, TimeoutError) as e:
+        return {"completed": False, "error": str(e)}
+    if out is None:
+        return {"completed": False, "error": "federation aborted"}
+    out = {k: (v.tolist() if hasattr(v, "tolist") else v) for k, v in out.items()}
+    return {"completed": True, **out}
 
 
 def run_tree(args: argparse.Namespace) -> dict:
@@ -277,10 +371,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "deploy":
         run_broker(args)
-    elif args.command in ("chaos", "tree"):
-        out = run_chaos(args) if args.command == "chaos" else run_tree(args)
+    elif args.command in ("chaos", "tree", "fa"):
+        run = {"chaos": run_chaos, "tree": run_tree, "fa": run_fa}[args.command]
+        out = run(args)
         print(json.dumps(out), flush=True)
-        return 0 if out["completed"] else 1
+        return 0 if out.get("completed", True) else 1
     elif args.command == "serve":
         engine, runner = build_endpoint(args)
         print(f"serving {args.model_size} on http://{args.host}:{runner.port} "

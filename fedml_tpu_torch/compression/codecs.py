@@ -28,8 +28,10 @@ every device (CUDA turns a division by a Python scalar into a product).
 ``secagg_int8``, the masked secure-aggregation codec, lives in
 ``privacy/secagg/codec.py`` and registers here on first use; it decodes
 nothing by itself (masked trees resolve only in aggregate) and no generic
-weighted sum takes it. The federated-analytics sketch codecs are legal wire
-tags but come with ROADMAP A10.5; resolving one raises.
+weighted sum takes it. The federated-analytics sketch codecs (``cms``,
+``csk``, ``votevec``, ``bloom``, ``hist``) live in ``fa/sketch/codec.py`` and
+register on first use the same way; each owns its spec grammar
+(``votevec@4096/3``) and its args-derived defaults.
 """
 from __future__ import annotations
 
@@ -700,8 +702,8 @@ _INSTANCES: Dict[Tuple, Codec] = {}
 
 _SECAGG_NAME = "secagg_int8"
 MASKABLE_CODECS = (_SECAGG_NAME,)
-# the federated-analytics sketch family: legal wire tags that come with
-# ROADMAP A10.5
+# the federated-analytics sketch family (fa/sketch/codec.py) registers on
+# first use: fa.sketch imports this module
 _SKETCH_NAMES = ("cms", "csk", "votevec", "bloom", "hist")
 
 
@@ -713,6 +715,13 @@ def _load_secagg_codec() -> type:
 
         _CODEC_CLASSES[SecAggInt8Codec.name] = SecAggInt8Codec
     return _CODEC_CLASSES[_SECAGG_NAME]
+
+
+def _load_sketch_codecs() -> None:
+    """Register the FA sketch codecs on first use (the masked codec's
+    pattern: ``fa.sketch`` imports this module)."""
+    if _SKETCH_NAMES[0] not in _CODEC_CLASSES:
+        import fedml_tpu_torch.fa.sketch.codec  # noqa: F401  (register_codec)
 
 
 def available_codecs() -> Tuple[str, ...]:
@@ -747,14 +756,20 @@ def get_codec(name: str, args: Any = None) -> Optional[Codec]:
             _INSTANCES[cache_key] = cls(clip, bound, mod_bits)
         return _INSTANCES[cache_key]
     if base in _SKETCH_NAMES and base not in _CODEC_CLASSES:
-        raise NotImplementedError(
-            f"codec {base!r} comes with federated analytics (ROADMAP A10.5); "
-            "the port has not ported it yet")
+        _load_sketch_codecs()
     if base not in _CODEC_CLASSES:
         raise ValueError(
             f"unknown compression codec {base!r}; "
             f"available: {', '.join(available_codecs())}")
     cls = _CODEC_CLASSES[base]
+    if hasattr(cls, "parse_param"):
+        # a self-describing codec (the sketch family) owns its spec grammar
+        # and its args-derived defaults
+        params = tuple(cls.parse_param(param) if param else cls.default_param(args))
+        cache_key = (base,) + params
+        if cache_key not in _INSTANCES:
+            _INSTANCES[cache_key] = cls(*params)
+        return _INSTANCES[cache_key]
     if param and base not in (TopKCodec.name, Int4Codec.name, Nf4Codec.name):
         raise ValueError(f"codec {base!r} takes no parameter ({name!r})")
     if base in (Int4Codec.name, Nf4Codec.name):

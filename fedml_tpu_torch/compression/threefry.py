@@ -29,7 +29,8 @@ A key is an int64 tensor of shape ``[2]`` holding the two uint32 words.
 Batched forms take a ``[C, 2]`` tensor of keys, one a row, on the device
 the draw runs on, and give row ``c`` what the one-key form gives for key
 ``c`` — ``jax.vmap`` of the reference's function: :func:`fold_in_batch`,
-:func:`fold_in_many`, :func:`uniform_batch`, :func:`normal_batch`.
+:func:`fold_in_many`, :func:`uniform_batch`, :func:`randint_batch`,
+:func:`normal_batch`.
 :func:`uniform_leaves` and :func:`normal_leaves` draw the leaves of a whole
 tree for every row in one hash: element ``j`` of leaf ``i`` takes
 ``fold_in(key, i)`` and counter ``j``, as the reference's per-leaf
@@ -227,6 +228,39 @@ def uniform_batch(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     on the keys' device."""
     shape = tuple(int(d) for d in shape)
     return _to_unit32(_bits32(keys, _numel(shape))).reshape((keys.shape[0],) + shape)
+
+
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def randint_batch(keys: torch.Tensor, shape: Sequence[int], lo: int, hi: int) -> torch.Tensor:
+    """``jax.vmap(lambda k: jax.random.randint(k, shape, lo, hi))`` for the
+    default int32 dtype: ``[C, *shape]`` int32 on the keys' device.
+
+    As the reference draws it: the key splits in two, each half draws 32
+    bits an element (higher, lower), and with ``span = hi - lo`` and
+    ``multiplier = (2^16 mod span)^2 mod span`` the value is ``lo + ((higher
+    mod span)·multiplier + lower mod span) mod span``, the sum wrapping as
+    uint32 arithmetic does. The bounds clip to int32; ``hi <= lo`` gives
+    ``lo``; ``hi`` past the int32 range widens the span by one (2^32 wraps to
+    a span of 0, where a remainder leaves its operand as it is)."""
+    shape = tuple(int(d) for d in shape)
+    n = _numel(shape)
+    k_hi, k_lo = fold_in_many(keys, (0, 1)).unbind(1)
+    higher, lower = _u32(_bits32(k_hi, n)), _u32(_bits32(k_lo, n))
+    minval = min(max(int(lo), _I32_MIN), _I32_MAX)
+    maxval = min(max(int(hi), _I32_MIN), _I32_MAX)
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    if int(hi) > _I32_MAX and maxval > minval:
+        span = (span + 1) & _MASK
+
+    def rem(x):
+        return x if span == 0 else x % span
+
+    mult = rem(rem(1 << 16) * rem(1 << 16) & _MASK)
+    # (higher mod span) < 2^32 and mult < 2^16: the product fits in int64
+    offset = rem((rem(higher) * mult + rem(lower)) & _MASK)
+    return _to_i32(offset + minval).reshape((keys.shape[0],) + shape)
 
 
 def normal_batch(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

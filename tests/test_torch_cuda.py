@@ -959,3 +959,61 @@ def test_leaf_chunk_on_cuda_matches_cpu_bit_for_bit(codec):
     for a, b in zip(out["cpu"], out["cuda"]):
         assert torch.equal(a, b)
 
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("spec", ["cms@64/3", "csk@64/3", "votevec@4096/3", "bloom@512/2",
+                                  "hist@32/0/10"])
+def test_sketch_encode_on_cuda_matches_cpu_bit_for_bit(spec):
+    """The sketch codecs' wire (one encode and the batched leaf encode, the
+    dyadic scale from the exponent bits) and the fused merge on the card give
+    the CPU's bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch.compression import fused_weighted_sum, get_codec
+
+    codec = get_codec(spec)
+    shape = codec._expected_shape()
+    g = torch.Generator().manual_seed(len(spec))
+    x = torch.randint(-300 if not codec.nonneg else 0, 3000, (6,) + shape,
+                      generator=g).float()
+    x[1] /= 8.0  # a dyadic table
+    x[2] = 0.0
+    q, s = codec.encode_leaf_batch(x.cuda(), None)
+    q0, s0 = codec.encode_leaf_batch(x, None)
+    assert torch.equal(q.cpu(), q0) and torch.equal(s.cpu(), s0)
+    cts = {d: [codec.encode({"table": x[c].to(d)}) for c in range(6)] for d in ("cpu", "cuda")}
+    for a, b in zip(cts["cpu"], cts["cuda"]):
+        assert all(torch.equal(p.cpu(), r) for p, r in zip(b.arrays[0], a.arrays[0]))
+    w = [1.0 / 6] * 6
+    assert torch.equal(fused_weighted_sum(cts["cuda"], w)["table"].cpu(),
+                       fused_weighted_sum(cts["cpu"], w)["table"])
+
+
+@pytest.mark.requires_cuda
+def test_vote_delta_fn_on_cuda_matches_cpu_bit_for_bit():
+    """The word stream (threefry ``uniform_batch`` + ``randint_batch``), the
+    tensor hash and the ``bincount`` vote table of a chunk on the card equal
+    the CPU's, and so does a whole federation's digest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch.compression import threefry
+    from fedml_tpu_torch.fa.sketch import federation as fed
+
+    keys = torch.randint(0, 2 ** 32, (128, 2), dtype=torch.int64,
+                         generator=torch.Generator().manual_seed(3))
+    for lo, hi in ((0, 12), (0, 512), (-5, 1000)):
+        assert torch.equal(threefry.randint_batch(keys.cuda(), (32,), lo, hi).cpu(),
+                           threefry.randint_batch(keys, (32,), lo, hi))
+    x = torch.tensor([0, 1, 2 ** 31, 2 ** 32 - 1, 12345], dtype=torch.int64)
+    assert torch.equal(fed.hash_bucket(x.cuda(), 2 ** 32 - 1, 7, 4096).cpu(),
+                       fed.hash_bucket(x, 2 ** 32 - 1, 7, 4096))
+    fn = fed.make_vote_delta_fn(4096, 3, 0, "votevec", fed.make_word_stream(512, 12, 0.5, 32))
+    (a,), (b,) = fn(keys.cuda()), fn(keys)
+    assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    assert fed.last_sketch_trace()["client_sketch_traced"] is True
+    kw = dict(n_clients=256, levels=(1, 16, 256), codec="votevec@1024/3", vocab=128)
+    on_card = fed.run_sketch_federation(device="cuda", **kw)
+    on_cpu = fed.run_sketch_federation(device="cpu", **kw)
+    assert on_card["final_digest"] == on_cpu["final_digest"]
+    assert on_card["heavy_hitters"] == on_card["ref_heavy_hitters"]

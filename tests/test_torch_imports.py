@@ -217,16 +217,19 @@ def _refusal(case):
 
 
 def _built(case):
-    """What the reconstruction slice ported, built on the CPU."""
+    """What the reconstruction and federated-analytics slices ported, built
+    on the CPU."""
     import types
 
-    from fedml_tpu_torch import init
+    from fedml_tpu_torch import compression, init
     from fedml_tpu_torch.core.security.attacker import FedMLAttacker
     from fedml_tpu_torch.data.data_loader import load_synthetic_lm
     from fedml_tpu_torch.models.llm.llama import LlamaConfig
     from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
 
     ns = types.SimpleNamespace
+    if case == "sketch codec":
+        return compression.get_codec("cms").spec == "cms@1024/4"
     if case == "contribution":
         return init(ns(enable_contribution=True)).enable_contribution
     if case == "reconstruction attack":
@@ -244,12 +247,14 @@ def _built(case):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("sketch codec", r"A10\.5"), ("secagg mesh", "A11"),
+    # ported with A10.5: the id it had while it still raised
+    pytest.param("sketch codec", None, id=r"sketch codec-A10\.5"), ("secagg mesh", "A11"),
     ("contribution", None), ("reconstruction attack", None),
     ("host-loop FedLLM", None), ("robust mesh", "A11"), ("FHE", "A13")])
 def test_trust_refusals_name_their_items(case, item):
     """What the trust slices leave out raises naming where it comes; what
-    the reconstruction slice ported (item None) builds."""
+    the reconstruction and federated-analytics slices ported (item None)
+    builds."""
     if item is None:
         assert _built(case)
         return
@@ -423,3 +428,57 @@ def test_cross_cloud_entry_points_refuse_missing_cuda(monkeypatch):
     for fn in (fedml_tpu_torch.run_cross_cloud_server, fedml_tpu_torch.run_cross_cloud_client):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn(args)
+
+
+@pytest.mark.parametrize("module", [
+    "fedml_tpu_torch.fa",
+    "fedml_tpu_torch.fa.constants",
+    "fedml_tpu_torch.fa.fa_message_define",
+    "fedml_tpu_torch.fa.base_frame",
+    "fedml_tpu_torch.fa.analyzer",
+    "fedml_tpu_torch.fa.aggregator",
+    "fedml_tpu_torch.fa.fa_client_manager",
+    "fedml_tpu_torch.fa.fa_server_manager",
+    "fedml_tpu_torch.fa.run_inproc",
+    "fedml_tpu_torch.fa.sketch",
+    "fedml_tpu_torch.fa.sketch.sketches",
+    "fedml_tpu_torch.fa.sketch.codec",
+    "fedml_tpu_torch.fa.sketch.analyzers",
+    "fedml_tpu_torch.fa.sketch.aggregators",
+    "fedml_tpu_torch.fa.sketch.federation",
+])
+def test_fa_slice_modules_are_scanned(module):
+    """Federated analytics' modules (the FSM, its analyzers and aggregators,
+    the sketches, their codecs, the tree-scale federation) are among those
+    both scans cover: none imports JAX or the reference package."""
+    assert module in PORT_MODULES
+
+
+def test_fa_entry_points_refuse_missing_cuda(monkeypatch):
+    """``run_fa_inproc``, the operators' factories, ``run_sketch_federation``
+    and the ``fa`` command default to ``cuda`` and raise without it, unless
+    given the CPU."""
+    import types
+
+    from fedml_tpu_torch import cli
+    from fedml_tpu_torch.fa import create_aggregator, create_analyzer, run_fa_inproc
+    from fedml_tpu_torch.fa.sketch.federation import run_sketch_federation
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = types.SimpleNamespace(run_id="no_cuda_fa", fa_task="cardinality", fa_sketch="auto",
+                                 random_seed=0, rank=0)
+    data = {1: ["a", "b"], 2: ["b", "c"]}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_fa_inproc(args, data)
+    for make in (create_analyzer, create_aggregator):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make("cardinality", args)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_sketch_federation(n_clients=16, levels=(1, 4, 16))
+    for argv in (["fa"], ["fa", "--federation", "--fed-clients", "16"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv)
+    assert run_fa_inproc(args, data, device="cpu")["spec"] == "bloom@4096/4"
+    out = run_sketch_federation(n_clients=16, levels=(1, 4, 16), codec="votevec@256/3",
+                                vocab=32, device="cpu")
+    assert out["stats"]["completed"] and out["heavy_hitters"] == out["ref_heavy_hitters"]
