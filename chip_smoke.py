@@ -266,6 +266,30 @@ the final ``ok`` line:
     uploads/s, the leaf chunks' event ms (CUDA events), one chunk's device
     time (profiler) against its wall, the wire bytes a client against the
     plain sketch's, the host mask ms and the counters.
+(q) the rest of the LLM trainer and model at Llama-3-8B's widths, random
+    weights from a seed, the repo's synthetic LM tokens at T=2048. (q1) full
+    fine-tuning (``lora_rank: 0``, f32 weights, remat full) at 10 layers
+    through ``LLMTrainer``: 4 steps on one batch and an eval; it fails
+    unless the loss falls, every parameter moved (norm scales and the
+    embedding included), the flash launches are the predicted count and the
+    peak stays under 74 GiB, and prints s a step, tokens/s, model TFLOP/s,
+    the grouped AdamW update's ms (CUDA events) against its 28 B-a-parameter
+    floor and the peak. (q2) the full-parameter federation through
+    FedLLMAPI's host loop at 2 layers: 2 clients x 2 steps, 2 rounds, a
+    checkpoint of every parameter each round; then the round-0 checkpoint
+    restored into a fresh FedLLMAPI (AdamW's moments, which no checkpoint
+    carries, from a snapshot) and round 1 run again; it fails unless the
+    restore and the resumed round's global state and test loss are bit for
+    bit the uninterrupted run's, and prints s a round, the exchange and
+    aggregation ms, the checkpoint's bytes and save/restore ms and the peak.
+    (q3) an 8-expert top-2 MoE at 16 layers over a bf16 base, LoRA rank 16,
+    through the on-device round (4 clients x 2 steps, 2 rounds); it fails
+    unless the loss of round 0's training batches falls below the untrained
+    model's, the routers moved and the experts did not, the aux term is
+    counted once, layer 0's routing on the CPU differs in at most 0.1% of
+    tokens and the launches are the predicted count, and prints s a round,
+    tokens/s, the assignments dropped by capacity, the per-expert load and
+    the peak.
     Each phase prints its seconds.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
@@ -274,7 +298,7 @@ Without a CUDA device the script exits with code 2 and prints no result;
 with one, it runs itself again under ``PYTHONHASHSEED=0`` unless that is
 set, so every phase and every process it starts draws the same CIFAR-10
 stand-in. The full per-shape results also go to
-``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklmnop``) runs
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklmnopq``) runs
 (a) and the phases named, and prints no kernels or ok line (phase g sets
 its round beside phase e's only when both run). ``--parent DIR`` builds the dequant and flash-forward kernels of
 another checkout (DIR, e.g. the parent commit unpacked by ``git archive``)
@@ -536,6 +560,40 @@ FEDLLM_HOST_ARGS = {**TRAIN_ARGS, "on_device_round": False, "train_size": 16,
                     "epochs": 1, "enable_defense": True,
                     "defense_type": "norm_diff_clipping", "norm_bound": 1e4,
                     "save_every_rounds": 1}
+
+# Phase (q): the rest of the LLM trainer and model at Llama-3-8B's widths.
+# (q1) full fine-tuning, f32 weights: 16 B a parameter of weights, gradients
+# and AdamW moments, so 32 layers (~128 GB) do not fit one card; 10 layers
+# (3.23 B parameters, ~52 GB of state) do, under Q1_PEAK_GIB. The steps
+# train on one batch: the synthetic stream's marginal is uniform and its
+# bigrams are local to each sequence's token range, so a few steps move the
+# loss of other sequences by less than its noise (one H100 run, 700 W:
+# 12.575, 12.560, 12.583, 12.628 over four fresh batches at lr 1e-4)
+Q1_ARGS = dict(model_size="llama3_8b", num_hidden_layers=10, lora_rank=0,
+               remat_policy="full", use_flash_attention=True, max_seq_length=2048,
+               per_device_batch_size=1, vocab_size=128256, train_size=1, test_size=1,
+               client_num_in_total=1, random_seed=0, learning_rate=5e-5,
+               max_grad_norm=1.0)
+Q1_STEPS, Q1_PEAK_GIB = 4, 74
+# (q2) the full-parameter federation through FedLLMAPI's host loop: the
+# clients' payloads, the global state and the aggregate are each a whole f32
+# model on the card (5.9 GB at 2 layers), as the reference holds them; 2
+# clients x 2 local steps (2 samples each at batch 1), 2 rounds
+Q2_ARGS = dict(model_size="llama3_8b", num_hidden_layers=2, lora_rank=0,
+               remat_policy="none", use_flash_attention=True, max_seq_length=2048,
+               per_device_batch_size=1, vocab_size=128256, client_num_in_total=2,
+               client_num_per_round=2, train_size=4, test_size=1, epochs=1,
+               comm_round=2, on_device_round=False, random_seed=0, learning_rate=1e-4,
+               frequency_of_the_test=1, save_every_rounds=1)
+# (q3) an 8-expert top-2 MoE over a bf16 base (2.90 GB a layer): 16 layers
+# (~48.5 GB), since 32 would need ~95 GB; LoRA rank 16 and the routers train
+Q3_ARGS = dict(model_size="llama3_8b", num_hidden_layers=16, num_experts=8,
+               num_experts_per_tok=2, moe_capacity_factor=1.25, lora_rank=16,
+               base_params_bf16=True, remat_policy="full", use_flash_attention=True,
+               max_seq_length=2048, per_device_batch_size=1, vocab_size=128256,
+               client_num_in_total=8, client_num_per_round=4, local_steps_per_round=2,
+               comm_round=2, on_device_round=True, train_size=32, test_size=2,
+               random_seed=0, learning_rate=1e-3, frequency_of_the_test=1)
 SERVE_CKPT_REQUESTS, SERVE_CKPT_NEW_TOKENS = 2, 8
 CONTRIB_CONFIG = {**SP_CONFIG, "data_args": {
     **SP_CONFIG["data_args"], "partition_method": "homo"}, "train_args": {
@@ -686,7 +744,7 @@ FA_COUNTERS = ("fa/rounds", "fa/quorum_rounds", "fa/deadline_fired", "fa/aborts"
                "tier/2/contributions", "tier/1/evicted", "tier/0/quorum_closes",
                "tier/1/quorum_closes", "secagg/hier_recoveries", "secagg/hier_cohort_rounds")
 
-ALL_PHASES = "bcdefghijklmnop"
+ALL_PHASES = "bcdefghijklmnopq"
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s and bf16 FLOP/s.
 PEAKS = (
@@ -1258,7 +1316,7 @@ def serve_phase():
             x = torch.nn.functional.embedding(tokens, model.embed_tokens).to(cfg.dtype)
             cos, sin = rope_tables(torch.arange(48, device="cuda"), cfg.head_dim,
                                    cfg.rope_theta)
-            block, _ = model.layer_0(x, cos, sin, model.init_kv_caches(1, 64)[0])
+            block = model.layer_0(x, cos, sin, model.init_kv_caches(1, 64)[0])[0]
             caches = model.init_kv_caches(1, 64)
             lp, caches = model(tokens, kv_caches=caches)
             ld, _ = model(tokens[:, -1:], positions=torch.tensor([[48]], device="cuda"),
@@ -4811,6 +4869,452 @@ def fa_secagg_phase(card: str, dev: str = "cuda"):
                 plain_wall_s=plain_wall, digest=masked["final_digest"], counters=counted.delta)
 
 
+def full_step_flops(cfg, batch: int, t: int) -> float:
+    """Model FLOPs of one full-parameter training step: every projection and
+    the LM head forward (2 FLOPs per weight per token), its activation and
+    weight gradients (2 + 2), and the attention kernels' products (4 + 6 + 8
+    per (query, key) pair and head dim, causal). The forward that activation
+    checkpointing recomputes in the backward is not counted."""
+    h, d, kv = cfg.hidden_size, cfg.head_dim, cfg.num_key_value_heads * cfg.head_dim
+    proj = 2 * h * h + 2 * h * kv + 3 * h * cfg.intermediate_size
+    tokens = batch * t
+    per_layer = 6 * proj * tokens + 18 * batch * cfg.num_attention_heads * d \
+        * attention_pairs(t, t, True)
+    return cfg.num_hidden_layers * per_layer + 6 * h * cfg.vocab_size * tokens
+
+
+def _flash_counts(fa) -> dict:
+    return {"flash_fwd": fa.FLASH_FWD_LAUNCHES, "flash_bwd_dq": fa.FLASH_DQ_LAUNCHES,
+            "flash_bwd_dkv": fa.FLASH_DKV_LAUNCHES}
+
+
+def _strided_sample(p: torch.Tensor, n: int = 65536) -> torch.Tensor:
+    """At most ``n`` evenly strided elements of ``p``, copied."""
+    flat = p.detach().reshape(-1)
+    return flat[:: max(1, flat.numel() // n)].clone()
+
+
+def full_ft_phase(card: str, peak_bw: float, peak_flops: float, dev: str = "cuda"):
+    """Phase (q1): full fine-tuning of Llama-3-8B widths, Q1_ARGS' depth, f32
+    weights, through ``LLMTrainer`` (every parameter trained, AdamW over the
+    whole flat dict): Q1_STEPS steps on one batch at T=2048 and an eval, the
+    flash launch counts read around exactly them. It fails unless the loss
+    falls, every
+    parameter moved (a strided sample of each), the launches are the
+    predicted count and the peak stays under Q1_PEAK_GIB; it prints s a step,
+    tokens/s, model TFLOP/s, the optimizer update's ms (CUDA events) against
+    its bytes floor and the peak memory."""
+    import types
+
+    from fedml_tpu_torch.data.data_loader import load_synthetic_lm
+    from fedml_tpu_torch.models.llm.convert import ref_path
+    from fedml_tpu_torch.models.llm.llama import LlamaConfig
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.train.llm.trainer import LLMTrainer
+
+    args = types.SimpleNamespace(**Q1_ARGS)
+    ds = load_synthetic_lm(args)
+    cfg = LlamaConfig.from_args(args)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = LLMTrainer(cfg, args, device=dev)
+    trainer.init(seed=int(args.random_seed))
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    params = {ref_path(n): p for n, p in trainer.model.named_parameters()}
+    n_params = sum(p.numel() for p in params.values())
+    if trainer.lora_only or set(trainer.opt_state.mu) != set(params):
+        raise RuntimeError("q1's trainer does not train every parameter")
+    before = {k: _strided_sample(p) for k, p in params.items()}
+    print(f"  booted {args.model_size} at {cfg.num_hidden_layers} layers, {n_params} "
+          f"parameters in f32, every one trained, in {boot_s:.1f} s: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated", flush=True)
+
+    # the optimizer update as it runs in each step, timed with CUDA events
+    update_events = []
+    inner_update = trainer.tx.update_
+
+    def timed_update(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        inner_update(*a, **kw)
+        ev[1].record()
+        update_events.append(ev)
+
+    trainer.tx.update_ = timed_update
+    xs, ys = ds.train_data_global
+    xt, yt = ds.test_data_global
+    one = np.ones((1,), np.float32)
+    # --- the main path, with the launch counts read around exactly it ---
+    fa.FLASH_FWD_LAUNCHES = fa.FLASH_DQ_LAUNCHES = fa.FLASH_DKV_LAUNCHES = 0
+    steps = []
+    for s in range(Q1_STEPS):
+        t0 = time.perf_counter()
+        loss = trainer.step(xs[:1], ys[:1], one)  # returns a host float
+        steps.append((loss, time.perf_counter() - t0))
+    ev = trainer.evaluate(xt[:1], yt[:1])
+    launches = _flash_counts(fa)
+    trainer.tx.update_ = inner_update
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    layers = cfg.num_hidden_layers
+    # remat "full": each step's backward runs every block's forward again
+    expected = {"flash_fwd": layers * (2 * Q1_STEPS + 1), "flash_bwd_dq": layers * Q1_STEPS,
+                "flash_bwd_dkv": layers * Q1_STEPS}
+    moved = {k: not torch.equal(_strided_sample(p), before[k]) for k, p in params.items()}
+    emb_moved = float((_strided_sample(params["params/embed_tokens"])
+                       != before["params/embed_tokens"]).float().mean())
+    update_ms = [a.elapsed_time(b) for a, b in update_events]
+    update_floor_ms = 28 * n_params / peak_bw * 1e3
+    step_s = float(np.mean([dt for _, dt in steps[1:]]))
+    flops = full_step_flops(cfg, 1, args.max_seq_length)
+    tokens_per_s = args.max_seq_length / step_s
+    for i, (loss, dt) in enumerate(steps):
+        print(f"  step {i}: loss {loss:.5f}, {dt:.3f} s, optimizer update "
+              f"{update_ms[i]:.2f} ms", flush=True)
+    print(f"  steady step {step_s:.3f} s = {tokens_per_s:.1f} tokens/s, "
+          f"{flops / step_s / 1e12:.1f} TFLOP/s of model FLOPs ({flops:.4g} a step); the "
+          f"update {float(np.mean(update_ms[1:])):.2f} ms against its bytes floor "
+          f"{update_floor_ms:.2f} ms (28 B a parameter at {peak_bw / 1e12:.2f} TB/s); eval "
+          f"loss {ev['eval_loss']:.5f}; peak memory {peak_gib:.3f} GiB (limit "
+          f"{Q1_PEAK_GIB}); {sum(moved.values())} of {len(moved)} parameters moved "
+          f"(embedding: {emb_moved:.4f} of its sampled elements, the rows of the tokens "
+          f"seen); launches {launches} (expected {expected})", flush=True)
+    if launches != expected:
+        raise RuntimeError(f"flash launches {launches} != expected {expected}")
+    if not (all(math.isfinite(l_) for l_, _ in steps) and steps[-1][0] < steps[0][0]
+            and math.isfinite(ev["eval_loss"])):
+        raise RuntimeError(f"q1's loss did not fall: {steps}, eval {ev}")
+    if not all(moved.values()):
+        raise RuntimeError(f"parameters that did not move: "
+                           f"{[k for k, v in moved.items() if not v]}")
+    if peak_gib > Q1_PEAK_GIB:
+        raise RuntimeError(f"q1's peak {peak_gib:.2f} GiB is over {Q1_PEAK_GIB} GiB")
+    del trainer, params, before
+    return dict(layers=layers, params=n_params, launches=launches, expected_launches=expected,
+                losses=[l_ for l_, _ in steps], step_s=[dt for _, dt in steps],
+                steady_step_s=step_s, tokens_per_s=tokens_per_s, step_flops=flops,
+                model_tflops_per_s=flops / step_s / 1e12, update_ms=update_ms,
+                update_floor_ms=update_floor_ms, eval_loss=ev["eval_loss"],
+                peak_gib=peak_gib, boot_s=boot_s, embedding_moved_share=emb_moved)
+
+
+def full_fedllm_phase(card: str, dev: str = "cuda"):
+    """Phase (q2): the full-parameter federation, FedLLMAPI's host loop at
+    Llama-3-8B widths and Q2_ARGS' depth: 2 clients x 2 local steps, 2
+    rounds, a checkpoint each round (every parameter), the flash launches
+    counted around exactly ``train()``. Then the round-0 checkpoint is
+    restored into a freshly built FedLLMAPI and round 1 runs again. The
+    checkpoint carries no optimizer state (as the reference's does not), so
+    the resumed run takes AdamW's moments from a host snapshot of the
+    uninterrupted run at the same boundary. It fails unless the restored
+    parameters equal the checkpoint bit for bit and the resumed round's
+    global state and test loss equal the uninterrupted round's bit for bit;
+    it prints s a round, the exchange and aggregation ms, the checkpoint's
+    bytes and save/restore ms and the peak memory."""
+    import shutil
+    import tempfile
+    import types
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.core.checkpoint import read_round_dir
+    from fedml_tpu_torch.data.data_loader import load_synthetic_lm
+    from fedml_tpu_torch.models.llm.convert import ref_path
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_full_ckpt_")
+    try:
+        args = types.SimpleNamespace(**Q2_ARGS, checkpoint_dir=work)
+        _reset_trust()
+        fedml_tpu_torch.init(args)
+        ds = load_synthetic_lm(args)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        api = FedLLMAPI(args, dev, ds)
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        engine, cfg = api.client.engine, api.cfg
+        n_params = sum(p.numel() for p in engine.model.parameters())
+        print(f"  booted {args.model_size} at {cfg.num_hidden_layers} layers, {n_params} "
+              f"parameters in f32, in {boot_s:.1f} s; {shutil.disk_usage(work).free / 1e9:.1f} "
+              f"GB free for the checkpoints", flush=True)
+        spans = {}
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                spans[name] = spans.get(name, 0.0) + time.perf_counter() - t
+                return out
+            return run
+
+        engine.step = timed("steps", engine.step)
+        engine.load_exchange_state = timed("exchange", engine.load_exchange_state)
+        engine.exchange_state = timed("exchange", engine.exchange_state)
+        for hook in ("on_before_aggregation", "aggregate", "on_after_aggregation"):
+            setattr(api.aggregator, hook, timed("aggregation", getattr(api.aggregator, hook)))
+        rounds, snapshot = [], {}
+        inner = api.train_one_round
+
+        def recorded(r):
+            spans.clear()
+            rep = inner(r)
+            rep.update({f"{k}_s": v for k, v in spans.items()})
+            rounds.append(rep)
+            if r == 0:  # AdamW's moments at the round boundary, kept on the host
+                st = engine.opt_state
+                snapshot.update(count=st.count,
+                                mu={k: v.to("cpu", copy=True) for k, v in st.mu.items()},
+                                nu={k: v.to("cpu", copy=True) for k, v in st.nu.items()})
+            return rep
+
+        api.train_one_round = recorded
+        # --- the main path, with the launch counts read around exactly it ---
+        fa.FLASH_FWD_LAUNCHES = fa.FLASH_DQ_LAUNCHES = fa.FLASH_DKV_LAUNCHES = 0
+        t0 = time.perf_counter()
+        api.train()
+        train_wall_s = time.perf_counter() - t0
+        launches = _flash_counts(fa)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        layers = cfg.num_hidden_layers
+        per_client = args.train_size // args.client_num_in_total  # steps at batch 1
+        steps = args.client_num_per_round * per_client * args.comm_round
+        evals = len(api.test_history)
+        expected = {"flash_fwd": layers * (steps + evals), "flash_bwd_dq": layers * steps,
+                    "flash_bwd_dkv": layers * steps}
+        tokens_per_round = args.client_num_per_round * per_client * args.max_seq_length
+        for rep in rounds:
+            print(f"  round {rep['round']}: {rep['round_sec']:.3f} s "
+                  f"({tokens_per_round / rep['round_sec']:.1f} tokens/s), test loss "
+                  f"{rep['test_loss']:.5f}; local steps {rep.get('steps_s', 0):.3f} s, "
+                  f"exchange {rep.get('exchange_s', 0) * 1e3:.1f} ms, aggregation "
+                  f"{rep.get('aggregation_s', 0) * 1e3:.1f} ms; checkpoint "
+                  f"{rep['checkpoint_bytes']} B in {rep['checkpoint_ms']:.1f} ms", flush=True)
+        print(f"  train(): {args.comm_round} rounds in {train_wall_s:.2f} s; peak memory "
+              f"{peak_gb:.3f} GB; launches {launches} (expected {expected})", flush=True)
+        if launches != expected:
+            raise RuntimeError(f"flash launches {launches} != expected {expected}")
+        if not all(math.isfinite(r["test_loss"]) for r in rounds):
+            raise RuntimeError(f"non-finite test losses: {rounds}")
+        want = {k: v.to("cpu", copy=True) for k, v in api.global_exchange.items()}
+        want_loss = rounds[1]["test_loss"]
+        ckpt0 = rounds[0]["checkpoint"]
+        del api, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- round 1 again, from the round-0 checkpoint in a fresh FedLLMAPI ---
+        args2 = types.SimpleNamespace(**{**vars(args), "checkpoint_dir": None})
+        api = FedLLMAPI(args2, dev, ds)
+        engine = api.client.engine
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.load_checkpoint(ckpt0)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        saved = read_round_dir(ckpt0)
+        restored = all(torch.equal(p.detach().cpu(), saved[ref_path(n)])
+                       for n, p in engine.model.named_parameters())
+        del saved
+        with torch.no_grad():
+            engine.opt_state.count = snapshot["count"]
+            for k in engine.opt_state.mu:
+                engine.opt_state.mu[k].copy_(snapshot["mu"][k])
+                engine.opt_state.nu[k].copy_(snapshot["nu"][k])
+        api.global_exchange = engine.exchange_state()
+        rep = api.train_one_round(1)
+        got = {k: v.cpu() for k, v in api.global_exchange.items()}
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+        max_diff = max((float((got[k].double() - want[k].double()).abs().max())
+                        for k in differ), default=0.0)
+        print(f"  round-0 checkpoint restored into a fresh FedLLMAPI in {restore_ms:.1f} ms, "
+              f"bit for bit: {restored}; round 1 again: test loss {rep['test_loss']!r} vs "
+              f"{want_loss!r} uninterrupted; global leaves that differ: {len(differ)} of "
+              f"{len(want)} (largest |diff| {max_diff:.3g})", flush=True)
+        if not (restored and not differ and rep["test_loss"] == want_loss):
+            raise RuntimeError(f"the resumed round is not the uninterrupted one: restored "
+                               f"{restored}, differing leaves {differ[:5]}")
+        del api, engine
+        _reset_trust()
+        return dict(layers=layers, params=n_params, launches=launches,
+                    expected_launches=expected, rounds=[
+                        {k: v for k, v in r.items() if isinstance(v, (int, float, str))}
+                        for r in rounds],
+                    train_wall_s=train_wall_s, peak_gb=peak_gb, restore_ms=restore_ms,
+                    resumed_round_s=rep["round_sec"], boot_s=boot_s)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def moe_load(top_idx: torch.Tensor, cap: int, n_experts: int, n_real: int):
+    """Per-expert assignments of the real tokens (every choice) and the
+    assignments dropped by capacity (beyond ``cap`` in a group), from one
+    layer's ``[G, g, K]`` routing."""
+    g = top_idx.shape[1]
+    real = (torch.arange(top_idx.shape[0] * g, device=top_idx.device) < n_real).reshape(-1, g)
+    load = torch.zeros(n_experts, dtype=torch.long, device=top_idx.device)
+    dropped = 0
+    for grp in range(top_idx.shape[0]):
+        per = torch.bincount(top_idx[grp].reshape(-1), minlength=n_experts)
+        dropped += int((per - cap).clamp_min(0).sum())
+        load += torch.bincount(top_idx[grp][real[grp]].reshape(-1), minlength=n_experts)
+    return load.cpu().tolist(), dropped
+
+
+def moe_phase(card: str, dev: str = "cuda"):
+    """Phase (q3): federated LoRA rounds of a mixture-of-experts Llama at
+    Llama-3-8B widths (Q3_ARGS: 8 experts, top-2, capacity 1.25, groups of
+    1024, bf16 base, LoRA rank 16, Q3_ARGS' depth) through FedLLMAPI's
+    on-device round, the flash launches counted around exactly ``train()``.
+    It fails unless the loss on round 0's training batches falls below the
+    untrained model's, every router moved and no expert did, the train loss counts the aux term once
+    (the remat path's loss minus the eval loss is the weighted mean aux), at
+    most 0.1% of layer 0's tokens route otherwise on the CPU, and the
+    launches are the predicted count; it prints s a round, tokens/s, the
+    assignments dropped by capacity, the per-expert load and the peak."""
+    import types
+
+    from fedml_tpu_torch.data.data_loader import load_synthetic_lm
+    from fedml_tpu_torch.models.llm import llama as tl
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
+
+    args = types.SimpleNamespace(**Q3_ARGS)
+    ds = load_synthetic_lm(args)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    api = FedLLMAPI(args, dev, ds)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    engine, cfg = api.client.engine, api.cfg
+    model = engine.model
+    moes = [layer.moe for layer in model.layers()]
+    base_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    print(f"  booted a {cfg.num_hidden_layers}-layer MoE at {args.model_size} widths "
+          f"({cfg.num_experts} experts, top-{cfg.num_experts_per_tok}, capacity factor "
+          f"{cfg.moe_capacity_factor}, groups of {cfg.moe_group_size}; {base_gb:.2f} GB of "
+          f"parameters) in {boot_s:.1f} s", flush=True)
+    # the loss of round 0's training batches, before and after: the test
+    # sequences cover other tokens, whose bigrams a few LoRA steps cannot move
+    probe_x, probe_y, _, _ = api.round_batch(0)
+    probe = [(probe_x[c, s], probe_y[c, s]) for c in range(probe_x.shape[0])
+             for s in range(probe_x.shape[1])]
+
+    def probe_loss():
+        return float(np.mean([engine.evaluate(x_, y_)["eval_loss"] for x_, y_ in probe]))
+
+    untrained = probe_loss()
+    routers0 = [m.router.detach().clone() for m in moes]
+
+    def expert_sums():  # each expert tensor's bits, summed
+        return [int(getattr(m, n).view(torch.int16).sum(dtype=torch.int64))
+                for m in moes for n in ("gate_proj", "up_proj", "down_proj")]
+
+    experts0 = expert_sums()
+    rounds = []
+    inner = api.train_one_round
+
+    def recorded(r):
+        rep = inner(r)
+        rounds.append(rep)
+        return rep
+
+    api.train_one_round = recorded
+    # --- the main path, with the launch counts read around exactly it ---
+    fa.FLASH_FWD_LAUNCHES = fa.FLASH_DQ_LAUNCHES = fa.FLASH_DKV_LAUNCHES = 0
+    t0 = time.perf_counter()
+    api.train()
+    train_wall_s = time.perf_counter() - t0
+    launches = _flash_counts(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layers = cfg.num_hidden_layers
+    steps = args.client_num_per_round * args.local_steps_per_round * args.comm_round
+    evals = len(api.test_history)
+    # remat "full": each step's backward runs every block's forward again
+    expected = {"flash_fwd": layers * (2 * steps + evals), "flash_bwd_dq": layers * steps,
+                "flash_bwd_dkv": layers * steps}
+    tokens_per_round = (args.client_num_per_round * args.local_steps_per_round
+                        * args.per_device_batch_size * args.max_seq_length)
+    for rep in rounds:
+        print(f"  round {rep['round']}: {rep['round_sec']:.3f} s "
+              f"({tokens_per_round / rep['round_sec']:.1f} tokens/s), train loss "
+              f"{rep['train_loss']:.5f}, test loss {rep['test_loss']:.5f}", flush=True)
+    routers_moved = [not torch.equal(m.router, r0) for m, r0 in zip(moes, routers0)]
+    experts_frozen = expert_sums() == experts0
+    trained = probe_loss()  # the global adapters: the last round's test loaded them
+
+    # one train batch: the aux term in the remat path's loss, once
+    xs, ys, _, _ = api.round_batch(0)
+    x = torch.as_tensor(xs[0, 0], device=dev).long()
+    y = torch.as_tensor(ys[0, 0], device=dev).long()
+    m1 = torch.ones(x.shape[0], device=dev)
+    train_loss = float(engine._loss_fn(model, x, y, m1)[0].detach())  # grad on: remat
+    routes = []
+    orig_route = tl.LlamaMoE.route
+    captured = {}
+
+    def route(mod, xg):
+        out = orig_route(mod, xg)
+        routes.append(out[2])
+        captured.setdefault("xg", xg.detach())
+        return out
+
+    tl.LlamaMoE.route = route
+    try:
+        with torch.no_grad():
+            _, auxes = model(x, return_aux=True)
+            eval_loss = float(engine._eval_loss_fn(model, x, y, m1)[0])
+    finally:
+        tl.LlamaMoE.route = orig_route
+    aux_term = cfg.moe_aux_weight * float(sum(auxes)) / len(auxes)
+    aux_gap = abs((train_loss - eval_loss) - aux_term)
+    # layer 0's routing on the CPU, on the same input and router
+    xg0 = captured["xg"]
+    cpu = types.SimpleNamespace(router=moes[0].router.detach().cpu(), cfg=cfg)
+    idx_cpu = orig_route(cpu, xg0.cpu())[2]
+    n_tokens = x.numel()
+    real = torch.arange(xg0.shape[0] * xg0.shape[1]) < n_tokens
+    differ = int(((idx_cpu != routes[0].cpu()).any(-1).reshape(-1) & real).sum())
+    cap = moes[0].capacity(xg0.shape[1])
+    loads = [moe_load(idx, cap, cfg.num_experts, n_tokens)
+             for idx in routes[:layers]]
+    dropped = sum(d for _, d in loads)
+    print(f"  train(): {args.comm_round} rounds in {train_wall_s:.2f} s; peak memory "
+          f"{peak_gb:.3f} GB; launches {launches} (expected {expected}); routers moved "
+          f"{sum(routers_moved)} of {layers}, experts bit-frozen {experts_frozen}; round 0's "
+          f"{len(probe)} training batches: loss {untrained:.5f} untrained -> {trained:.5f}",
+          flush=True)
+    print(f"  one batch: train loss {train_loss:.6f} (remat path) - eval loss {eval_loss:.6f} "
+          f"= {train_loss - eval_loss:.6f} vs the weighted mean aux {aux_term:.6f} (gap "
+          f"{aux_gap:.3g}); layer 0 routing on the CPU: {differ} of {n_tokens} tokens differ; "
+          f"capacity {cap} a group; assignments dropped by capacity over {layers} layers: "
+          f"{dropped} of {n_tokens * cfg.num_experts_per_tok * layers}; layer 0's per-expert "
+          f"load {loads[0][0]}", flush=True)
+    if launches != expected:
+        raise RuntimeError(f"flash launches {launches} != expected {expected}")
+    if not (all(math.isfinite(r["train_loss"]) and math.isfinite(r["test_loss"])
+                for r in rounds) and trained < untrained):
+        raise RuntimeError(f"q3's loss did not fall: {untrained} -> {trained}, {rounds}")
+    if not (all(routers_moved) and experts_frozen):
+        raise RuntimeError(f"routers moved {routers_moved}, experts frozen {experts_frozen}")
+    if not (math.isfinite(aux_term) and aux_gap <= 1e-5):
+        raise RuntimeError(f"the aux term is not counted once: {train_loss} - {eval_loss} "
+                           f"vs {aux_term}")
+    if differ > 0.001 * n_tokens:
+        raise RuntimeError(f"{differ} of {n_tokens} tokens route otherwise on the CPU")
+    del api, engine, model, moes
+    return dict(layers=layers, launches=launches, expected_launches=expected, rounds=[
+        {k: v for k, v in r.items() if isinstance(v, (int, float, str))} for r in rounds],
+        probe_loss_untrained=untrained, probe_loss_trained=trained,
+        train_wall_s=train_wall_s,
+        steady_round_s=rounds[-1]["round_sec"],
+        tokens_per_s=tokens_per_round / rounds[-1]["round_sec"], peak_gb=peak_gb,
+        base_gb=base_gb, aux_term=aux_term, aux_gap=aux_gap, routing_differ=differ,
+        capacity=cap, dropped=dropped, expert_load=[ld for ld, _ in loads], boot_s=boot_s)
+
+
 def step_sum(results, key, rows=DECODE_ROWS):
     """One pass's total over its 225 launches at ``rows`` rows (None where
     a time was not measured)."""
@@ -4878,7 +5382,7 @@ def main(argv=None) -> int:
               f"{info.get('stack')} bytes", flush=True)
 
     results = serve = flash = train = quantized = qlora = sp = cross_silo = trust = None
-    secure = checkpoints = durable = tree = transports = analytics = None
+    secure = checkpoints = durable = tree = transports = analytics = llm_rest = None
     phase_s = {}
     parent_dequant = parent_fwd = None
     if opts.parent:
@@ -5006,6 +5510,18 @@ def main(argv=None) -> int:
         print(f"(p3) fa {' '.join(FA_P3_ARGS)} (SecAgg) against the same scenario unmasked",
               flush=True)
         analytics["p3"] = timed("p3", lambda: fa_secagg_phase(card))
+    if "q" in phases:
+        print(f"(q1) full fine-tuning of llama3_8b widths at {Q1_ARGS['num_hidden_layers']} "
+              f"layers: f32 weights, T=2048, {Q1_STEPS} steps and an eval", flush=True)
+        llm_rest = dict(q1=timed("q1", lambda: full_ft_phase(card, peak_bw, peak_flops)))
+        print(f"(q2) the full-parameter federation: FedLLMAPI's host loop at "
+              f"{Q2_ARGS['num_hidden_layers']} layers, 2 clients x 2 steps, 2 rounds, a "
+              "checkpoint each round; round 1 again from the round-0 checkpoint", flush=True)
+        llm_rest["q2"] = timed("q2", lambda: full_fedllm_phase(card))
+        print(f"(q3) MoE rounds: {Q3_ARGS['num_experts']} experts, top-2, "
+              f"{Q3_ARGS['num_hidden_layers']} layers of llama3_8b widths, bf16 base, LoRA "
+              "rank 16, on-device round, 4 clients x 2 steps, 2 rounds", flush=True)
+        llm_rest["q3"] = timed("q3", lambda: moe_phase(card))
     whole_s = time.perf_counter() - t_start
     print(f"    whole script: {whole_s:.1f} s from main's start (the limit is 1200 s)",
           flush=True)
@@ -5015,7 +5531,8 @@ def main(argv=None) -> int:
               "quantized": quantized, "qlora": qlora, "sp": sp, "cross_silo": cross_silo,
               "trust": trust, "secure": secure, "checkpoints": checkpoints,
               "durable": durable, "tree": tree, "transports": transports,
-              "analytics": analytics, "phase_s": phase_s, "whole_s": whole_s}
+              "analytics": analytics, "llm_rest": llm_rest, "phase_s": phase_s,
+              "whole_s": whole_s}
     if sorted(phases) != list(ALL_PHASES):
         with open(os.path.join("results", "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
@@ -5058,7 +5575,9 @@ def main(argv=None) -> int:
             "launches": train["launches"][kname],
             "launches_by_path": {"e": train["launches"][kname],
                                  "g": qlora["nf4"]["launches"][kname],
-                                 "l1": checkpoints["l1"]["launches"][kname]},
+                                 "l1": checkpoints["l1"]["launches"][kname],
+                                 **{q: llm_rest[q]["launches"][kname]
+                                    for q in ("q1", "q2", "q3")}},
             "max_abs_err": err,
             "ms": path["ms"][kname],
             "plain_ms": path["plain_ms"][kname],

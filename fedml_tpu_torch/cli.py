@@ -54,8 +54,13 @@ their quantized twins are built), and served over HTTP (``POST /predict``,
 ``GET /ready``, ``GET /metrics``). ``--checkpoint DIR`` serves a round
 checkpoint the trainer wrote (``LLMTrainer.save_checkpoint``, e.g.
 ``<checkpoint_dir>/round_1``): restored into the model before quantization,
-a LoRA payload (with ``--lora-rank``) merged onto the base; the LoRA leaves
-stay f32 beside the quantized base, as the reference keeps them.
+a LoRA payload (with ``--lora-rank``) merged onto the base, a full one
+(``--lora-rank 0``) replacing every weight; the LoRA leaves stay f32
+beside the quantized base, as the reference keeps them.
+``--hf-checkpoint DIR`` loads a HuggingFace Llama checkpoint first
+(``models/llm/hf_convert.py``), read through ``transformers``, which is
+imported only for this option and must be installed; ``--model`` must
+name the checkpoint's widths and depth.
 The live bridge, SLO flags and the OpenAI surface wait for later slices of
 the port.
 """
@@ -89,6 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
                        help="round checkpoint directory to serve "
                             "(LLMTrainer.save_checkpoint); LoRA payloads merge "
                             "onto the base")
+    serve.add_argument("--hf-checkpoint", default=None, metavar="DIR",
+                       help="HuggingFace Llama checkpoint directory to load before "
+                            "quantization (needs the transformers package)")
     serve.add_argument("--quantize", default=None, choices=QUANTIZE_CHOICES,
                        help="int8 weights: int8/int8_pallas run every ≤128-row "
                             "matmul through the CUDA dequant-matmul kernel, "
@@ -332,6 +340,24 @@ def run_broker(args: argparse.Namespace) -> None:
         broker.stop()
 
 
+def load_hf_checkpoint(model, path: str):
+    """Read a HuggingFace Llama checkpoint directory with ``transformers``
+    (its own dtype kept) and convert it into ``model`` in place."""
+    try:
+        from transformers import AutoModelForCausalLM
+    except ImportError as e:
+        raise RuntimeError(
+            f"serve --hf-checkpoint {path}: reading a HuggingFace checkpoint needs the "
+            f"'transformers' package, which is not installed") from e
+    from fedml_tpu_torch.models.llm.hf_convert import convert_hf_llama_state_dict
+
+    print(f"loading HF checkpoint {path} ...", flush=True)
+    hf = AutoModelForCausalLM.from_pretrained(path, torch_dtype="auto")
+    convert_hf_llama_state_dict(hf.state_dict(), model)
+    del hf
+    return model
+
+
 def build_endpoint(args: argparse.Namespace):
     """(engine, runner) for parsed ``serve`` arguments; nothing started."""
     from fedml_tpu_torch.models.llm.llama import LlamaConfig, LlamaForCausalLM
@@ -352,6 +378,8 @@ def build_endpoint(args: argparse.Namespace):
     a.base_params_bf16 = True
     cfg = LlamaConfig.from_args(a)
     model = LlamaForCausalLM(cfg, device=args.device, seed=0)
+    if getattr(args, "hf_checkpoint", None):
+        load_hf_checkpoint(model, args.hf_checkpoint)
     if getattr(args, "checkpoint", None):
         from fedml_tpu_torch.train.llm.trainer import restore_checkpoint_into
 

@@ -1,6 +1,7 @@
 """FedMLAggOperator — counterpart of
 ``fedml_tpu/ml/aggregator/agg_operator.py``: client trees stacked on a
-leading axis and reduced by one weighted sum, with the reference's
+leading axis and reduced by one weighted sum, one leaf at a time (the
+reference stacks whole trees; the bits are the same), with the reference's
 weighting (sample counts for the FedAvg family, uniform for SCAFFOLD and
 Mime), and the dequant-fused aggregation of compressed client deltas.
 """
@@ -10,7 +11,7 @@ from typing import Any, List, Tuple
 
 import torch
 
-from fedml_tpu_torch.utils.tree import Tree, tree_stack, weighted_tree_sum
+from fedml_tpu_torch.utils.tree import Tree, weighted_sum_of_trees
 
 _UNIFORM_OPTS = {"SCAFFOLD", "Mime"}
 
@@ -22,12 +23,12 @@ class FedMLAggOperator:
         if len(raw_grad_list) == 0:
             raise ValueError("empty client model list")
         weights = FedMLAggOperator._weights(args, raw_grad_list)
-        return weighted_tree_sum(tree_stack([p for _, p in raw_grad_list]), weights)
+        return weighted_sum_of_trees([p for _, p in raw_grad_list], weights)
 
     @staticmethod
     def agg_with_weights(raw_list: List[Tree], weights: List[float]) -> Tree:
         w = torch.as_tensor(weights, dtype=torch.float32)
-        return weighted_tree_sum(tree_stack(raw_list), w / torch.sum(w))
+        return weighted_sum_of_trees(raw_list, w / torch.sum(w))
 
     @staticmethod
     def _weights(args: Any, raw_list: List[Tuple[int, Any]]) -> torch.Tensor:

@@ -14,10 +14,12 @@ model.
 
 The federated exchange crosses between the frameworks as a flat dict keyed
 by the reference's flax path strings (``params/layer_0/attn/q_proj/lora_a``,
-what ``fedml_tpu.train.llm.trainer.extract_lora`` produces):
-``to_exchange`` / ``from_exchange`` move the port's LoRA tensors in and out
-of it, and ``exchange_to_numpy`` gives the numpy form the JAX trainer
-takes.
+what ``fedml_tpu.train.llm.trainer.extract_lora`` produces, or every
+parameter's path for a model without adapters): ``to_exchange`` /
+``from_exchange`` move the port's tensors in and out of it, and
+``exchange_to_numpy`` gives the numpy form the JAX trainer takes. A
+mixture-of-experts layer's leaves (``params/layer_0/moe/router`` [H, E],
+``moe/gate_proj`` [E, H, M], ...) cross like any other.
 """
 from __future__ import annotations
 
@@ -157,8 +159,10 @@ def extract_lora(model: nn.Module) -> Dict[str, nn.Parameter]:
 
 def to_exchange(model: nn.Module) -> Dict[str, torch.Tensor]:
     """:func:`extract_lora` as detached copies (safe to ship while the model
-    trains on)."""
-    return {k: p.detach().clone() for k, p in extract_lora(model).items()}
+    trains on); a model without adapters (full-parameter training) ships
+    every parameter."""
+    live = extract_lora(model) or {ref_path(n): p for n, p in model.named_parameters()}
+    return {k: p.detach().clone() for k, p in live.items()}
 
 
 def from_exchange(model: nn.Module, exchanged: Mapping[str, Any]) -> nn.Module:

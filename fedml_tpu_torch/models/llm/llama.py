@@ -2,7 +2,9 @@
 
 Same architecture and numerics as the flax reference: RMSNorm in f32,
 rotary embeddings on split halves, grouped-query attention, SwiGLU MLP,
-optional LoRA adapters on the attention projections. Kernels keep the JAX
+optional LoRA adapters on the attention projections, and the
+mixture-of-experts FFN (:class:`LlamaMoE`) when ``num_experts > 0``.
+Kernels keep the JAX
 ``[in, out]`` layout, so int8 codes map one to one and the CUDA
 dequant-matmul reads ``W[H, F]`` coalesced along F.
 
@@ -15,8 +17,9 @@ The no-cache (training) branch of attention runs the port's
 ``flash_attention`` when ``use_flash`` is set — on CUDA the hand-written
 Hopper kernels, on the CPU their plain versions — and the plain
 ``reference_attention`` otherwise; the KV-cache branch serves decoding.
-``remat`` checkpoints each block with ``torch.utils.checkpoint``.
-Mixture-of-experts (``num_experts > 0``) waits for ROADMAP A13.
+``remat`` checkpoints each block with ``torch.utils.checkpoint``; a
+block returns its MoE load-balance term as an output, so a recomputed
+forward never counts it twice.
 """
 from __future__ import annotations
 
@@ -155,8 +158,11 @@ def _param(shape: Sequence[int], dtype, device, fill, requires_grad=False):
 
 
 def _lecun_normal(gen):
+    """flax's rule: the last axis is ``out``, the one before it ``in``, and
+    any leading axes multiply the fan-in (a stacked ``[E, in, out]`` expert
+    kernel has fan-in ``E * in``)."""
     def fill(t):
-        std = math.sqrt(1.0 / t.shape[0]) / _TRUNC_STD_CORRECTION
+        std = math.sqrt(t.shape[-1] / t.numel()) / _TRUNC_STD_CORRECTION
         nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
     return fill
 
@@ -321,6 +327,92 @@ class LlamaMLP(nn.Module):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
+def top_k_stable(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest values, ties
+    taken lowest index first (a stable sort; ``torch.topk`` promises no
+    order on ties, and a padded row's uniform probabilities are all ties)."""
+    idx = torch.sort(-probs, dim=-1, stable=True).indices[..., :k]
+    return torch.gather(probs, -1, idx), idx
+
+
+class LlamaMoE(nn.Module):
+    """Mixture-of-experts FFN (Mixtral/Switch shape), counterpart of the
+    reference's ``LlamaMoE``: top-k routing in groups of ``moe_group_size``
+    tokens with capacity dropping, the expert kernels stacked ``[E, in,
+    out]``, dispatch and combine as one-hot einsums (products, no scatter:
+    the same bits on every run). ``forward`` returns ``(y, aux)``, ``aux``
+    the Switch load-balance term over the real (unpadded) tokens."""
+
+    def __init__(self, cfg: LlamaConfig, device, gen):
+        super().__init__()
+        self.cfg = cfg
+        e, h, m = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+        self.router = _param((h, e), torch.float32, device, _normal(0.02, gen))
+        self.gate_proj = _param((e, h, m), cfg.param_dtype, device, _lecun_normal(gen))
+        self.up_proj = _param((e, h, m), cfg.param_dtype, device, _lecun_normal(gen))
+        self.down_proj = _param((e, m, h), cfg.param_dtype, device, _lecun_normal(gen))
+
+    def capacity(self, g: int) -> int:
+        cfg = self.cfg
+        return max(4, int(cfg.moe_capacity_factor * g * cfg.num_experts_per_tok
+                          / cfg.num_experts))
+
+    def route(self, xg: torch.Tensor):
+        """Router probabilities over ``xg`` [G, g, H] in f32 and the top-k
+        choices: ``(probs, top_vals, top_idx)``, the k values renormalised."""
+        probs = torch.softmax(xg.to(torch.float32) @ self.router, dim=-1)
+        top_vals, top_idx = top_k_stable(probs, self.cfg.num_experts_per_tok)
+        return probs, top_vals / torch.sum(top_vals, -1, keepdim=True), top_idx
+
+    def forward(self, x):
+        cfg = self.cfg
+        e, k = cfg.num_experts, cfg.num_experts_per_tok
+        b, t, h = x.shape
+        s = b * t
+        g = min(int(cfg.moe_group_size), s)
+        s_pad = -(-s // g) * g
+        xs = x.reshape(s, h)
+        if s_pad != s:  # the tail group is zero-padded; its rows are dropped after
+            xs = torch.cat([xs, xs.new_zeros((s_pad - s, h))], 0)
+        n_groups = s_pad // g
+        xg = xs.reshape(n_groups, g, h)
+        probs, top_vals, top_idx = self.route(xg)
+
+        cap = self.capacity(g)
+        slots = torch.arange(cap, device=x.device)
+        counts = torch.zeros((n_groups, e), dtype=torch.long, device=x.device)
+        dispatch = torch.zeros((n_groups, g, e, cap), dtype=cfg.dtype, device=x.device)
+        combine = torch.zeros((n_groups, g, e, cap), dtype=torch.float32, device=x.device)
+        for j in range(k):  # the j-th choices queue behind the (j-1)-th's
+            oh = F.one_hot(top_idx[..., j], e)                      # [G, g, E]
+            pos = counts[:, None, :] + torch.cumsum(oh, 1) - oh
+            counts = counts + torch.sum(oh, 1)
+            keep = (pos < cap) & (oh > 0)                           # capacity dropping
+            # one_hot(pos, cap) with a zero row where pos >= cap
+            sel = (pos[..., None] == slots).to(torch.float32) * keep[..., None]
+            dispatch = dispatch + sel.to(cfg.dtype)
+            combine = combine + sel * top_vals[..., j, None, None]
+
+        ein = xs.dtype
+        expert_in = torch.einsum("gsec,gsh->egch", dispatch.to(ein), xg)
+        gate = torch.einsum("egch,ehm->egcm", expert_in, self.gate_proj.to(ein))
+        up = torch.einsum("egch,ehm->egcm", expert_in, self.up_proj.to(ein))
+        out = torch.einsum("egcm,emh->egch", F.silu(gate) * up, self.down_proj.to(ein))
+        ys = torch.einsum("gsec,egch->gsh", combine.to(ein), out)
+        ys = ys.reshape(s_pad, h)[:s]
+
+        # Switch aux loss, E * sum_e (fraction routed to e) * (mean prob of
+        # e), over the real tokens only
+        valid = (torch.arange(s_pad, device=x.device) < s).to(torch.float32).reshape(
+            n_groups, g, 1)
+        n_valid = torch.clamp_min(torch.sum(valid), 1.0)
+        top1 = F.one_hot(top_idx[..., 0], e).to(torch.float32)
+        frac = torch.sum(top1 * valid, (0, 1)) / n_valid
+        mean_prob = torch.sum(probs * valid, (0, 1)) / n_valid
+        aux = e * torch.sum(frac * mean_prob)
+        return ys.reshape(b, t, h), aux
+
+
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, device, gen):
         super().__init__()
@@ -328,14 +420,23 @@ class LlamaBlock(nn.Module):
         self.attn = LlamaAttention(cfg, device, gen)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                       cfg.dtype, device)
-        self.mlp = LlamaMLP(cfg, device, gen)
+        if cfg.num_experts > 0:
+            self.moe = LlamaMoE(cfg, device, gen)
+        else:
+            self.mlp = LlamaMLP(cfg, device, gen)
 
     def forward(self, x, cos, sin, kv_cache=None, attention_fn=None):
+        """``(x, new_cache, aux)``: ``aux`` is the MoE load-balance term, or
+        None for a dense block."""
         attn_out, new_cache = self.attn(self.input_norm(x), cos, sin, kv_cache,
                                         attention_fn)
         x = x + attn_out
-        x = x + self.mlp(self.post_attn_norm(x))
-        return x, new_cache
+        h = self.post_attn_norm(x)
+        if hasattr(self, "moe"):
+            y, aux = self.moe(h)
+        else:
+            y, aux = self.mlp(h), None
+        return x + y, new_cache, aux
 
 
 class LlamaForCausalLM(nn.Module):
@@ -351,9 +452,6 @@ class LlamaForCausalLM(nn.Module):
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = "cuda",
                  seed: int = 0):
         super().__init__()
-        if cfg.num_experts > 0:
-            raise NotImplementedError(
-                "mixture-of-experts Llama is not ported yet (ROADMAP A13)")
         dev = resolve_device(device)
         self.cfg = cfg
         gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -376,23 +474,35 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 kv_caches: Optional[List[KVCache]] = None,
-                attention_fn: Optional[Callable] = None):
+                attention_fn: Optional[Callable] = None, return_aux: bool = False):
+        """``return_aux`` (no-cache forward only): return ``(logits, auxes)``,
+        one MoE load-balance term per MoE layer (the reference's sown
+        ``moe_aux_loss`` intermediates)."""
         cfg = self.cfg
-        x = F.embedding(tokens, self.embed_tokens).to(cfg.dtype)
+        table = self.embed_tokens
+        if table.requires_grad and torch.is_grad_enabled():
+            # the reference casts the table, then gathers: repeated tokens
+            # add their gradients in the compute dtype (a transient table
+            # in cfg.dtype); the forward values are the same either way
+            x = F.embedding(tokens, table.to(cfg.dtype))
+        else:
+            x = F.embedding(tokens, table).to(cfg.dtype)
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         remat = (cfg.remat and cfg.remat_policy != "none" and kv_caches is None
                  and torch.is_grad_enabled())
-        new_caches = []
+        new_caches, auxes = [], []
         for i, block in enumerate(self.layers()):
             cache_i = kv_caches[i] if kv_caches is not None else None
             if remat:
-                x, new_cache = _checkpoint_block(block, cfg.remat_policy, x, cos,
-                                                 sin, attention_fn)
+                x, new_cache, aux = _checkpoint_block(block, cfg.remat_policy, x, cos,
+                                                      sin, attention_fn)
             else:
-                x, new_cache = block(x, cos, sin, cache_i, attention_fn)
+                x, new_cache, aux = block(x, cos, sin, cache_i, attention_fn)
             new_caches.append(new_cache)
+            if aux is not None:
+                auxes.append(aux)
         x = self.final_norm(x)
         if cfg.tie_word_embeddings:
             logits = x @ self.embed_tokens.to(cfg.dtype).T
@@ -401,6 +511,8 @@ class LlamaForCausalLM(nn.Module):
         logits = logits.to(torch.float32)
         if kv_caches is not None:
             return logits, new_caches
+        if return_aux:
+            return logits, auxes
         return logits
 
     def init_kv_caches(self, batch: int, max_len: int) -> List[KVCache]:

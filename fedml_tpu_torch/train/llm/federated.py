@@ -3,10 +3,11 @@
 ``LLMAggregator``).
 
 Each client runs the trainer's step over its own token shard; with LoRA
-only the adapter dict (``{reference path: tensor}``) is exchanged. As in
-the reference the classes are a ``ClientTrainer`` and a
-``ServerAggregator``, so the host-loop round (``run_fedllm``) runs the
-trust-stack hook chain around each client's payload: data poisoning and
+only the adapter dict (``{reference path: tensor}``) is exchanged, without
+it every parameter. As in the reference the classes are a
+``ClientTrainer`` and a ``ServerAggregator``, so the host-loop round
+(``run_fedllm``) runs the trust-stack hook chain around each client's
+payload: data poisoning and
 local DP around ``train`` (``run_local_training``), the central-DP clip,
 model attacks and defenses before the weighted average, central DP and
 the defenses' after-hook behind it. The on-device round runs no hook.

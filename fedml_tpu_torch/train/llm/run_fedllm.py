@@ -2,8 +2,10 @@
 ``fedml_tpu/train/llm/run_fedllm.py``.
 
 N simulated clients share one trainer (sequential local training, the
-reference's ``sp`` memory model) and exchange LoRA dicts. Two rounds, as
-the reference's:
+reference's ``sp`` memory model) and exchange LoRA dicts, or every
+parameter without LoRA (full-parameter training; the clients' payloads,
+the global state and the aggregate are then each a whole model on the
+device, as the reference holds them). Two rounds, as the reference's:
 
 * the host loop (the default): each sampled client trains from the
   global adapters through ``run_local_training`` (data poisoning and local
@@ -13,7 +15,8 @@ the reference's:
 * ``on_device_round: true``: the round without hooks, one
   :meth:`LLMTrainer.compile_federated_round` call over the clients'
   batches drawn with the reference's seeded draws; refused while a
-  trust-stack hook is on.
+  trust-stack hook is on, and for a full model (the trainer raises at the
+  first round, as the reference's does).
 
 Both test the global adapters on the reference's cadence and, with
 ``checkpoint_dir`` and ``save_every_rounds``, save the engine's live

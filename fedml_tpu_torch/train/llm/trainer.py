@@ -3,23 +3,31 @@
 The reference compiles one sharded XLA step; the port runs the same step
 eagerly on one card:
 
-- LoRA fine-tuning differentiates ONLY the trainable tensors (the adapters;
-  the MoE router once ``LlamaMoE`` lands): the frozen base has
-  ``requires_grad=False`` and never gets a gradient;
+- LoRA fine-tuning differentiates ONLY the trainable tensors (the adapters
+  and the MoE router): the frozen base has ``requires_grad=False`` and
+  never gets a gradient; full-parameter training (``lora_rank <= 0``)
+  differentiates every parameter and exchanges the whole flat dict;
+- an MoE model's train loss adds ``moe_aux_weight`` times the mean of its
+  layers' load-balance terms; the eval loss is pure cross-entropy;
 - micro-batch gradients over ``[accum, B, T]`` are averaged, then one
   optimizer update: the reference's optax chain
   ``clip_by_global_norm(max_grad_norm)`` → ``adamw(schedule, wd)``, written
-  out by hand (:class:`OptaxAdamW`) so that it matches optax step for step;
-- :meth:`LLMTrainer.compile_federated_round` runs a whole federated round
-  (client-switch, local steps, weighted adapter FedAvg) with the semantics
-  of the reference's fused round;
+  out by hand (:class:`OptaxAdamW`) so that it matches optax step for step,
+  with its state in the parameters' dtype as optax keeps it, and updated
+  in bounded groups of elements so that a full model's update needs no
+  second copy of the model;
+- :meth:`LLMTrainer.compile_federated_round` runs a whole federated LoRA
+  round (client-switch, local steps, weighted adapter FedAvg) with the
+  semantics of the reference's fused round, and refuses a full model as
+  the reference does;
 - QLoRA: ``base_quantize`` (``int8``, ``int4`` or ``nf4``) stores the frozen
   base quantized (``ops/quant.py``); its products dequantize per call and
   save no dequantized weight for backward.
 
 The exchange payload is the flat ``{reference path: tensor}`` dict of the
-adapters (``params/layer_0/attn/q_proj/lora_a``), the same keys the JAX
-trainer uses, so payloads cross between the two.
+adapters (``params/layer_0/attn/q_proj/lora_a``), or of every parameter
+without LoRA, the same keys the JAX trainer's paths flatten to, so
+payloads cross between the two.
 
 Round checkpoints (:meth:`LLMTrainer.save_checkpoint`,
 :func:`restore_checkpoint_into`) are the port's format (``core/checkpoint``:
@@ -118,14 +126,22 @@ class AdamWState:
 class OptaxAdamW:
     """``optax.chain(clip_by_global_norm(max_norm), adamw(schedule,
     weight_decay))`` with optax's defaults (b1 0.9, b2 0.999, eps 1e-8,
-    eps_root 0), over a flat dict of f32 tensors, updated in place with
+    eps_root 0), over a flat dict of tensors, updated in place with
     foreach kernels. Two points where a stock PyTorch optimizer differs:
     the learning rate is the schedule at the count *before* the update (the
     first warmup step has lr 0), and clipping scales by ``max_norm / norm``
     only when ``norm >= max_norm``, with no epsilon in the norm.
+
+    μ and ν take each parameter's dtype, as optax's do (bf16 parameters
+    keep a bf16 state). After the global norm, the update walks flat views
+    of the tensors in groups of at most ``GROUP_ELEMS`` elements: each op is
+    elementwise, so the bits are those of one pass over the whole dict,
+    and the temporaries (the clipped gradient, μ̂, the denominator, the
+    step) never exceed ``GROUP_ELEMS`` elements each (256 MB in f32).
     """
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
+    GROUP_ELEMS = 1 << 26
 
     def __init__(self, schedule: Callable[[int], float], max_grad_norm: float,
                  weight_decay: float = 0.0):
@@ -134,8 +150,26 @@ class OptaxAdamW:
         self.weight_decay = float(weight_decay)
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamWState:
-        zeros = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+        zeros = {k: torch.zeros_like(p) for k, p in params.items()}
         return AdamWState(0, zeros, {k: torch.zeros_like(z) for k, z in zeros.items()})
+
+    def _groups(self, keys, sizes):
+        """``[[(key, start, stop), ...], ...]``: consecutive flat slices of the
+        tensors, at most ``GROUP_ELEMS`` elements a group."""
+        groups, cur, room = [], [], self.GROUP_ELEMS
+        for k in keys:
+            start, n = 0, sizes[k]
+            while start < n:
+                take = min(n - start, room)
+                cur.append((k, start, start + take))
+                start += take
+                room -= take
+                if room == 0:
+                    groups.append(cur)
+                    cur, room = [], self.GROUP_ELEMS
+        if cur:
+            groups.append(cur)
+        return groups
 
     @torch.no_grad()
     def update_(self, params: Mapping[str, torch.Tensor],
@@ -143,34 +177,40 @@ class OptaxAdamW:
         """One update of ``params`` (in place) from ``grads``; advances
         ``state`` in place. Never synchronises with the device."""
         keys = list(params)
-        p = [params[k] for k in keys]
-        g = [grads[k].to(torch.float32) for k in keys]
-        mu = [state.mu[k] for k in keys]
-        nu = [state.nu[k] for k in keys]
+        g_full = {k: grads[k].to(state.mu[k].dtype) for k in keys}
         # clip_by_global_norm
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+            [g_full[k] for k in keys])))
         clip = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                            self.max_grad_norm / norm)
-        g = torch._foreach_mul(g, clip)
-        # scale_by_adam
-        torch._foreach_mul_(mu, self.B1)
-        torch._foreach_add_(mu, g, alpha=1.0 - self.B1)
-        torch._foreach_mul_(nu, self.B2)
-        torch._foreach_addcmul_(nu, g, g, value=1.0 - self.B2)
         lr = self.schedule(state.count)
         state.count += 1
         f32 = np.float32
         bc1 = float(f32(1) - f32(self.B1) ** f32(state.count))
         bc2 = float(f32(1) - f32(self.B2) ** f32(state.count))
-        mu_hat = torch._foreach_div(mu, bc1)
-        denom = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.EPS)
-        upd = torch._foreach_div(mu_hat, denom)
-        # add_decayed_weights, then scale_by_learning_rate
-        if self.weight_decay:
-            torch._foreach_add_(upd, p, alpha=self.weight_decay)
-        torch._foreach_add_(p, upd, alpha=-lr)
+        for group in self._groups(keys, {k: params[k].numel() for k in keys}):
+            def views(src, flat=lambda t: t.view(-1)):
+                return [flat(src[k])[a:b] for k, a, b in group]
+
+            p = views(params)
+            mu, nu = views(state.mu), views(state.nu)
+            g = torch._foreach_mul(views(g_full, lambda t: t.reshape(-1)), clip)
+            # scale_by_adam
+            torch._foreach_mul_(mu, self.B1)
+            torch._foreach_add_(mu, g, alpha=1.0 - self.B1)
+            torch._foreach_mul_(nu, self.B2)
+            torch._foreach_addcmul_(nu, g, g, value=1.0 - self.B2)
+            del g
+            mu_hat = torch._foreach_div(mu, bc1)
+            denom = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.EPS)
+            upd = torch._foreach_div(mu_hat, denom)
+            del mu_hat, denom
+            # add_decayed_weights, then scale_by_learning_rate
+            if self.weight_decay:
+                torch._foreach_add_(upd, p, alpha=self.weight_decay)
+            torch._foreach_add_(p, upd, alpha=-lr)
 
 
 def _check_single_device(args: Any) -> None:
@@ -183,8 +223,9 @@ def _check_single_device(args: Any) -> None:
 
 
 class LLMTrainer:
-    """LoRA fine-tuning of a causal LM on one device (``device=``, default
-    ``"cuda"``)."""
+    """Fine-tuning of a causal LM on one device (``device=``, default
+    ``"cuda"``): LoRA adapters (and an MoE router) with ``lora_rank > 0``,
+    every parameter otherwise."""
 
     def __init__(self, cfg: LlamaConfig, args: Any, device: DeviceLike = "cuda"):
         # QLoRA: the frozen base stored quantized, per-channel int8 or
@@ -196,10 +237,6 @@ class LLMTrainer:
         if self.base_quantize and cfg.lora_rank <= 0:
             raise ValueError("base_quantize requires lora_rank > 0 (QLoRA trains "
                              "adapters over a frozen quantized base)")
-        if cfg.lora_rank <= 0:
-            raise NotImplementedError(
-                "the port fine-tunes LoRA adapters only; full-parameter "
-                "training is not ported yet (ROADMAP A4)")
         _check_single_device(args)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -218,10 +255,23 @@ class LLMTrainer:
         self.tx = OptaxAdamW(schedule, float(getattr(args, "max_grad_norm", 1.0)),
                              float(getattr(args, "weight_decay", 0.0)))
 
+        is_moe = cfg.num_experts > 0
+        moe_aux_w = float(getattr(cfg, "moe_aux_weight", 0.01))
+
         def apply_fn(model, x):
+            if not is_moe:
+                return model(x)
+            # the layers' load-balance terms: without the aux pressure in the
+            # objective the router collapses
+            logits, auxes = model(x, return_aux=True)
+            return logits, moe_aux_w * sum(auxes) / max(len(auxes), 1)
+
+        def eval_apply_fn(model, x):
+            # evaluation reports pure cross-entropy, no aux regularizer
             return model(x)
 
         self._loss_fn = causal_lm_loss(apply_fn)
+        self._eval_loss_fn = causal_lm_loss(eval_apply_fn)
         self.model: Optional[LlamaForCausalLM] = None
         self.opt_state: Optional[AdamWState] = None
         self._trainable: Dict[str, torch.nn.Parameter] = {}
@@ -233,14 +283,21 @@ class LLMTrainer:
         return self.model
 
     # -- init -------------------------------------------------------------
-    def init(self, seed: int = 0) -> LlamaForCausalLM:
+    def init(self, seed: int = 0, zeros: bool = False) -> LlamaForCausalLM:
         """Build the model on the trainer's device with weights drawn from
-        ``seed`` (the base quantized in place under ``base_quantize``); only
-        the trainable tensors require grad."""
+        ``seed``, or every parameter zero with ``zeros=True`` (the
+        reference's dry-run fast path), the base quantized in place under
+        ``base_quantize``; only the trainable tensors require grad (all of
+        them without LoRA)."""
         self.model = LlamaForCausalLM(self.cfg, device=self.device, seed=seed)
+        if zeros:
+            with torch.no_grad():
+                for p in self.model.parameters():
+                    p.zero_()
         if self.base_quantize:
             self._quantize_base()
-        self._trainable = extract_trainable(self.model)
+        self._trainable = (extract_trainable(self.model) if self.lora_only else
+                           {ref_path(n): p for n, p in self.model.named_parameters()})
         for p in self.model.parameters():
             p.requires_grad_(False)
         for p in self._trainable.values():
@@ -299,7 +356,7 @@ class LLMTrainer:
     def evaluate(self, x, y) -> dict:
         x, y = self._tokens(x), self._tokens(y)
         m = torch.ones((x.shape[0],), dtype=torch.float32, device=self.device)
-        loss, (correct, denom) = self._loss_fn(self.model, x, y, m)
+        loss, (correct, denom) = self._eval_loss_fn(self.model, x, y, m)
         return {
             "eval_loss": float(loss),
             "eval_acc": float(correct) / max(float(denom), 1.0),
@@ -307,8 +364,8 @@ class LLMTrainer:
 
     # -- federation exchange ------------------------------------------------
     def exchange_state(self) -> Dict[str, torch.Tensor]:
-        """The exchange payload — the LoRA dict — as detached copies, safe
-        to ship."""
+        """The exchange payload — the LoRA dict, or every parameter without
+        LoRA — as detached copies, safe to ship."""
         return to_exchange(self.model)
 
     def load_exchange_state(self, exchanged: Mapping[str, Any]) -> None:
@@ -338,6 +395,11 @@ class LLMTrainer:
         kernel on the current CUDA stream and no host synchronisation
         inside, so that it can later be captured in a CUDA graph.
         """
+        if not self.lora_only:
+            raise ValueError(
+                "compile_federated_round requires a LoRA model (the frozen "
+                "base rides inside the program; full-param exchange would "
+                "double HBM)")
         n_clients, local_steps = int(n_clients), int(local_steps)
 
         def fed_round(params, opt_state, global_lora, xs, ys, ms, weights):

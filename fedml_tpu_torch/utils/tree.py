@@ -66,14 +66,23 @@ def tree_stack(trees: Sequence[Tree]) -> Tree:
     return tree_map(lambda *xs: torch.stack(xs, 0), *trees)
 
 
+def _weighted_leaf_sum(leaf: torch.Tensor, weights) -> torch.Tensor:
+    w = torch.as_tensor(weights, device=leaf.device).to(leaf.dtype)
+    return torch.sum(leaf * w.reshape((-1,) + (1,) * (leaf.ndim - 1)), 0,
+                     dtype=leaf.dtype)
+
+
 def weighted_tree_sum(trees: Tree, weights) -> Tree:
     """Σ_i w_i · tree_i over the leading participant axis of stacked trees;
     ``weights`` (N,) should already be normalized. The weights take each
     leaf's dtype, as in the reference."""
+    return tree_map(lambda leaf: _weighted_leaf_sum(leaf, weights), trees)
 
-    def _wsum(leaf):
-        w = torch.as_tensor(weights, device=leaf.device).to(leaf.dtype)
-        return torch.sum(leaf * w.reshape((-1,) + (1,) * (leaf.ndim - 1)), 0,
-                         dtype=leaf.dtype)
 
-    return tree_map(_wsum, trees)
+def weighted_sum_of_trees(trees: Sequence[Tree], weights) -> Tree:
+    """``weighted_tree_sum(tree_stack(trees), weights)``, stacking and summing
+    one leaf at a time: each leaf reduces on its own, so the bits are the
+    same, and only one leaf's stack is alive at once (a whole-tree stack
+    would be a second copy of every client's payload)."""
+    return tree_map(lambda *leaves: _weighted_leaf_sum(torch.stack(leaves, 0), weights),
+                    *trees)

@@ -1017,3 +1017,123 @@ def test_vote_delta_fn_on_cuda_matches_cpu_bit_for_bit():
     on_cpu = fed.run_sketch_federation(device="cpu", **kw)
     assert on_card["final_digest"] == on_cpu["final_digest"]
     assert on_card["heavy_hitters"] == on_card["ref_heavy_hitters"]
+
+
+def _moe_card_and_cpu(**kw):
+    """A small bf16 MoE Llama (head_dim 64, the flash kernels' width) drawn
+    on the CPU from a seed and copied to the card."""
+    from fedml_tpu_torch.models.llm.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512, num_attention_heads=4,
+                           num_key_value_heads=2, num_experts=4, num_experts_per_tok=2,
+                           moe_group_size=64, **kw)
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=5)
+    card = LlamaForCausalLM(cfg, device="cuda", seed=5)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+@pytest.mark.requires_cuda
+def test_moe_routing_and_logits_on_cuda_match_cpu(monkeypatch):
+    """Routing on the card against the CPU on the same layer-0 input: at
+    most 0.1% of tokens choose other experts (f32 router products summed in
+    another order). Then the whole model, flash kernels against the CPU's
+    plain versions: every layer's routing recorded, and the logits of the
+    tokens routed alike in every layer within 2^-5 of each row's norm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash kernels have no CPU mode")
+    from chip_smoke import row_rel_err
+    from fedml_tpu_torch.models.llm import llama as tl
+
+    cfg, cpu, card = _moe_card_and_cpu()
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=gen)
+    h = torch.randn(2 * 100 // 64 + 1, 64, cfg.hidden_size, generator=gen)
+    with torch.no_grad():
+        idx_cpu = cpu.layer_0.moe.route(h)[2]
+        idx_card = card.layer_0.moe.route(h.cuda())[2].cpu()
+    differ = int((idx_cpu != idx_card).any(-1).sum())
+    assert differ <= 0.001 * h.shape[0] * h.shape[1]
+    routes = {"cpu": [], "cuda": []}
+    orig = tl.LlamaMoE.route
+
+    def route(mod, xg):
+        out = orig(mod, xg)
+        routes[xg.device.type].append(out[2].reshape(-1, cfg.num_experts_per_tok).cpu())
+        return out
+
+    monkeypatch.setattr(tl.LlamaMoE, "route", route)
+    tfa.FLASH_FWD_LAUNCHES = 0
+    with torch.no_grad():
+        want = cpu(tokens)
+        got = card(tokens.cuda()).cpu()
+    assert tfa.FLASH_FWD_LAUNCHES == cfg.num_hidden_layers
+    same = torch.ones(tokens.numel(), dtype=torch.bool)
+    for a, b in zip(routes["cpu"], routes["cuda"]):
+        same &= (a == b).all(-1)[: tokens.numel()]
+    assert int((~same).sum()) <= max(1, 0.01 * tokens.numel())
+    rows = same.reshape(tokens.shape)
+    assert torch.isfinite(got).all()
+    assert row_rel_err(got[rows], want[rows]) <= 2.0 ** -5
+
+
+@pytest.mark.requires_cuda
+def test_full_ft_step_on_cuda_matches_cpu():
+    """One full-parameter step (bf16 compute over f32 weights, every
+    parameter trained) through the flash kernels on the card against the
+    CPU from the same weights: the loss within 2e-3 relative, and at least
+    99% of every parameter's elements within 2e-3 of the CPU's (Adam's first
+    step moves each element by about the learning rate, 1e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash kernels have no CPU mode")
+    import numpy as np
+
+    from fedml_tpu_torch.models.llm.convert import ref_path
+    from fedml_tpu_torch.models.llm.llama import LlamaConfig
+    from fedml_tpu_torch.train.llm.trainer import LLMTrainer
+
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512, num_attention_heads=4,
+                           num_key_value_heads=2)
+    args = types.SimpleNamespace(max_seq_length=100, per_device_batch_size=2,
+                                 learning_rate=1e-2)
+    trainers = {}
+    for dev in ("cpu", "cuda"):
+        tr = LLMTrainer(cfg, args, device=dev)
+        tr.init(seed=0)
+        trainers[dev] = tr
+    trainers["cuda"].model.load_state_dict(trainers["cpu"].model.state_dict())
+    assert not trainers["cuda"].lora_only
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 12, size=(2, 100))  # repeated tokens
+    y = (x + 1) % cfg.vocab_size
+    m = np.ones(2, np.float32)
+    losses = {dev: tr.step(x, y, m) for dev, tr in trainers.items()}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 2e-3 * abs(losses["cpu"])
+    cpu = {ref_path(n): p for n, p in trainers["cpu"].model.named_parameters()}
+    for n, p in trainers["cuda"].model.named_parameters():
+        close = ((p.detach().cpu() - cpu[ref_path(n)].detach()).abs() <= 2e-3).float().mean()
+        assert float(close) >= 0.99, n
+
+
+@pytest.mark.requires_cuda
+def test_moe_and_embedding_backward_are_bit_identical_on_cuda():
+    """Two forward + backward passes of the small MoE model (bf16, the
+    flash kernels, every parameter trained, repeated tokens) give the same
+    bits: the one-hot dispatch and combine are products, not scatters, and
+    the embedding's backward (the bf16 table's, as the reference's order
+    takes it) is deterministic on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash kernels have no CPU mode")
+    cfg, _, card = _moe_card_and_cpu()
+    for p in card.parameters():
+        p.requires_grad_(True)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, 12, (2, 100), generator=gen).cuda()  # repeated tokens
+    runs = []
+    for _ in range(2):
+        logits = card(tokens)
+        loss = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, cfg.vocab_size), tokens.reshape(-1))
+        runs.append(torch.autograd.grad(loss, list(card.parameters())))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert float(runs[0][0].abs().sum()) > 0  # the embedding got a gradient

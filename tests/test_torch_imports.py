@@ -431,6 +431,44 @@ def test_cross_cloud_entry_points_refuse_missing_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("module", [
+    "fedml_tpu_torch.models.llm.llama",
+    "fedml_tpu_torch.models.llm.convert",
+    "fedml_tpu_torch.models.llm.hf_convert",
+    "fedml_tpu_torch.utils.tree",
+    "fedml_tpu_torch.ml.aggregator.agg_operator",
+])
+def test_llm_rest_slice_modules_are_scanned(module):
+    """The mixture-of-experts model, the weight and exchange conversions, the
+    HF checkpoint import (which takes a state dict and imports no
+    ``transformers``) and the leaf-at-a-time aggregation are among those
+    both scans cover."""
+    assert module in PORT_MODULES
+
+
+def test_hf_convert_imports_no_transformers():
+    """``models/llm/hf_convert.py`` imports no ``transformers``; the CLI
+    imports it only inside ``load_hf_checkpoint``."""
+    import ast
+
+    for path, allowed in ((PORT / "models" / "llm" / "hf_convert.py", set()),
+                          (PORT / "cli.py", {"load_hf_checkpoint"})):
+        tree = ast.parse(path.read_text())
+        owner = {}
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef):
+                for node in ast.walk(fn):
+                    owner.setdefault(id(node), fn.name)  # the outermost function
+        found = set()
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                         else [node.module or ""])
+                if any(n.split(".")[0] == "transformers" for n in names):
+                    found.add(owner.get(id(node)))
+        assert found == allowed, (path, found)
+
+
+@pytest.mark.parametrize("module", [
     "fedml_tpu_torch.fa",
     "fedml_tpu_torch.fa.constants",
     "fedml_tpu_torch.fa.fa_message_define",

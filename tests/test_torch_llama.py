@@ -144,8 +144,13 @@ def test_int8_kernel_mode_bf16_teacher_forced():
 
 
 def test_model_guards():
-    with pytest.raises(NotImplementedError, match="A13"):
-        LlamaForCausalLM(LlamaConfig.tiny(num_experts=2), device="cpu")
+    moe = LlamaForCausalLM(LlamaConfig.tiny(num_experts=2), device="cpu")
+    shapes = {n: tuple(p.shape) for n, p in moe.named_parameters() if ".moe." in n}
+    assert shapes == {f"layer_{i}.moe.{leaf}": shape for i in range(2) for leaf, shape in (
+        ("router", (64, 2)), ("gate_proj", (2, 64, 128)), ("up_proj", (2, 64, 128)),
+        ("down_proj", (2, 128, 64)))}
+    assert moe.layer_0.moe.router.dtype == torch.float32
+    assert not any(".mlp." in n for n, _ in moe.named_parameters())
     cfg = LlamaConfig.llama3_8b()
     assert (cfg.vocab_size, cfg.num_key_value_heads, cfg.head_dim,
             cfg.rope_theta) == (128256, 8, 128, 500000.0)

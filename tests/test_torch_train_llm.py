@@ -266,9 +266,11 @@ def test_federated_round_guards():
     with pytest.raises(ValueError, match="built for"):
         fed(ttr.params, ttr.opt_state, to_exchange(ttr.model), xs[:1], ys[:1], ms[:1],
             np.ones(1, np.float32))
-    with pytest.raises(NotImplementedError, match="LoRA adapters only"):
-        ttrainer.LLMTrainer(LlamaConfig.tiny(lora_rank=0, dtype=torch.float32), _TArgs(),
-                            device="cpu")
+    full = ttrainer.LLMTrainer(LlamaConfig.tiny(lora_rank=0, dtype=torch.float32), _TArgs(),
+                               device="cpu")
+    full.init(seed=0)
+    with pytest.raises(ValueError, match="requires a LoRA model"):
+        full.compile_federated_round(2, 1)
 
 
 def test_exchange_round_trips_and_numpy_direction():
