@@ -100,7 +100,7 @@ the final ``ok`` line:
     and written to the store, the ``safe_dumps`` / ``safe_loads`` ms of the
     broadcast and of one upload, and the round's wall;
 (j) the aggregation-side trust stack on phase h's model and data, j1 and
-    j2 on half its training images (no hand kernel on this path). (j1) the
+    j2 on a quarter of its training images (no hand kernel on this path). (j1) the
     sp simulation, 10 of 10 clients, int8,
     2 rounds, ``integrity: true`` with ``agg_robust: trimmed_mean@0.2``;
     in round 0 one upload arrives with a NaN scale and one scaled ×100. It
@@ -290,6 +290,34 @@ the final ``ok`` line:
     tokens and the launches are the predicted count, and prints s a round,
     tokens/s, the assignments dropped by capacity, the per-expert load and
     the peak.
+(r) the span layer (``telemetry``; no kernel of its own), each leg into a
+    fresh temporary ``log_file_dir`` whose run dir ``python -m
+    fedml_tpu_torch.cli telemetry report`` must read in a child process
+    with exit 0. Each leg's untraced twin (``untraced``) runs the same
+    entry points with a memory-only tracer whose spans set no context and
+    with ``sys_perf_profiling: false``. (r1) phase h's round on a sixteenth
+    of its training images (R1_DATA) untraced and then traced, under cuDNN's
+    deterministic algorithms: it fails unless ``spans.jsonl`` holds
+    ``round/0/{sample,train,aggregate,eval}`` and one
+    ``round/0/client/<id>/train`` a client, the report's round wall lies
+    within R_WALL_TOL of the host-timed round and the final parameters'
+    digests are equal; it prints both rounds' walls, the phase spans
+    against the round's wall and the µs of one empty span (R_SPAN_BENCH).
+    (r2) phase i2's federation on a quarter of its images (R2_TRAIN) under
+    cuDNN's deterministic algorithms, traced (a server and 2 silos as
+    processes in one run dir, silo R2_HELD_RANK held after the round and
+    sent SIGTERM) while its untraced twin runs beside it on its own broker:
+    it fails unless every rank's spans carry its ``service``, every
+    silo-side ``comm/dispatch`` span carries the server's round trace id
+    with a server span as parent, the report lists the silos' spans as
+    stitched, the aggregate's digest equals the twin's and the held
+    silo dies of SIGTERM leaving a ``sigterm`` flight-recorder dump whose
+    last record names the signal; it prints the header and envelope bytes.
+    (r3) FedLLMAPI's host loop at Llama-3-8B widths (R3_ARGS: 2 layers,
+    LoRA rank 16, T=2048, 2 clients x 1 step, 1 round): it fails unless
+    ``events.jsonl`` holds the round's event, the report's ``event/round``
+    lies within R_WALL_TOL of the host-timed bracket and the flash
+    launches counted around exactly ``train()`` are the predicted count.
     Each phase prints its seconds.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
@@ -298,7 +326,7 @@ Without a CUDA device the script exits with code 2 and prints no result;
 with one, it runs itself again under ``PYTHONHASHSEED=0`` unless that is
 set, so every phase and every process it starts draws the same CIFAR-10
 stand-in. The full per-shape results also go to
-``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklmnopq``) runs
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklmnopqr``) runs
 (a) and the phases named, and prints no kernels or ok line (phase g sets
 its round beside phase e's only when both run). ``--parent DIR`` builds the dequant and flash-forward kernels of
 another checkout (DIR, e.g. the parent commit unpacked by ``git archive``)
@@ -481,11 +509,12 @@ CS_TIMED_REPS = 5
 # ``integrity: true`` with
 # norm-difference clipping (bound TRUST_NORM_BOUND) and local DP (ε 8,
 # δ 1e-5, sensitivity 1e-3: noise of σ 6.1e-4, ~2.0 of L2 over the model).
-# j1 and j2 draw half of the stand-in's training images (25,000, the test
-# set whole) to keep the script inside its 1,200 s on a slow host: their
-# three full-size sp rounds took 53-66 s each on an H100 host that ran the
-# host-bound phases ~25% slower than others.
-TRUST_DATA = {**SP_CONFIG["data_args"], "train_size": 25_000}
+# j1 and j2 draw a quarter of the stand-in's training images (12,500, the
+# test set whole) to keep the script inside its 1,200 s on a slow host:
+# their three full-size sp rounds took 53-66 s each on an H100 host that ran
+# the host-bound phases ~25% slower than others, and at half the images
+# (25,000) the whole script still ran 1,395 s on such a host.
+TRUST_DATA = {**SP_CONFIG["data_args"], "train_size": 12_500}
 TRUST_SP_CONFIG = {**SP_CONFIG, "data_args": TRUST_DATA, "train_args": {
     **SP_CONFIG["train_args"], "comm_round": 2, "integrity": True,
     "agg_robust": "trimmed_mean@0.2", "integrity_norm_mult": 1e6,
@@ -744,7 +773,35 @@ FA_COUNTERS = ("fa/rounds", "fa/quorum_rounds", "fa/deadline_fired", "fa/aborts"
                "tier/2/contributions", "tier/1/evicted", "tier/0/quorum_closes",
                "tier/1/quorum_closes", "secagg/hier_recoveries", "secagg/hier_cohort_rounds")
 
-ALL_PHASES = "bcdefghijklmnopq"
+# Phase (r): the span layer (``telemetry``) on three main paths, each leg
+# into a fresh temporary ``log_file_dir`` read back by ``telemetry report``
+# in a child process. r1: phase h's sp round, untraced then traced, both
+# under cuDNN's deterministic algorithms, so the final parameters must be
+# bit-equal; cut to a sixteenth of h's training images (R1_DATA): with h's
+# own round as the untraced twin the whole script ran 1,093 s of its 1,200 s
+# on an NVIDIA H100 80GB HBM3 at 700 W, with a quarter 1,121 s, and with an
+# eighth 1,113 s on one host and 1,395 s on a slower one. r2: phase i2's
+# federation on a quarter of its images (R2_TRAIN), traced with the silo of
+# rank R2_HELD_RANK held after the round and sent SIGTERM, and untraced
+# beside it at once (two brokers, six processes), both under cuDNN's
+# deterministic algorithms, so the aggregates' digests must be equal; r3: FedLLMAPI's host loop at Llama-3-8B widths cut to
+# 2 layers, LoRA rank 16, T=2048, 2 clients x 1 step, 1 round. A span's
+# wall is host time: the report's round wall must lie within R_WALL_TOL of
+# the host-timed round. R_SPAN_BENCH empty spans give the cost of one span
+# on the card's host.
+R1_DATA = {**SP_CONFIG["data_args"], "train_size": 3_125, "test_size": 2_500}
+R_WALL_TOL = 0.05
+R_SPAN_BENCH = 10_000
+R2_HELD_RANK = 2
+R2_TRAIN = 12_500
+R3_ARGS = dict(model_size="llama3_8b", num_hidden_layers=2, lora_rank=16,
+               base_params_bf16=True, remat_policy="none", use_flash_attention=True,
+               max_seq_length=2048, per_device_batch_size=1, vocab_size=128256,
+               client_num_in_total=2, client_num_per_round=2, train_size=2, test_size=1,
+               epochs=1, comm_round=1, on_device_round=False, random_seed=0,
+               learning_rate=1e-4, frequency_of_the_test=1, run_id="chip_smoke_r3")
+
+ALL_PHASES = "bcdefghijklmnopqr"
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s and bf16 FLOP/s.
 PEAKS = (
@@ -2423,24 +2480,43 @@ def cross_silo_inproc(card: str):
 
 # the code each process of phase (i2) runs: one entry point, as a user starts
 # it with ``--cf config --rank r --role ...``, then its result and registry
+# (and the server's final digest); phase r2 sets the environment variables
+# it reads
 CS_CHILD = r"""
-import json, sys, time
+import json, os, sys, time
 import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+if os.environ.get("CHIP_SMOKE_DETERMINISTIC"):  # phase r2's twins
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
 import fedml_tpu_torch
-from chip_smoke import _registry_flat
+from chip_smoke import _registry_flat, untraced
+if os.environ.get("CHIP_SMOKE_UNTRACED"):  # phase r2's untraced twin
+    untraced()
+from fedml_tpu_torch import runner as runner_mod
+from fedml_tpu_torch.resilience.durability.recover import digest
 from fedml_tpu_torch.telemetry import get_registry
 t0 = time.perf_counter()
 role = sys.argv[1]
+built = {}
+build = runner_mod.FedMLRunner.__init__
+def recording_build(self, args, *a, **kw):
+    build(self, args, *a, **kw)
+    built["runner"] = self.runner
+runner_mod.FedMLRunner.__init__ = recording_build
 fn = {"server": fedml_tpu_torch.run_cross_silo_server,
       "client": fedml_tpu_torch.run_cross_silo_client}[role]
 result = fn()
 torch.cuda.synchronize()
-print("CHILD " + json.dumps({"role": role, "result": result,
-                             "wall_s": time.perf_counter() - t0,
-                             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                             "metrics": _registry_flat(get_registry())}), flush=True)
+record = {"role": role, "result": result, "wall_s": time.perf_counter() - t0,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "pid": os.getpid(),
+          "metrics": _registry_flat(get_registry())}
+if role == "server":
+    record["digest"] = digest(built["runner"].fedml_aggregator.get_global_model_params())
+print("CHILD " + json.dumps(record), flush=True)
+if os.environ.get("CHIP_SMOKE_HOLD") == sys.argv[sys.argv.index("--rank") + 1]:
+    print("HOLD", flush=True)  # phase r2 sends this rank SIGTERM now
+    time.sleep(300)
 """
 
 
@@ -2573,13 +2649,15 @@ def free_port_base(n: int) -> int:
 
 def _federation_processes(run_id: str, n_silos: int, comm: dict, train: dict,
                           child: str = CS_CHILD, child_args=(), silo_configs=None,
-                          env=None, timeout: float = CS_BROKER_TIMEOUT_S):
+                          env=None, timeout: float = CS_BROKER_TIMEOUT_S, hold=None):
     """A server and ``n_silos`` silos as OS processes, started through the
     entry points with a config this writes (CS_CONFIG with ``train`` over
     its training arguments and ``comm`` as its transport; ``silo_configs``,
     one dict a silo, become the silos' override files). Returns each
     process's CHILD record and the wall; fails unless every process exits 0
-    within ``timeout``."""
+    within ``timeout``. ``hold=(rank, fn)``: that rank (CS_CHILD) stays up
+    after its CHILD line, and once every other process has exited,
+    ``fn(process)`` ends it; its record gains ``held_rc``, its exit code."""
     import shutil
     import tempfile
 
@@ -2608,15 +2686,24 @@ def _federation_processes(run_id: str, n_silos: int, comm: dict, train: dict,
                    PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
         for k in ("MASTER_ADDR", "MASTER_PORT"):  # the config names the rendezvous
             env.pop(k, None)
+        held = None if hold is None else hold[0]
+        if held is not None:
+            env["CHIP_SMOKE_HOLD"] = str(held)
         t0 = time.perf_counter()
         for rank in range(n_silos + 1):
             role = "server" if rank == 0 else "client"
+            # the held rank writes into files: nobody reads its pipes while it waits
+            sink = (dict(stdout=open(os.path.join(work, "held.out"), "w"),
+                         stderr=open(os.path.join(work, "held.err"), "w"))
+                    if rank == held else dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE))
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", child, role, *child_args, "--cf", path, "--rank",
-                 str(rank), "--role", role], cwd=here, env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True))
+                 str(rank), "--role", role], cwd=here, env=env, text=True, **sink))
         outs = []
-        for p in procs:
+        for rank, p in enumerate(procs):
+            if rank == held:
+                outs.append(None)
+                continue
             left = max(1.0, timeout - (time.perf_counter() - t0))
             try:
                 outs.append(p.communicate(timeout=left))
@@ -2624,12 +2711,25 @@ def _federation_processes(run_id: str, n_silos: int, comm: dict, train: dict,
                 raise RuntimeError(f"a process of federation {run_id} did not exit within "
                                    f"{timeout} s") from None
         wall = time.perf_counter() - t0
-        codes = [p.returncode for p in procs]
+        codes = [p.returncode for rank, p in enumerate(procs) if rank != held]
+        if held is not None:
+            held_out = os.path.join(work, "held.out")
+            while "\nHOLD\n" not in "\n" + open(held_out).read():
+                if procs[held].poll() is not None:
+                    break  # it died before holding: its code shows below
+                if time.perf_counter() - t0 > timeout:
+                    raise RuntimeError(f"rank {held} of {run_id} never held")
+                time.sleep(0.05)
+            held_rc = hold[1](procs[held]) if procs[held].poll() is None else None
+            outs[held] = (open(held_out).read(), open(os.path.join(work, "held.err")).read())
         if any(codes):
             tails = "\n".join(err[-2000:] for _, err in outs)
             raise RuntimeError(f"federation {run_id}'s processes exited {codes}:\n{tails}")
         kids = [json.loads(next(ln for ln in out.splitlines() if ln.startswith("CHILD "))[6:])
                 for out, _ in outs]
+        if held is not None:
+            kids[held]["held_rc"] = held_rc
+            kids[held]["held_stderr"] = outs[held][1][-3000:]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2639,12 +2739,14 @@ def _federation_processes(run_id: str, n_silos: int, comm: dict, train: dict,
     return kids, wall
 
 
-def _broker_federation(run_id: str, n_silos: int, **train):
+def _broker_federation(run_id: str, n_silos: int, hold=None, env=None, **train):
     """A server and ``n_silos`` silos as OS processes over the port's broker
     and a shared object store (phase h's model and data, ``train`` over
-    CS_CONFIG's training arguments). Returns each process's CHILD record,
-    the wall and the bytes published on the broker; fails unless every
-    process exits 0 within CS_BROKER_TIMEOUT_S."""
+    CS_CONFIG's training arguments; ``hold`` and ``env`` as
+    ``_federation_processes``'s).
+    Returns each process's CHILD record, the wall and the bytes published on
+    the broker; fails unless every process exits 0 within
+    CS_BROKER_TIMEOUT_S."""
     from fedml_tpu_torch.core.distributed.communication.broker import PubSubBroker
     from fedml_tpu_torch.telemetry import get_registry
 
@@ -2654,7 +2756,7 @@ def _broker_federation(run_id: str, n_silos: int, **train):
         host, port = broker.address
         kids, wall = _federation_processes(
             run_id, n_silos, {"comm_backend": "BROKER", "broker_host": host,
-                              "broker_port": port}, train)
+                              "broker_port": port}, train, env=env, hold=hold)
     finally:
         broker.stop()
     return kids, wall, get_registry().counter("broker/bytes_in").value - published0
@@ -4142,10 +4244,10 @@ def durable_cross_silo(card: str):
     journal = {}
     for tag, out in runs.items():
         m = out["server_metrics"] or {}
-        journal[tag] = dict(append_ms=_hist_mean(m, "resilience/journal_upload_ms"),
-                            append_bytes=_hist_mean(m, "resilience/journal_upload_bytes"),
-                            appends=(m.get("resilience/journal_upload_ms") or {}).get("count"),
-                            replay_ms=_hist_mean(m, "resilience/journal_replay_ms"))
+        journal[tag] = dict(append_ms=_hist_mean(m, "journal/upload_ms"),
+                            append_bytes=_hist_mean(m, "journal/upload_bytes"),
+                            appends=(m.get("journal/upload_ms") or {}).get("count"),
+                            replay_ms=_hist_mean(m, "journal/replay_ms"))
         print(f"  {card}: m1 {tag}: completed {out['completed']}, {out['restarts']} restart, "
               f"MTTR {out['mttr_s']} s (killed at {out['killed_at_s']} s), salvaged "
               f"{out['salvaged_uploads']} upload(s) of silos {out['salvaged_clients']} in "
@@ -5315,6 +5417,342 @@ def moe_phase(card: str, dev: str = "cuda"):
         capacity=cap, dropped=dropped, expert_load=[ld for ld, _ in loads], boot_s=boot_s)
 
 
+def _telemetry_report(run_dir: str) -> tuple:
+    """``python -m fedml_tpu_torch.cli telemetry report RUN_DIR`` in a child
+    process (it must exit 0), then the same report as a dict."""
+    from fedml_tpu_torch.telemetry import build_report
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "fedml_tpu_torch.cli", "telemetry", "report",
+                           run_dir], cwd=here, env=env, capture_output=True, text=True,
+                          timeout=120)
+    if proc.returncode:
+        raise RuntimeError(f"telemetry report {run_dir} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    return proc.stdout, build_report(run_dir)
+
+
+def _spans(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "spans.jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def untraced():
+    """Make this process's next run the untraced twin of a traced one: the
+    global tracer becomes a memory-only ``Tracer`` whose spans set no
+    context, so no message carries a header or an envelope, and
+    ``configure`` (so ``configure_from_args``) hands it back instead of
+    binding a run dir. Pair it with ``sys_perf_profiling: false`` to turn
+    the profiler's events off too. Returns the function that undoes it."""
+    import contextlib
+
+    from fedml_tpu_torch.telemetry import spans
+
+    class UntracedTracer(spans.Tracer):
+        @contextlib.contextmanager
+        def span(self, name, **attrs):
+            yield self.begin(name, **attrs)
+
+    tracer, configure = UntracedTracer(), spans.configure
+    spans._default_tracer = tracer
+    spans.configure = lambda run_dir, service="": tracer
+
+    def undo():
+        spans.configure = configure
+        spans.reset_tracer()
+
+    return undo
+
+
+def span_cost_us(n: int = R_SPAN_BENCH) -> float:
+    """Host µs of one empty span (begin, end, buffer, the run-dir sink's
+    flushes every 256 spans, the flight recorder's copy), over ``n``."""
+    import shutil
+    import tempfile
+
+    from fedml_tpu_torch.telemetry import Tracer
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_spans_")
+    try:
+        tracer = Tracer(sink_dir=work, service="bench")
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with tracer.span("round/0/sample"):
+                pass
+        tracer.flush()
+        return (time.perf_counter() - t0) * 1e6 / n
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def traced_sp_phase(card: str):
+    """Phase (r1): phase h's sp round on R1_DATA, untraced and then traced
+    into a fresh run dir (see the module doc)."""
+    import shutil
+    import tempfile
+
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.models.model_hub import create
+    from fedml_tpu_torch.resilience.durability.recover import digest
+    from fedml_tpu_torch.simulation.simulator import create_simulator
+    from fedml_tpu_torch.telemetry import reset_tracer
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_r1_")
+    twin_dir = tempfile.mkdtemp(prefix="chip_smoke_r1_untraced_")
+    cudnn_was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def one_round(traced: bool):
+        args = load_arguments_from_dict({**SP_CONFIG, "data_args": R1_DATA})
+        args.run_id, args.log_file_dir = "chip_smoke_r1", log_dir
+        reset_tracer()
+        undo = None
+        if not traced:
+            args.log_file_dir, args.sys_perf_profiling = twin_dir, False
+            undo = untraced()
+        try:
+            ds = load_federated(args)
+            sim = create_simulator(args, "cuda", ds, create(args, ds.class_num))
+            api, walls = sim.fl_trainer, []
+            inner = api.train_one_round
+
+            def timed(r):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rep = inner(r)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                return rep
+
+            api.train_one_round = timed
+            sim.run()
+        finally:
+            if undo is not None:
+                undo()
+        return walls[0], digest(api.global_params), len(ds.train_data_local_dict)
+
+    try:
+        untraced_s, untraced_digest, _ = one_round(False)
+        if os.path.exists(os.path.join(twin_dir, "run_chip_smoke_r1", "spans.jsonl")):
+            raise RuntimeError("the untraced twin of r1 wrote spans")
+        wall, dig, n_clients = one_round(True)
+        run_dir = os.path.join(log_dir, "run_chip_smoke_r1")
+        text, report = _telemetry_report(run_dir)
+        names = [s["name"] for s in _spans(run_dir) if "duration_ms" in s]
+        want = [f"round/0/{p}" for p in ("sample", "train", "aggregate", "eval")]
+        clients = [n for n in names if n.startswith("round/0/client/")]
+        (row,) = report["rounds"]
+        phases = {p: row["phases"].get(f"round/<n>/{p}", 0.0)
+                  for p in ("sample", "train", "aggregate", "eval")}
+        phase_sum = sum(phases.values())
+        off = abs(row["wall_ms"] - wall * 1e3) / (wall * 1e3)
+        cost = span_cost_us()
+        print(f"  {card}: {R1_DATA['train_size']} images; the round untraced "
+              f"{untraced_s:.3f} s, then traced {wall:.3f} s; the report's round wall "
+              f"{row['wall_ms']:.1f} ms, {100 * off:.2f}% off the host-timed round (limit "
+              f"{100 * R_WALL_TOL:.0f}%); the phase spans "
+              + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
+              + f" ms sum to {phase_sum:.1f} ms = {phase_sum / row['wall_ms']:.4f} of the "
+              f"wall; {len(clients)} client spans; one empty span {cost:.2f} us "
+              f"({R_SPAN_BENCH} spans); digest untraced {untraced_digest}, traced {dig}",
+              flush=True)
+        if not all(n in names for n in want) or sorted(clients) != sorted(
+                f"round/0/client/{c}/train" for c in range(n_clients)):
+            raise RuntimeError(f"spans.jsonl lacks the round's spans: {sorted(set(names))}")
+        if off > R_WALL_TOL:
+            raise RuntimeError(f"the report's round wall is {100 * off:.2f}% off the round")
+        if dig != untraced_digest:
+            raise RuntimeError(f"tracing changed the round's parameters: {dig} vs "
+                               f"{untraced_digest}")
+        return dict(traced_round_s=wall, untraced_round_s=untraced_s,
+                    report_wall_ms=row["wall_ms"], wall_off=off, phase_ms=phases,
+                    phase_sum_ms=phase_sum, span_us=cost, digest=dig,
+                    report_lines=len(text.splitlines()))
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_was
+        shutil.rmtree(log_dir, ignore_errors=True)
+        shutil.rmtree(twin_dir, ignore_errors=True)
+
+
+def traced_cross_silo_phase(card: str):
+    """Phase (r2): phase i2's federation on R2_TRAIN images with the tracer
+    on, one shared run dir, silo R2_HELD_RANK held after the round and sent
+    SIGTERM, while its untraced twin runs beside it (see the module doc)."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from fedml_tpu_torch.core.distributed.message import Message
+    from fedml_tpu_torch.telemetry import TraceContext, wrap_frame_body
+    from fedml_tpu_torch.utils.serialization import safe_dumps
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_r2_")
+    twin_dir = tempfile.mkdtemp(prefix="chip_smoke_r2_untraced_")
+    det = {"CHIP_SMOKE_DETERMINISTIC": "1"}
+    twin = {}
+
+    def run_twin():
+        try:
+            twin["kids"], twin["wall"], _ = _broker_federation(
+                "chip_smoke_broker", CS_BROKER_SILOS, env={**det, "CHIP_SMOKE_UNTRACED": "1"},
+                client_num_in_total=CS_BROKER_PARTS, train_size=R2_TRAIN,
+                log_file_dir=twin_dir, sys_perf_profiling=False)
+        except Exception as e:  # noqa: BLE001 - raised again in the phase's thread
+            twin["error"] = e
+
+    def term(proc):
+        proc.send_signal(signal.SIGTERM)
+        return proc.wait(timeout=60)
+
+    beside = threading.Thread(target=run_twin, name="r2-untraced")
+    beside.start()
+    try:
+        kids, wall, published = _broker_federation(
+            "chip_smoke_broker", CS_BROKER_SILOS, hold=(R2_HELD_RANK, term), env=det,
+            client_num_in_total=CS_BROKER_PARTS, train_size=R2_TRAIN,
+            log_file_dir=log_dir)
+        beside.join()
+        if "error" in twin:
+            raise RuntimeError(f"r2's untraced twin failed: {twin['error']}")
+        if os.path.exists(os.path.join(twin_dir, "run_chip_smoke_broker", "spans.jsonl")):
+            raise RuntimeError("r2's untraced twin wrote spans")
+        twin_server = twin["kids"][0]
+        run_dir = os.path.join(log_dir, "run_chip_smoke_broker")
+        text, report = _telemetry_report(run_dir)
+        recs = _spans(run_dir)
+        spans = [r for r in recs if "duration_ms" in r]
+        services = sorted({r.get("service") for r in recs})
+        server = {r["span_id"]: r for r in spans if r.get("service") == "rank0"}
+        sync = next(r for r in server.values() if r["name"] == "round/0/sync")
+        silo = [r for r in spans if r.get("service") != "rank0" and r["name"] == "comm/dispatch"]
+        stitched_silo = sorted({s.get("service") for s in report["stitched_spans"]
+                                if s.get("service") != "rank0"})
+        with open(os.path.join(run_dir, "flight_recorder.jsonl")) as f:
+            flight = [json.loads(line) for line in f if line.strip()]
+        held = kids[R2_HELD_RANK]
+        # the header rides every comm message; the envelope every raw publish
+        # under a span (the federation's own broker client leaves it off)
+        ctx = TraceContext(sync["trace_id"], sync["span_id"])
+        probe = Message("MSG_TYPE_S2C_FINISH", 0, 1).get_params()  # a real header set
+        header_b = (len(safe_dumps({**probe, "telemetry_ctx": ctx.to_dict()}))
+                    - len(safe_dumps(probe)))
+        envelope_b = len(wrap_frame_body(b"", ctx))
+        sent = kids[0]["metrics"].get("comm/messages_sent{backend=broker}", 0)
+        untraced_sent = twin_server["metrics"].get("comm/messages_sent{backend=broker}", 0)
+        wire = kids[0]["metrics"].get("comm/wire_bytes_out", 0)
+        untraced_wire = twin_server["metrics"].get("comm/wire_bytes_out", 0)
+        print(f"  {card}: {R2_TRAIN} images; {CS_BROKER_SILOS + 1} processes in {wall:.1f} s "
+              f"traced, the untraced twin's beside them in {twin['wall']:.1f} s; services "
+              f"{services}; {len(silo)} silo-side dispatch spans under the server's trace "
+              f"{sync['trace_id'][:8]}, the report's stitched spans "
+              f"{len(report['stitched_spans'])} (silo side: {stitched_silo}); "
+              f"the header {header_b} B a comm message, the envelope {envelope_b} B a raw "
+              f"publish under a span; the server's wire bytes out {wire:.0f} over {sent:.0f} "
+              f"messages traced against {untraced_wire:.0f} over {untraced_sent:.0f} "
+              f"untraced; digest traced {kids[0]['digest']}, untraced "
+              f"{twin_server['digest']}; the held silo exited {held['held_rc']} after "
+              f"SIGTERM, the dump's reason {flight[0].get('reason')}, last record "
+              f"{flight[-1].get('kind')} {flight[-1].get('signal')}", flush=True)
+        if services != ["rank0", "rank1", "rank2"]:
+            raise RuntimeError(f"the ranks' service stamps: {services}")
+        if not silo or {r["service"] for r in silo} != {"rank1", "rank2"} or any(
+                r["trace_id"] != sync["trace_id"] or r["parent_id"] not in server
+                for r in silo):
+            raise RuntimeError(f"silo-side handler spans off the server's trace: {silo}")
+        if stitched_silo != ["rank1", "rank2"] or "cross-process stitched spans" not in text:
+            raise RuntimeError(f"the report's stitched spans: {stitched_silo}")
+        if kids[0]["digest"] != twin_server["digest"]:
+            raise RuntimeError(f"tracing changed the aggregate: {kids[0]['digest']} vs "
+                               f"{twin_server['digest']}")
+        if not (held["held_rc"] == -signal.SIGTERM and flight[0].get("reason") == "sigterm"
+                and flight[0].get("pid") == held["pid"] and flight[-1].get("kind") == "signal"
+                and flight[-1].get("signal") == "SIGTERM"):
+            raise RuntimeError(f"the SIGTERMed silo's flight recorder: rc {held['held_rc']}, "
+                               f"{flight[:1]} ... {flight[-1:]}: {held['held_stderr']}")
+        return dict(wall_s=wall, services=services, silo_dispatch_spans=len(silo),
+                    stitched=len(report["stitched_spans"]), header_bytes=header_b,
+                    envelope_bytes=envelope_b, wire_bytes_out=wire, messages=sent,
+                    untraced_wire_bytes_out=untraced_wire, untraced_messages=untraced_sent,
+                    digest=kids[0]["digest"], held_rc=held["held_rc"],
+                    untraced_wall_s=twin["wall"],
+                    round_ms=(kids[0]["metrics"].get("cross_silo/round_ms") or {}).get("sum"))
+    finally:
+        beside.join()
+        shutil.rmtree(log_dir, ignore_errors=True)
+        shutil.rmtree(twin_dir, ignore_errors=True)
+
+
+def traced_fedllm_phase(card: str, dev: str = "cuda"):
+    """Phase (r3): FedLLMAPI's host loop at Llama-3-8B widths, R3_ARGS,
+    with its round events into a fresh run dir and the flash launches
+    counted around exactly the round (see the module doc)."""
+    import shutil
+    import tempfile
+    import types
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.data.data_loader import load_synthetic_lm
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_r3_")
+    try:
+        args = types.SimpleNamespace(**R3_ARGS, log_file_dir=log_dir)
+        _reset_trust()
+        fedml_tpu_torch.init(args)
+        api = FedLLMAPI(args, dev, load_synthetic_lm(args))
+        cfg, marks = api.cfg, {}
+        test = api._maybe_test_and_checkpoint
+
+        def marked_test(r, report):
+            torch.cuda.synchronize()  # the round's bracket has closed by here
+            marks["bracket_end"] = time.perf_counter()
+            return test(r, report)
+
+        api._maybe_test_and_checkpoint = marked_test
+        torch.cuda.synchronize()
+        fa.FLASH_FWD_LAUNCHES = fa.FLASH_DQ_LAUNCHES = fa.FLASH_DKV_LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = api.train()
+        launches = _flash_counts(fa)
+        host_ms = (marks["bracket_end"] - t0) * 1e3
+        layers = cfg.num_hidden_layers
+        steps = args.client_num_per_round * (args.train_size // args.client_num_in_total)
+        evals = len(api.test_history)
+        expected = {"flash_fwd": layers * (steps + evals), "flash_bwd_dq": layers * steps,
+                    "flash_bwd_dkv": layers * steps}
+        run_dir = os.path.join(log_dir, f"run_{args.run_id}")
+        with open(os.path.join(run_dir, "events.jsonl")) as f:
+            events = [json.loads(line) for line in f if line.strip()]
+        text, report = _telemetry_report(run_dir)
+        (phase,) = [p for p in report["phases"] if p["phase"] == "event/round"]
+        off = abs(phase["total_ms"] - host_ms) / host_ms
+        print(f"  {card}: {layers} layers of {args.model_size}, {steps} local steps at "
+              f"T={args.max_seq_length}; the round event {phase['total_ms']:.1f} ms against "
+              f"{host_ms:.1f} ms host-timed ({100 * off:.2f}% off, limit "
+              f"{100 * R_WALL_TOL:.0f}%); events {[e['name'] for e in events]}; test loss "
+              f"{out['test_loss']:.5f}; launches {launches} (expected {expected})", flush=True)
+        if [e["name"] for e in events] != ["event/round"] or events[0]["attrs"] != {
+                "edge_id": 0} or not events[0]["ended"] > events[0]["started"]:
+            raise RuntimeError(f"events.jsonl lacks the round's start and end: {events}")
+        if off > R_WALL_TOL:
+            raise RuntimeError(f"the report's round wall is {100 * off:.2f}% off the round")
+        if launches != expected:
+            raise RuntimeError(f"flash launches {launches} != expected {expected}")
+        if not math.isfinite(out["test_loss"]):
+            raise RuntimeError(f"non-finite test loss: {out}")
+        del api
+        _reset_trust()
+        return dict(layers=layers, launches=launches, expected_launches=expected,
+                    round_event_ms=phase["total_ms"], host_ms=host_ms, wall_off=off,
+                    test_loss=out["test_loss"])
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
 def step_sum(results, key, rows=DECODE_ROWS):
     """One pass's total over its 225 launches at ``rows`` rows (None where
     a time was not measured)."""
@@ -5383,6 +5821,7 @@ def main(argv=None) -> int:
 
     results = serve = flash = train = quantized = qlora = sp = cross_silo = trust = None
     secure = checkpoints = durable = tree = transports = analytics = llm_rest = None
+    spans = None
     phase_s = {}
     parent_dequant = parent_fwd = None
     if opts.parent:
@@ -5522,6 +5961,19 @@ def main(argv=None) -> int:
               f"{Q3_ARGS['num_hidden_layers']} layers of llama3_8b widths, bf16 base, LoRA "
               "rank 16, on-device round, 4 clients x 2 steps, 2 rounds", flush=True)
         llm_rest["q3"] = timed("q3", lambda: moe_phase(card))
+    if "r" in phases:
+        print(f"(r1) the sp round of phase h on {R1_DATA['train_size']} images, untraced then "
+              "traced: spans into a fresh run dir, the report read back, the parameters "
+              "bit-equal", flush=True)
+        spans = dict(r1=timed("r1", lambda: traced_sp_phase(card)))
+        print(f"(r2) phase i2's federation on {R2_TRAIN} images traced: a server and "
+              f"{CS_BROKER_SILOS} silos as processes in one run dir, silo {R2_HELD_RANK} sent "
+              "SIGTERM after the round, its untraced twin beside it", flush=True)
+        spans["r2"] = timed("r2", lambda: traced_cross_silo_phase(card))
+        print(f"(r3) FedLLMAPI's host loop traced: {R3_ARGS['num_hidden_layers']} layers of "
+              "llama3_8b widths, LoRA rank 16, T=2048, 2 clients x 1 step, 1 round",
+              flush=True)
+        spans["r3"] = timed("r3", lambda: traced_fedllm_phase(card))
     whole_s = time.perf_counter() - t_start
     print(f"    whole script: {whole_s:.1f} s from main's start (the limit is 1200 s)",
           flush=True)
@@ -5531,7 +5983,7 @@ def main(argv=None) -> int:
               "quantized": quantized, "qlora": qlora, "sp": sp, "cross_silo": cross_silo,
               "trust": trust, "secure": secure, "checkpoints": checkpoints,
               "durable": durable, "tree": tree, "transports": transports,
-              "analytics": analytics, "llm_rest": llm_rest, "phase_s": phase_s,
+              "analytics": analytics, "llm_rest": llm_rest, "spans": spans, "phase_s": phase_s,
               "whole_s": whole_s}
     if sorted(phases) != list(ALL_PHASES):
         with open(os.path.join("results", "chip_smoke.json"), "w") as f:
@@ -5577,7 +6029,8 @@ def main(argv=None) -> int:
                                  "g": qlora["nf4"]["launches"][kname],
                                  "l1": checkpoints["l1"]["launches"][kname],
                                  **{q: llm_rest[q]["launches"][kname]
-                                    for q in ("q1", "q2", "q3")}},
+                                    for q in ("q1", "q2", "q3")},
+                                 "r3": spans["r3"]["launches"][kname]},
             "max_abs_err": err,
             "ms": path["ms"][kname],
             "plain_ms": path["plain_ms"][kname],

@@ -67,7 +67,8 @@ def init(args: Any) -> Any:
     Python's and numpy's generators, apply the per-silo config overrides
     (``arguments.update_client_specific_args``) and configure the
     trust-stack singletons (``FedMLAttacker``, ``FedMLDefender``,
-    ``FedMLDifferentialPrivacy``) from ``args``. They are per process:
+    ``FedMLDifferentialPrivacy``) and the ``mlops`` metrics sink
+    (``<log_file_dir>/run_<run_id>/metrics.jsonl``) from ``args``. They are per process:
     ``reset()`` them between in-process runs. A multi-host environment
     raises, naming ROADMAP A11."""
     from fedml_tpu_torch.arguments import update_client_specific_args
@@ -75,6 +76,7 @@ def init(args: Any) -> Any:
     from fedml_tpu_torch.core.dp.fedml_differential_privacy import (
         FedMLDifferentialPrivacy,
     )
+    from fedml_tpu_torch.core.mlops import metrics as mlops_metrics
     from fedml_tpu_torch.core.security.attacker import FedMLAttacker
     from fedml_tpu_torch.core.security.defender import FedMLDefender
 
@@ -87,6 +89,7 @@ def init(args: Any) -> Any:
     FedMLAttacker.get_instance().init(args)
     FedMLDefender.get_instance().init(args)
     FedMLDifferentialPrivacy.get_instance().init(args)
+    mlops_metrics.init(args)
     return args
 
 

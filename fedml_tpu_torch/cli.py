@@ -1,6 +1,6 @@
 """Command line of the port (argparse; counterpart of the ``serve``,
-``deploy broker``, ``chaos``, ``tree`` and ``fa`` commands of
-``fedml_tpu/cli.py``).
+``deploy broker``, ``chaos``, ``tree``, ``fa`` and ``telemetry report``
+commands of ``fedml_tpu/cli.py``).
 
     python -m fedml_tpu_torch.cli serve --model llama3_8b --quantize int8
     python -m fedml_tpu_torch.cli deploy broker --port 18923
@@ -8,6 +8,7 @@
     python -m fedml_tpu_torch.cli tree --clients 100000 --tiers 3 --codec int8
     python -m fedml_tpu_torch.cli fa --task heavy_hitter_triehh
     python -m fedml_tpu_torch.cli fa --federation --fed-clients 102400
+    python -m fedml_tpu_torch.cli telemetry report .fedml_logs/run_0
 
 ``chaos`` runs a seeded fault scenario against a cross-silo federation and
 prints one JSON line (exit 1 unless it completed): message drop, duplicate
@@ -26,8 +27,15 @@ upload compressed deltas, edge aggregators forward partial sums in the
 compressed block domain, every tier closes on quorum and survives a kill
 window (``--kill-tier``/``--kill-node``/``--kill-round``). It prints one
 JSON line and exits 1 on a below-quorum abort; the same ``--seed``
-reproduces the same ``final_digest``. ``--metrics-port`` and
-``--trace-rounds`` come with the telemetry stack, ROADMAP A12.
+reproduces the same ``final_digest``. ``--metrics-port`` comes with the
+live plane (ROADMAP A12c), ``--trace-rounds`` with device traces (A12b).
+
+``telemetry report RUN_DIR`` reads a run's sinks (``spans.jsonl``,
+``events.jsonl``, ``telemetry.jsonl``; ``<log_file_dir>/run_<run_id>``)
+and prints each round's wall and phases, the phases' percentiles, the
+slowest clients, the comm bytes and the spans stitched across processes
+(``--json``: one sorted JSON object). It exits 1 on a directory with no
+spans and no metrics. It reads the JAX package's run dirs too.
 
 ``fa`` runs a federated-analytics round over seeded synthetic data on
 ``--device`` and prints one JSON line (exit 1 on a failed round): by
@@ -176,10 +184,19 @@ def build_parser() -> argparse.ArgumentParser:
     tree.add_argument("--revive-round", type=int, default=None,
                       help="round the killed node comes back (default: +1)")
     tree.add_argument("--metrics-port", type=int, default=None,
-                      help="live /metrics endpoint (not ported: ROADMAP A12)")
+                      help="live /metrics endpoint (not ported: ROADMAP A12c)")
     tree.add_argument("--trace-rounds", default="",
-                      help="rounds to capture a device trace of (not ported: ROADMAP A12)")
+                      help="rounds to capture a device trace of (not ported: ROADMAP A12b)")
     tree.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    telemetry = sub.add_parser("telemetry", help="inspect a run's telemetry sinks")
+    telemetry_sub = telemetry.add_subparsers(dest="tool", required=True)
+    report = telemetry_sub.add_parser(
+        "report", help="per-round timeline, span percentiles, comm bytes and stitched "
+                       "spans of a run dir")
+    report.add_argument("run_dir", help="a run's sink directory "
+                                        "(<log_file_dir>/run_<run_id>)")
+    report.add_argument("--json", dest="as_json", action="store_true",
+                        help="emit the report as one JSON object")
     fa = sub.add_parser("fa", help="run a federated-analytics round over seeded synthetic "
                                    "data; prints one JSON line")
     fa.add_argument("--task", default="frequency_estimation",
@@ -276,8 +293,8 @@ def run_tree(args: argparse.Namespace) -> dict:
     )
 
     if args.metrics_port is not None or args.trace_rounds:
-        raise NotImplementedError("tree --metrics-port / --trace-rounds: live telemetry "
-                                  "and device traces come with ROADMAP A12")
+        raise NotImplementedError("tree --metrics-port / --trace-rounds: the live plane "
+                                  "comes with ROADMAP A12c, device traces with A12b")
     chaos = []
     if args.kill_tier is not None:
         chaos.append(KillWindow(args.kill_tier, args.kill_node, args.kill_round,
@@ -395,8 +412,28 @@ def build_endpoint(args: argparse.Namespace):
     return engine, runner
 
 
+def run_telemetry_report(args) -> int:
+    """``telemetry report``: the report of a run dir, as text or JSON; exit 1
+    when the directory holds no spans and no metrics at all (a partial run
+    still reports, with a "no data" note a section)."""
+    from fedml_tpu_torch.telemetry.report import build_report, format_report
+
+    report = build_report(args.run_dir)
+    if not report["n_spans"] and not report["n_metrics"]:
+        print(f"no spans or metrics recorded under {args.run_dir}", flush=True)
+        return 1
+    if args.as_json:
+        report = {**report, "stitched_spans": len(report["stitched_spans"])}
+        print(json.dumps(report, indent=1, sort_keys=True, default=str), flush=True)
+    else:
+        print(format_report(report), flush=True)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.command == "telemetry":
+        return run_telemetry_report(args)
     if args.command == "deploy":
         run_broker(args)
     elif args.command in ("chaos", "tree", "fa"):

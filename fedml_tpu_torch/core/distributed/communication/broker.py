@@ -11,9 +11,13 @@ over TCP with MQTT semantics (topic strings, fan-out to every subscriber,
 QoS 0). Any process can host :class:`PubSubBroker`; the others dial it with
 :class:`BrokerClient`. :class:`NativePubSubBroker` runs the same protocol
 in the port's C++ epoll broker (``ops/csrc/broker.cpp``, built with the
-host compiler at first use) as a child process. The body is opaque bytes.
-The reference's trace envelope on bodies (ROADMAP A12) is not ported:
-asking for it raises.
+host compiler at first use) as a child process. The body is opaque bytes
+to either broker. A :class:`BrokerClient` that publishes under an open span
+puts the reference's trace envelope (``telemetry.wrap_frame_body``) in
+front of the body, and its reader strips an envelope and runs the handler
+under the context it carried, so publisher and subscriber spans stitch
+into one trace, between the two packages too; a publish without an open
+span, or with ``propagate_trace=False``, is byte-unchanged.
 """
 from __future__ import annotations
 
@@ -25,7 +29,14 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
-from fedml_tpu_torch.telemetry import get_registry
+from fedml_tpu_torch.telemetry.registry import get_registry
+from fedml_tpu_torch.telemetry.spans import (
+    activate_context,
+    current_context,
+    deactivate_context,
+    unwrap_frame_body,
+    wrap_frame_body,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -244,11 +255,8 @@ class BrokerClient:
     """
 
     def __init__(self, host: str, port: int, timeout: float = 30.0,
-                 propagate_trace: bool = False):
-        if propagate_trace:
-            raise NotImplementedError(
-                "propagate_trace: trace-context envelopes on broker frames come "
-                "with the telemetry stack (ROADMAP A12)")
+                 propagate_trace: bool = True):
+        self._propagate = bool(propagate_trace)
         self._addr = (host, port)
         self._timeout = float(timeout)
         self._sock = socket.create_connection((host, port), timeout=timeout)
@@ -273,6 +281,8 @@ class BrokerClient:
             _send_frame(self._sock, _pack(_OP_SUB, topic))
 
     def publish(self, topic: str, body: bytes) -> None:
+        if self._propagate and current_context() is not None:
+            body = wrap_frame_body(body)
         self._m_pub_bytes.inc(len(body))
         # one bounded resend after the reader restores the socket
         for attempt in (0, 1):
@@ -345,12 +355,16 @@ class BrokerClient:
                 return
             _, topic, body = _unpack(payload)
             self._m_recv_bytes.inc(len(body))
+            ctx, body = unwrap_frame_body(body)
             handler = self._handlers.get(topic)
             if handler is not None:
+                token = activate_context(ctx)
                 try:
                     handler(body)
                 except Exception:
                     logger.exception("broker handler failed on %s", topic)
+                finally:
+                    deactivate_context(token)
 
     def close(self) -> None:
         self._stopping.set()

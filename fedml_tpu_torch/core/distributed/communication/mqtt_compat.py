@@ -38,10 +38,12 @@ class PubSubClient:
 
 class TcpBrokerClient(PubSubClient):
     """The in-tree broker's client behind the contract (Python or C++
-    broker: one frame protocol)."""
+    broker: one frame protocol). The frame envelope is off, as in the
+    reference: comm messages carry their context in the ``telemetry_ctx``
+    header already."""
 
     def __init__(self, host: str, port: int, **_):
-        self._client = BrokerClient(host, port)
+        self._client = BrokerClient(host, port, propagate_trace=False)
 
     def subscribe(self, topic, handler):
         self._client.subscribe(topic, handler)

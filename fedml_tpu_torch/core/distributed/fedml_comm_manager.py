@@ -20,9 +20,16 @@ sits at the reference's seam: it filters inbound delivery before the dedup,
 and on the way out corrupts a model payload in its window, then decides
 the copies (0 drops, 2 duplicates) and the delay. Its windows read the
 message's ``round`` header, else the manager's own ``round_idx`` (a client)
-or ``args.round_idx`` (the server). Spans, the flight recorder and the live
-telemetry plane are A12's; the registry counters keep the reference's
-names.
+or ``args.round_idx`` (the server).
+
+Every send carries the open span's context as the reference's
+``telemetry_ctx`` header, and every receive re-activates it around its
+handler under a ``comm/dispatch`` span, so a rank's spans join the
+sender's trace, across the two packages too. Sends and receives are
+``comm/send`` / ``comm/recv`` point events and flight-recorder records,
+and a raising handler dumps the flight recorder. The live telemetry
+plane's metric and span frames come with ROADMAP A12c; the registry
+counters keep the reference's names.
 """
 from __future__ import annotations
 
@@ -48,7 +55,15 @@ from fedml_tpu_torch.resilience import (
     chaos_from_args,
     transient_exceptions,
 )
-from fedml_tpu_torch.telemetry import get_registry
+from fedml_tpu_torch.telemetry import flight_recorder
+from fedml_tpu_torch.telemetry.registry import get_registry
+from fedml_tpu_torch.telemetry.spans import (
+    activate_context,
+    deactivate_context,
+    extract_context,
+    get_tracer,
+    inject_context,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -145,22 +160,57 @@ class FedMLCommManager(Observer):
         if handler is None:
             logger.warning("rank %d: no handler for %s", self.rank, msg_type)
             return
+        rnd = msg_params.get("round")
+        at_round = {"round": rnd} if rnd is not None else {}
+        flight_recorder.record("comm_recv", msg_type=str(msg_type), rank=self.rank,
+                               sender=msg_params.get_sender_id(), **at_round)
+        tracer = get_tracer()
+        if msg_id is not None:
+            tracer.event("comm/recv", msg_id=msg_id, peer=msg_params.get_sender_id(),
+                         msg_type=str(msg_type), **at_round)
+        # the sender's context, injected by its send_message: this rank's
+        # handler spans stitch into the sender's trace
+        ctx = extract_context(msg_params.get_params())
+        token = activate_context(ctx)
         try:
-            handler(msg_params)
+            if ctx is not None:
+                with tracer.span("comm/dispatch", msg_type=str(msg_type), rank=self.rank,
+                                 sender=msg_params.get_sender_id(),
+                                 **({"msg_id": msg_id} if msg_id is not None else {}),
+                                 **at_round):
+                    handler(msg_params)
+            else:
+                handler(msg_params)
         except BaseException as e:
             # a raising handler must not silently kill the receive thread
-            # and hang the federation: record it and stop this rank's loop
+            # and hang the federation: record it, land the flight recorder
+            # (the exception never reaches an excepthook) and stop this
+            # rank's loop
             self.handler_error = e
             logger.exception("rank %d: handler for %s raised; stopping receive loop",
                              self.rank, msg_type)
+            flight_recorder.record("handler_error", msg_type=str(msg_type), rank=self.rank,
+                                   error=repr(e))
+            flight_recorder.get_flight_recorder().dump(reason="handler_error", exc=e)
             self.com_manager.stop_receive_message()
+        finally:
+            deactivate_context(token)
 
     def send_message(self, message: Message) -> None:
+        # the open span's context rides the message as a header
+        inject_context(message.get_params())
         # stamped once per logical message: a retried send keeps its id, so
         # the receiver drops the copy if the first attempt did land
         if message.get(Message.MSG_ARG_KEY_MSG_ID) is None:
             message.add_params(Message.MSG_ARG_KEY_MSG_ID,
                                self._msg_id_prefix + str(next(self._send_seq)))
+        rnd = message.get("round")
+        at_round = {"round": rnd} if rnd is not None else {}
+        get_tracer().event("comm/send", msg_id=message.get(Message.MSG_ARG_KEY_MSG_ID),
+                           peer=message.get_receiver_id(), msg_type=message.get_type(),
+                           **at_round)
+        flight_recorder.record("comm_send", msg_type=message.get_type(), rank=self.rank,
+                               receiver=message.get_receiver_id(), **at_round)
         self._m_sent.inc()
         payload = message.get(Message.MSG_ARG_KEY_MODEL_PARAMS)
         if payload is not None:

@@ -33,7 +33,14 @@ masked (``privacy/secagg``, in the reference's layout, keyed by
 reveals is the pair seeds it shared with peers the server evicted. A client
 with no open masked round refuses to upload. ``secure_aggregation: true``
 selects the Bonawitz FSM instead (``cross_silo/secagg``, through the client
-facade). The live telemetry streamers come with ROADMAP A12.
+facade).
+
+Each local training runs under ``round/<n>/client/<rank>/train``, inside
+the ``comm/dispatch`` span that carries the server's round context, so it
+stitches into the server's trace. A client in its own process (any
+backend but LOCAL) binds the run dir's sinks itself, stamped
+``rank<r>``, and lands its spans there at finish. The live telemetry
+streamers come with ROADMAP A12c.
 """
 from __future__ import annotations
 
@@ -68,13 +75,14 @@ from fedml_tpu_torch.models.convert import (
     to_wire_params,
 )
 from fedml_tpu_torch.privacy.secagg import SecAggClientSession, SecAggMessage
-from fedml_tpu_torch.telemetry import get_registry
+from fedml_tpu_torch.telemetry.registry import get_registry
+from fedml_tpu_torch.telemetry.spans import configure_from_args, flush_run, get_tracer
 from fedml_tpu_torch.utils.tree import Tree
 
 logger = logging.getLogger(__name__)
 
 _NOT_PORTED = {
-    "live_telemetry": "the live telemetry plane (ROADMAP A12)",
+    "live_telemetry": "the live telemetry plane (ROADMAP A12c)",
 }
 
 
@@ -84,6 +92,10 @@ class ClientMasterManager(FedMLCommManager):
                  device: DeviceLike = "cpu"):
         refuse_unported(args, _NOT_PORTED)
         super().__init__(args, comm, rank, size, backend, device)
+        # in process, the ranks share the server's tracer and run dir
+        self._own_sinks = str(backend).upper() != COMM_BACKEND_LOCAL
+        if self._own_sinks:
+            configure_from_args(args, service=f"rank{self.rank}")
         self.trainer_dist_adapter = trainer_dist_adapter
         self.round_idx = 0
         self.has_sent_online_msg = False
@@ -229,6 +241,11 @@ class ClientMasterManager(FedMLCommManager):
 
     def finish(self) -> None:
         self._finished.set()  # stops the heartbeat on every shutdown path
+        if self._own_sinks:
+            try:
+                flush_run()
+            except OSError:  # observability never breaks shutdown
+                logger.exception("telemetry flush failed at finish")
         super().finish()
 
     # -- actions --------------------------------------------------------------
@@ -294,7 +311,8 @@ class ClientMasterManager(FedMLCommManager):
 
     def _train(self, global_params: Tree) -> None:
         t0 = time.perf_counter()
-        weights, local_sample_num = self.trainer_dist_adapter.train(self.round_idx,
-                                                                    global_params)
+        with get_tracer().span(f"round/{self.round_idx}/client/{self.rank}/train"):
+            weights, local_sample_num = self.trainer_dist_adapter.train(self.round_idx,
+                                                                        global_params)
         self._last_train_ms = (time.perf_counter() - t0) * 1e3
         self.send_model_to_server(0, weights, local_sample_num)

@@ -113,4 +113,4 @@ class LSAServerManager(ProtocolServer):
                                 self.q_bits, self.p, n_summands=len(self.active_set))
         n_active = torch.tensor(float(len(self.active_set)), dtype=torch.float32)
         averaged = {k: (v / n_active).to(self.device) for k, v in summed.items()}
-        self._close_round(averaged, "lightsecagg")
+        self._close_round(averaged, "lightsecagg", {"secure": "lightsecagg"})

@@ -29,6 +29,7 @@ from fedml_tpu_torch.core.distributed.fedml_comm_manager import (
     FedMLCommManager,
 )
 from fedml_tpu_torch.core.distributed.message import Message
+from fedml_tpu_torch.core.mlops import metrics as mlops
 from fedml_tpu_torch.core.mpc.finite import DEFAULT_PRIME, finite_to_tree
 from fedml_tpu_torch.core.mpc.secagg import SecAggServer
 from fedml_tpu_torch.cross_silo.secagg.sa_client_manager import host_int64
@@ -85,12 +86,14 @@ class ProtocolServer(FedMLCommManager):
             m.add_params(M.MSG_ARG_KEY_ROUND, self.args.round_idx)
             self.send_message(m)
 
-    def _close_round(self, averaged, what: str, **result) -> None:
-        """Publish the unmasked average, test it, and finish or open the
+    def _close_round(self, averaged, what: str, record: dict, **result) -> None:
+        """Publish the unmasked average, test it, record the round's
+        ``mlops`` line (``record`` and the metrics), and finish or open the
         next round."""
         self.aggregator.set_global_model_params(averaged)
         metrics = self.aggregator.test_on_server_for_all_clients(self.args.round_idx)
         logger.info("round %d (%s): %s", self.args.round_idx, what, metrics)
+        mlops.log({"round": self.args.round_idx, **record, **metrics})
         self.args.round_idx += 1
         self._reset_round_state()
         if self.args.round_idx >= self.round_num:
@@ -264,4 +267,5 @@ class SAServerManager(ProtocolServer):
         total = torch.tensor(total_samples, dtype=torch.float32)
         averaged = {k: (v / total).to(self.device) for k, v in summed.items()}
         self._close_round(averaged, f"secagg, dropped {sorted(self.dropped)}",
+                          {"secure": "secagg", "dropped": sorted(self.dropped)},
                           global_model=averaged)

@@ -57,6 +57,7 @@ from fedml_tpu_torch.core.distributed.fedml_comm_manager import (
     FedMLCommManager,
 )
 from fedml_tpu_torch.core.distributed.message import Message
+from fedml_tpu_torch.core.mlops import metrics as mlops
 from fedml_tpu_torch.cross_silo.message_define import MyMessage
 from fedml_tpu_torch.cross_silo.server.fedml_aggregator import FedMLAggregator
 from fedml_tpu_torch.cross_silo.server.fedml_server_manager import (
@@ -313,6 +314,11 @@ class AsyncFedMLServerManager(FedMLCommManager):
         if self.applied >= self.total_updates:
             self.finishing = True
             metrics = self.aggregator.test_on_server_for_all_clients(self.version)
+            mlops.log({"async_updates": self.applied,
+                       # a replayed run may reach its budget without a fresh upload
+                       "mean_staleness": float(sum(self.staleness_seen)
+                                               / max(len(self.staleness_seen), 1)),
+                       **metrics})
             self.result = {"updates": self.applied, "versions": self.version,
                            "flushes": self.flushes, "staleness": list(self.staleness_seen),
                            "senders": list(self.senders_seen), **metrics}

@@ -66,8 +66,16 @@ restarts from the checkpoint. ``chaos: {kill_server: ...}`` (or
 ``FEDML_CHAOS_KILL_SERVER``) SIGKILLs the server after the chosen journaled
 upload, and needs the journal.
 
+The server traces each round as the reference does: its broadcast goes out
+under ``round/<n>/sync``, whose context rides every init and sync message,
+so each silo's handler and training spans join the round's trace; then
+``round/<n>/aggregate`` and ``round/<n>/eval``. The spans land in
+``<log_file_dir>/run_<run_id>/spans.jsonl`` stamped ``rank0`` and the
+flight recorder is armed there; ``mlops.log`` records the init broadcast
+and each accepted round's metrics.
+
 Not ported yet, and refused when their arguments are set: FHE (A13) and the
-live telemetry plane, spans and the flight recorder (A12).
+live telemetry plane (A12c).
 ``cross_silo/round_ms`` (broadcast to the test after aggregation), the
 journal's append and replay times, and the reference's ``resilience/*``,
 ``integrity/*`` and ``secagg/*`` counters go to the port's metrics
@@ -93,6 +101,7 @@ from fedml_tpu_torch.core.distributed.fedml_comm_manager import (
     FedMLCommManager,
 )
 from fedml_tpu_torch.core.distributed.message import Message
+from fedml_tpu_torch.core.mlops import metrics as mlops
 from fedml_tpu_torch.cross_silo.message_define import MyMessage
 from fedml_tpu_torch.cross_silo.server.fedml_aggregator import FedMLAggregator
 from fedml_tpu_torch.device import DeviceLike
@@ -120,13 +129,14 @@ from fedml_tpu_torch.resilience import (
     quorum_size,
     salvage_round,
 )
-from fedml_tpu_torch.telemetry import get_registry
+from fedml_tpu_torch.telemetry.registry import get_registry
+from fedml_tpu_torch.telemetry.spans import configure_from_args, flush_run
 
 logger = logging.getLogger(__name__)
 
 # arguments of features the port's server does not have yet → the item
 _NOT_PORTED = {
-    "live_telemetry": "the live telemetry plane (ROADMAP A12)",
+    "live_telemetry": "the live telemetry plane (ROADMAP A12c)",
 }
 
 
@@ -141,8 +151,8 @@ def refuse_unported(args: Any, table: Dict[str, str]) -> None:
 class _LatencyEWMA:
     """Each client's round latency (broadcast to upload) as an EWMA, folded
     when a round closes: the part of the reference's ``ClientHealthTracker``
-    that the adaptive deadline reads (its scores are the telemetry stack's,
-    ROADMAP A12)."""
+    that the adaptive deadline reads (its scores are the run-health slice's,
+    ROADMAP A12b)."""
 
     def __init__(self, alpha: float = 0.4):
         self.alpha = float(alpha)
@@ -173,6 +183,8 @@ class FedMLServerManager(FedMLCommManager):
                  backend: str = COMM_BACKEND_LOCAL, device: DeviceLike = "cpu"):
         refuse_unported(args, _NOT_PORTED)
         super().__init__(args, comm, client_rank, client_num + 1, backend, device)
+        # the run-dir sinks (spans, flight recorder), as the sp engine binds them
+        self.tracer = configure_from_args(args, service=f"rank{self.rank}")
         self.aggregator = aggregator
         self.round_num = int(getattr(args, "comm_round", 1))
         self.args.round_idx = 0
@@ -295,7 +307,7 @@ class FedMLServerManager(FedMLCommManager):
             sal = None
         if sal is None:
             self._journal.reset()  # stale records: the checkpoint covers them
-        reg.histogram("resilience/journal_replay_ms").observe(
+        reg.histogram("journal/replay_ms").observe(
             (time.perf_counter() - t0) * 1e3)
         return sal
 
@@ -382,7 +394,10 @@ class FedMLServerManager(FedMLCommManager):
             self._screened_out = set()
             cohort = list(self.client_id_list_in_this_round)
         self._journal_round_open()
-        self._send_round_config(cohort, payload, sa_header, init)
+        # the open span's context rides each message of the broadcast, so
+        # every silo's spans join this round's trace
+        with self.tracer.span(f"round/{self.args.round_idx}/sync", n_clients=len(cohort)):
+            self._send_round_config(cohort, payload, sa_header, init)
         self._arm_round_deadline()
 
     def _secagg_round_header(self) -> Optional[dict]:
@@ -396,6 +411,7 @@ class FedMLServerManager(FedMLCommManager):
 
     def send_init_msg(self) -> None:
         self._open_round(self.aggregator.get_global_model_params(), init=True)
+        mlops.log({"event": "server.init_sent", "round": 0})
 
     def register_message_receive_handlers(self) -> None:
         self.register_message_receive_handler(
@@ -793,7 +809,9 @@ class FedMLServerManager(FedMLCommManager):
             if self._completing:
                 return
             self._completing = True
-        global_params = self.aggregator.aggregate()
+        with self.tracer.span(f"round/{self.args.round_idx}/aggregate",
+                              n_clients=self.aggregator.n_received()):
+            global_params = self.aggregator.aggregate()
         if self._guard is not None:
             # ring 3, first gate: a non-finite aggregate is rejected before
             # anything else sees it
@@ -802,7 +820,8 @@ class FedMLServerManager(FedMLCommManager):
                 self._rollback_round(reason)
                 return
         self._latency.finish_round(self.args.round_idx)
-        metrics = self.aggregator.test_on_server_for_all_clients(self.args.round_idx)
+        with self.tracer.span(f"round/{self.args.round_idx}/eval"):
+            metrics = self.aggregator.test_on_server_for_all_clients(self.args.round_idx)
         if self._guard is not None:
             # ring 3, second gate: the eval-loss spike
             reason = self._guard.check(None, metrics.get("test_loss"))
@@ -811,6 +830,7 @@ class FedMLServerManager(FedMLCommManager):
                 return
             self._guard.accept(metrics.get("test_loss"))
         self._m_round_ms.observe((time.perf_counter() - self._round_t0) * 1e3)
+        mlops.log({"round": self.args.round_idx, **metrics})
         # after ring 3: a rejected round never becomes durable. The journal
         # resets at every commit, so under durability every commit is
         # checkpoint-backed, whatever checkpoint_frequency says
@@ -931,8 +951,8 @@ class FedMLServerManager(FedMLCommManager):
             n_samples=int(msg.get(MyMessage.MSG_ARG_KEY_NUM_SAMPLES) or 1),
             local_steps=msg.get("local_steps"), payload=wire)
         reg = get_registry()
-        reg.histogram("resilience/journal_upload_ms").observe((time.perf_counter() - t0) * 1e3)
-        reg.histogram("resilience/journal_upload_bytes").observe(nbytes)
+        reg.histogram("journal/upload_ms").observe((time.perf_counter() - t0) * 1e3)
+        reg.histogram("journal/upload_bytes").observe(nbytes)
 
     def _resume_salvaged_round(self) -> None:
         """Re-enter the journaled round after a restart (parity:
@@ -978,8 +998,10 @@ class FedMLServerManager(FedMLCommManager):
         uploaded = set(sal.uploaded_clients)
         to_broadcast = [c for c in cohort if c not in uploaded]
         if not sal.closed and to_broadcast:
-            self._send_round_config(to_broadcast, payload, self._secagg_round_header(),
-                                    init=True)
+            with self.tracer.span(f"round/{self.args.round_idx}/sync",
+                                  n_clients=len(to_broadcast)):
+                self._send_round_config(to_broadcast, payload, self._secagg_round_header(),
+                                        init=True)
             self._arm_round_deadline()
         with self._round_lock:
             missing = self._try_close_round(cohort)
@@ -1046,4 +1068,8 @@ class FedMLServerManager(FedMLCommManager):
         self._recovery_deadline.cancel()
         if self._journal is not None:
             self._journal.close()
+        try:
+            flush_run()  # the spans and a registry snapshot into the run dir
+        except OSError:  # observability never breaks shutdown
+            logger.exception("telemetry flush failed at finish")
         super().finish()

@@ -11,10 +11,10 @@ sketch mode the analyze request carries the negotiated spec on the
 round-config header, and with ``fa_screen`` the submissions pass the
 integrity screen's ring 1 in the compressed domain before the fused merge.
 
-Counters keep the reference's ``fa/*`` names, the task in the labels. The
-reference's ``mlops`` round events (abort, quorum close, result) belong to
-the MLOps facades of the telemetry stack (ROADMAP A12) and are left out, as
-the port's cross-silo server leaves its own out.
+Counters keep the reference's ``fa/*`` names, the task in the labels, and
+the reference's ``mlops`` records land in the metrics sink with its keys:
+``fa.abort`` and ``fa.quorum_close`` events (the missing clients joined by
+commas) and the result record (the task and every result field as text).
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from fedml_tpu_torch.core.distributed.fedml_comm_manager import (
     FedMLCommManager,
 )
 from fedml_tpu_torch.core.distributed.message import Message
+from fedml_tpu_torch.core.mlops import metrics as mlops
 from fedml_tpu_torch.fa.fa_message_define import FAMessage
 from fedml_tpu_torch.resilience import ResilienceConfig, RoundDeadline, quorum_size
 from fedml_tpu_torch.telemetry import get_registry
@@ -169,6 +170,8 @@ class FAServerManager(FedMLCommManager):
                 f"{len(self.submissions)}/{self.client_num} submissions "
                 f"(need {need}); missing clients {missing}")
             logger.error("%s", err)
+            mlops.log({"event": "fa.abort", "round": round_idx, "task": self.task,
+                       "missing": ",".join(map(str, missing))})
             self.handler_error = err  # the harness fails loudly on this
             self._send_finish_all()
             self.finish()
@@ -191,6 +194,8 @@ class FAServerManager(FedMLCommManager):
             logger.warning(
                 "FA round %d quorum close: %d/%d submissions, missing clients %s",
                 self.round_idx, len(self.submissions), self.client_num, sorted(missing))
+            mlops.log({"event": "fa.quorum_close", "round": self.round_idx,
+                       "task": self.task, "missing": ",".join(map(str, sorted(missing)))})
         subs = sorted(self.submissions.items())
         self.submissions = {}
         state, done, result = self.aggregator.aggregate(subs, self.round_idx)
@@ -200,6 +205,7 @@ class FAServerManager(FedMLCommManager):
             self.result = {"task": self.task, "rounds": self.round_idx, **result}
             if self.sketch_spec:
                 self.result.setdefault("sketch_spec", self.sketch_spec)
+            mlops.log({"fa_task": self.task, **{k: str(v) for k, v in result.items()}})
             self._send_finish_all()
             self.finish()
             return

@@ -15,8 +15,9 @@ its leaf order and layout), copied to the host once at the end.
 Telemetry lands per tier under the reference's ``tier/<d>/...`` names
 (upload bytes, contributions, quorum closes and failures, evictions,
 rejoins, restarts, screened uplinks, nodes and peak buffered bytes). The
-tier-tagged ``resilience_event`` records, the edge health scoring, the
-trace seam and ``live=`` come with the telemetry stack, ROADMAP A12.
+tier-tagged ``resilience_event`` records, the edge health scoring and the
+trace seam come with the run-health slice (ROADMAP A12b), ``live=`` with
+the live plane (A12c).
 """
 from __future__ import annotations
 
@@ -163,8 +164,8 @@ class TreeRunner:
 
         if live is not None:
             raise NotImplementedError(
-                "TreeRunner(live=...): the live telemetry plane comes with the "
-                "telemetry stack, ROADMAP A12")
+                "TreeRunner(live=...): the live telemetry plane comes with "
+                "ROADMAP A12c")
         self.device = resolve_device(device)
         self.topology = topology
         self.codec = get_codec(codec)

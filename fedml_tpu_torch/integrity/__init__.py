@@ -15,8 +15,8 @@ a poisoned delta), in three rings on the fused compressed aggregation path:
 
 :mod:`.quarantine` holds the list both outer rings feed. Everything is
 counted under the reference's ``integrity/*`` names in the port's metrics
-registry (the ``health.jsonl`` events and the flight recorder are the
-telemetry stack's, ROADMAP A12).
+registry (the ``health.jsonl`` events and their flight-recorder copies come
+with the run-health slice, ROADMAP A12b).
 """
 from __future__ import annotations
 

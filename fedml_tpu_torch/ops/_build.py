@@ -9,7 +9,8 @@ aggregation) and compiles the same way with the host C++ compiler
 broker) compiles into an executable (:func:`build_executable`). The file
 name carries a hash of its source and flags, so an edited source is
 rebuilt and a stale one is never loaded. Nothing is built when a module
-is imported: the first call builds it.
+is imported: the first call builds it, and its time counts into the open
+span's ``compile_ms`` (``telemetry.note_kernel_build``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -84,7 +86,12 @@ def _compile(name: str, suffix: str, compiler: str, flags, out: Path) -> Path:
     # processes on one checkout) never load a half-written library
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [compiler, *flags, "-o", str(tmp), str(CSRC / f"{name}{suffix}")]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    # the build's time goes to the open span's compile_ms
+    from fedml_tpu_torch.telemetry.spans import note_kernel_build
+
+    note_kernel_build(f"{name}{suffix}", (time.perf_counter() - t0) * 1e3)
     if proc.returncode != 0:
         raise RuntimeError(
             f"{os.path.basename(compiler)} failed to build {name} (exit "

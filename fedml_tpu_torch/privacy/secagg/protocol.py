@@ -21,8 +21,8 @@ peer), ever. Malformed headers, keys, uploads and reveals raise
 honest-but-curious server and honest clients (``docs/privacy.md``).
 
 The ``secagg/*`` counters go to the port's metrics registry; the protocol
-events and phase markers are logged (the flight recorder and the doctor's
-secagg section come with the telemetry stack, ROADMAP A12).
+events and phase markers are logged (their flight-recorder records and
+the doctor's secagg section come with the run-health slice, ROADMAP A12b).
 """
 from __future__ import annotations
 

@@ -14,7 +14,10 @@ replay.
 Wired into the synchronous cross-silo server (mid-round re-entry) and the
 async server's FedBuff buffer, and into the aggregation tree's edge
 aggregators (``hierarchy.EdgeAggregator.bind_journal``). Counters: ``resilience/journal_*`` and
-``resilience/restarts`` in the port's registry.
+``resilience/restarts`` in the port's registry; the append and replay
+histograms: ``journal/upload_ms``, ``journal/upload_bytes`` and
+``journal/replay_ms`` (the reference's taxonomy keeps histograms out of
+``resilience/``).
 """
 from fedml_tpu_torch.resilience.durability.journal import (
     RoundJournal,

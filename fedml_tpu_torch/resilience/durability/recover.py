@@ -134,7 +134,7 @@ def _rank_main(argv: List[str]) -> int:
         reg = get_registry()
         print("METRICS " + json.dumps({  # noqa: T201 (rank protocol)
             m.name: m.snapshot() for m in reg._items()
-            if m.name.startswith("resilience/journal")}), flush=True)
+            if m.name.startswith(("resilience/journal", "journal/"))}), flush=True)
         print("DIGEST " + digest(mgr.aggregator.get_global_model_params()),  # noqa: T201
               flush=True)
         print("RESULT " + json.dumps(result, default=str), flush=True)  # noqa: T201

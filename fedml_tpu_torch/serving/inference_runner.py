@@ -10,7 +10,8 @@
 Predictor admission is bounded (``max_inflight``): a request that cannot
 get a permit within ``queue_wait_s`` is shed with ``429`` + ``Retry-After``.
 Every request is recorded in the EndpointMonitor. The OpenAI-compatible
-surface and the ``serving/request`` spans wait for the ROADMAP (A7, A12).
+surface and the ``serving/request`` spans wait for ROADMAP A7 (the spans on
+A12a's span layer).
 """
 from __future__ import annotations
 

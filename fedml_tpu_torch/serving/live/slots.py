@@ -9,8 +9,9 @@ generation never mixes two rounds' weights — and the old slot's tensors are
 dropped only when its lease count drains to zero.
 
 A slot holds a model instance with its weights (an ``nn.Module``).
-Staging of compressed aggregates and the ``serve/*`` spans wait for the
-codec and telemetry items of the ROADMAP (A8, A12).
+Staging of compressed aggregates waits for the codec item of the ROADMAP
+(A8), the ``serve/*`` spans for the serving slice (A7, on A12a's span
+layer).
 """
 from __future__ import annotations
 

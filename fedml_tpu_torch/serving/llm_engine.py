@@ -20,7 +20,7 @@ PyTorch lowering; ``w8a8`` (or ``int8_w8a8``) quantizes each activation
 row to int8 and multiplies int8 × int8 into int32 (``torch._int_mm`` on
 CUDA); ``int4`` and ``nf4`` keep the weights packed two codes a byte and
 dequantize each per call. The per-request ``req/*`` span tree waits for
-the telemetry item of the ROADMAP (A12).
+the serving slice (ROADMAP A7, on A12a's span layer).
 """
 from __future__ import annotations
 

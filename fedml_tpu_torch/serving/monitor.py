@@ -8,7 +8,7 @@ and last activity — and :meth:`snapshot` reads those instruments. A
 objective fraction); each observation is scored into cumulative
 ``serving/slo_total`` / ``serving/slo_breaches`` counters. The MLOps
 metrics mirror and the shed-burst ``serving_event`` record wait for the
-telemetry item of the ROADMAP (A12).
+serving slice (ROADMAP A7, on A12a's span layer).
 """
 from __future__ import annotations
 

@@ -36,8 +36,17 @@ DP counters, SCAFFOLD's and Mime's server trees) is saved after every
 ``checkpoint_frequency`` accepted rounds (``core/checkpoint``), and
 ``resume: true`` re-enters at the round after the newest restorable one.
 
+Each round is traced as in the reference: the spans ``round/<n>/sample``,
+``round/<n>/train`` (one ``round/<n>/client/<id>/train`` a client inside),
+``round/<n>/aggregate`` and ``round/<n>/eval`` go to
+``<log_file_dir>/run_<run_id>/spans.jsonl`` (service ``sp``), the profiler
+events ``train`` and ``aggregate`` to ``events.jsonl``, and ``train()``
+ends with ``telemetry.flush_run()``, so ``telemetry report`` reads the run
+dir as soon as it returns; ``sys_perf_profiling: false`` turns the events
+off. Spans never synchronise the card: their walls are host time.
+
 Not ported yet, and refused when their arguments are set: FHE (ROADMAP
-A13) and trace capture and spans (A12). The ``sp/rounds`` counter and the
+A13) and device trace capture (A12b). The ``sp/rounds`` counter and the
 ``sp/client_train_ms``, ``sp/encode_ms``, ``sp/screen_ms`` and
 ``sp/aggregate_ms`` histograms go to the port's metrics registry.
 """
@@ -68,6 +77,7 @@ from fedml_tpu_torch.core.checkpoint import (
     should_save,
 )
 from fedml_tpu_torch.core.contribution import ContributionAssessorManager
+from fedml_tpu_torch.core.mlops.event import MLOpsProfilerEvent
 from fedml_tpu_torch.core.security.defender import FedMLDefender
 from fedml_tpu_torch.data.dataset import FederatedDataset
 from fedml_tpu_torch.device import resolve_device
@@ -86,7 +96,9 @@ from fedml_tpu_torch.ml.trainer.trainer_creator import create_model_trainer
 from fedml_tpu_torch.models import model_hub
 from fedml_tpu_torch.models.convert import from_reference_layout, to_reference_layout
 from fedml_tpu_torch.simulation.sampling import sample_clients, sample_from_list
-from fedml_tpu_torch.telemetry import get_registry
+from fedml_tpu_torch.telemetry import flight_recorder
+from fedml_tpu_torch.telemetry.registry import get_registry
+from fedml_tpu_torch.telemetry.spans import configure_from_args, flush_run
 from fedml_tpu_torch.utils.tree import (
     Tree,
     tree_add,
@@ -101,7 +113,7 @@ logger = logging.getLogger(__name__)
 
 # arguments of features this engine does not have yet → the ROADMAP item
 _NOT_PORTED = {
-    "trace_rounds": "trace capture (ROADMAP A12)",
+    "trace_rounds": "device trace capture (ROADMAP A12b)",
 }
 
 
@@ -155,6 +167,8 @@ class FedAvgAPI:
         self.trainer = client_trainer or create_model_trainer(model, args)
         self.aggregator = server_aggregator or create_server_aggregator(model, args)
         self.server_opt = ServerOptimizer(args)
+        self.event = MLOpsProfilerEvent(args)
+        self.tracer = configure_from_args(args, service="sp")
         batch = int(getattr(args, "batch_size", 32))
         sample_x = dataset.train_data_global[0][:batch]
         self.global_params: Tree = model_hub.init_params(model, args, sample_x,
@@ -356,7 +370,8 @@ class FedAvgAPI:
             # the round-open state: with checkpoint_frequency 1, exactly the
             # last checkpoint
             self._round_snapshot = self._ckpt_state()
-        client_ids = self._client_sampling(round_idx)
+        with self.tracer.span(f"round/{round_idx}/sample"):
+            client_ids = self._client_sampling(round_idx)
         ctx = Context()
         ctx.add(Context.KEY_CLIENT_ID_LIST_IN_THIS_ROUND, client_ids)
         ctx.add(Context.KEY_CLIENT_NUM_IN_THIS_ROUND, len(client_ids))
@@ -375,23 +390,32 @@ class FedAvgAPI:
             server_state["c_global"] = self._c_global
         if self._mime_s is not None:
             server_state["c_global"] = self._mime_s
-        for cid in client_ids:
-            self.trainer.set_id(cid)
-            self.trainer.set_round(round_idx)
-            self.trainer.set_server_state(server_state)
-            train_data = self.dataset.train_data_local_dict[cid]
-            n_k = self.dataset.train_data_local_num_dict[cid]
-            t0 = time.perf_counter()
-            w, metrics = self.trainer.run_local_training(
-                self.global_params, train_data, self.device, self.args)
-            self._m_client_ms.observe((time.perf_counter() - t0) * 1e3)
-            if metrics.get("scaffold_c_delta") is not None:
-                c_deltas.append(metrics["scaffold_c_delta"])
-            if metrics.get("mime_full_grad") is not None:
-                mime_grads.append(metrics["mime_full_grad"])
-            taus.append(float(metrics.get("local_steps", 0.0)))
-            w_locals.append((n_k, w))
+        flight_recorder.record("round_start", round=round_idx,
+                               clients=[int(c) for c in client_ids])
+        self.event.log_event_started("train", round_idx)
+        with self.tracer.span(f"round/{round_idx}/train"):
+            for cid in client_ids:
+                self.trainer.set_id(cid)
+                self.trainer.set_round(round_idx)
+                self.trainer.set_server_state(server_state)
+                train_data = self.dataset.train_data_local_dict[cid]
+                n_k = self.dataset.train_data_local_num_dict[cid]
+                t0 = time.perf_counter()
+                with self.tracer.span(f"round/{round_idx}/client/{cid}/train",
+                                      n_samples=n_k):
+                    w, metrics = self.trainer.run_local_training(
+                        self.global_params, train_data, self.device, self.args)
+                self._m_client_ms.observe((time.perf_counter() - t0) * 1e3)
+                if metrics.get("scaffold_c_delta") is not None:
+                    c_deltas.append(metrics["scaffold_c_delta"])
+                if metrics.get("mime_full_grad") is not None:
+                    mime_grads.append(metrics["mime_full_grad"])
+                taus.append(float(metrics.get("local_steps", 0.0)))
+                w_locals.append((n_k, w))
+        self.event.log_event_ended("train", round_idx)
 
+        self.event.log_event_started("aggregate", round_idx)
+        agg_span = self.tracer.begin(f"round/{round_idx}/aggregate")
         watches = {k: _Stopwatch(self.device) for k in ("encode", "screen", "aggregate")}
         ctx.add("global_model_for_defense", self.global_params)
         w_agg, wire = None, None
@@ -442,7 +466,10 @@ class FedAvgAPI:
             if self._c_global is None:
                 self._c_global = tree_map(lambda x: 0 * x, avg_delta)
             self._c_global = tree_add(self._c_global, avg_delta)
+        self.tracer.end(agg_span)
+        self.event.log_event_ended("aggregate", round_idx)
         self._m_rounds.inc()
+        flight_recorder.record("round_end", round=round_idx)
 
         report: Dict[str, Any] = {"round": round_idx, "clients": client_ids,
                                   **contributions}
@@ -451,9 +478,10 @@ class FedAvgAPI:
                    or round_idx == int(self.args.comm_round) - 1)
         metrics = None
         if do_eval:
-            metrics = self.aggregator.test(self.global_params,
-                                           self.dataset.test_data_global,
-                                           self.device, self.args)
+            with self.tracer.span(f"round/{round_idx}/eval"):
+                metrics = self.aggregator.test(self.global_params,
+                                               self.dataset.test_data_global,
+                                               self.device, self.args)
         if self._codec is not None:
             report["encode_ms"] = watches["encode"].total_ms()
             self._m_encode_ms.observe(report["encode_ms"])
@@ -526,6 +554,10 @@ class FedAvgAPI:
                 continue  # the same round again, the quarantine applied
             round_idx += 1
         wall = time.time() - t0
+        # every span and a registry snapshot land in the run dir, so
+        # `telemetry report` reads it as soon as train() returns
+        flush_run()
+        self.event.flush()
         final = self.test_history[-1] if self.test_history else {}
         return {
             "wall_clock_sec": wall,

@@ -1,7 +1,7 @@
 """The compression-aware update norm of ``fedml_tpu/telemetry/health.py``
 (:func:`update_norm`), which the norm-only defense's fused clip factors
 read. The per-client health tracker and its ``health.jsonl`` are the
-telemetry stack's (ROADMAP A12)."""
+run-health slice's (ROADMAP A12b)."""
 from __future__ import annotations
 
 import math

@@ -1,17 +1,21 @@
 """Typed metrics registry — Counter / Gauge / Histogram.
 
-The port's own copy of the instrument part of
-``fedml_tpu/telemetry/registry.py`` that the serving engine, model slots
-and endpoint monitor use: thread-safe typed instruments with fixed
-histogram bucket boundaries, and the Prometheus text exposition the
-inference runner serves at ``/metrics``. Metric names are
-``/``-separated lowercase segments (``serving/ttft_ms``).
+The port's own copy of ``fedml_tpu/telemetry/registry.py``: thread-safe
+typed instruments with fixed histogram bucket boundaries, exported as JSONL
+(the run-dir sink ``telemetry report`` reads, line for line the reference's
+format, so either package's report reads either package's run dir) and as
+Prometheus text exposition (what the inference runner serves at
+``/metrics``). Metric names are ``/``-separated lowercase segments
+(``serving/ttft_ms``), the span layer's taxonomy.
 """
 from __future__ import annotations
 
+import json
 import math
+import os
 import re
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 _NAME_RE = re.compile(r"^[a-z0-9_]+(/[a-z0-9_]+)*$")
@@ -20,6 +24,12 @@ _NAME_RE = re.compile(r"^[a-z0-9_]+(/[a-z0-9_]+)*$")
 DEFAULT_BUCKETS_MS: Tuple[float, ...] = (
     0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500,
     1000, 2500, 5000, 10000, 30000, 60000, 300000,
+)
+
+# Byte-size buckets: 64 B frames through GB-scale model payloads.
+BYTES_BUCKETS: Tuple[float, ...] = (
+    64, 256, 1024, 4096, 16384, 65536, 262144, 1048576,
+    4194304, 16777216, 67108864, 268435456, 1073741824,
 )
 
 
@@ -61,6 +71,13 @@ class Gauge:
     def set(self, v: float) -> None:
         with self._lock:
             self._value = float(v)
+
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    def dec(self, n: float = 1.0) -> None:
+        self.inc(-n)
 
     @property
     def value(self) -> float:
@@ -123,6 +140,20 @@ class Histogram:
             lo = b
         return self._max  # rank lands in the +inf bucket
 
+    def percentile(self, q: float) -> float:
+        with self._lock:
+            return self._percentile_locked(q)
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
     def snapshot(self) -> Dict:
         with self._lock:
             empty = self._count == 0
@@ -138,6 +169,26 @@ class Histogram:
                 "buckets": dict(zip([*map(str, self.bounds), "+inf"],
                                     self._counts)),
             }
+
+    def merge_delta(self, bucket_deltas: List[int], count_delta: int,
+                    sum_delta: float, observed_min: Optional[float] = None,
+                    observed_max: Optional[float] = None) -> None:
+        """Fold another histogram's delta into this one. ``bucket_deltas``
+        aligns with ``bounds`` plus the +inf bucket; min and max are the
+        other side's observed extremes, so they merge as min and max."""
+        if len(bucket_deltas) != len(self._counts):
+            raise ValueError(
+                f"histogram {self.name}: merge of {len(bucket_deltas)} "
+                f"buckets into {len(self._counts)}")
+        with self._lock:
+            for i, d in enumerate(bucket_deltas):
+                self._counts[i] += int(d)
+            self._count += int(count_delta)
+            self._sum += float(sum_delta)
+            if observed_min is not None:
+                self._min = min(self._min, float(observed_min))
+            if observed_max is not None:
+                self._max = max(self._max, float(observed_max))
 
 
 def _labels_key(labels: Optional[Dict[str, str]]) -> Tuple:
@@ -191,11 +242,32 @@ class MetricsRegistry:
         with self._lock:
             return sorted(self._metrics.values(), key=lambda m: m.name)
 
-    def export_prometheus(self) -> str:
-        """Prometheus text exposition format, version 0.0.4."""
+    def snapshot(self) -> List[Dict]:
+        return [{"name": m.name, "labels": m.labels, **m.snapshot()}
+                for m in self._items()]
+
+    def export_jsonl(self) -> List[str]:
+        ts = time.time()
+        return [json.dumps({"ts": ts, **rec}) for rec in self.snapshot()]
+
+    def flush_jsonl(self, run_dir: str, filename: str = "telemetry.jsonl") -> str:
+        """Append a snapshot of every instrument to the run-dir sink, in one
+        ``write`` (processes sharing a run dir append whole lines)."""
+        os.makedirs(run_dir, exist_ok=True)
+        path = os.path.join(run_dir, filename)
+        lines = "".join(line + "\n" for line in self.export_jsonl())
+        with open(path, "a") as f:
+            f.write(lines)
+        return path
+
+    def export_prometheus(self, name_prefix: Optional[str] = None) -> str:
+        """Prometheus text exposition format, version 0.0.4; ``name_prefix``
+        restricts the export to one metric namespace."""
         out: List[str] = []
         seen_types = set()
         for m in self._items():
+            if name_prefix is not None and not m.name.startswith(name_prefix):
+                continue
             pname = m.name.replace("/", "_")
             if pname not in seen_types:
                 seen_types.add(pname)
@@ -227,3 +299,14 @@ def get_registry() -> MetricsRegistry:
         if _GLOBAL is None:
             _GLOBAL = MetricsRegistry()
         return _GLOBAL
+
+
+def set_registry(registry: MetricsRegistry) -> None:
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        _GLOBAL = registry
+
+
+def reset_registry() -> None:
+    """Drop the process-global registry (test isolation)."""
+    set_registry(MetricsRegistry())

@@ -23,6 +23,12 @@ Both test the global adapters on the reference's cadence and, with
 adapters as the reference does (``LLMAggregator.save_round``): after a
 tested round those are the global adapters, after an untested one the
 last client's.
+
+Both forms of the round are bracketed by the ``round`` profiler event
+(``MLOpsProfilerEvent``: ``<log_file_dir>/run_<run_id>/events.jsonl``,
+flushed at the end of ``train()``). The event's wall is host time: the
+host loop's ends after the aggregate has been enqueued, the fused round's
+after its loss has been read back.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
+from fedml_tpu_torch.core.mlops.event import MLOpsProfilerEvent
 from fedml_tpu_torch.data.dataset import FederatedDataset
 from fedml_tpu_torch.device import DeviceLike
 from fedml_tpu_torch.models.llm.llama import LlamaConfig
@@ -58,6 +65,7 @@ class FedLLMAPI:
         self.client = LLMClientTrainer(self.cfg, args, device=device)
         self.aggregator = LLMAggregator(self.cfg, args, engine=self.client.engine)
         self.global_exchange = self.aggregator.get_init_params()
+        self.event = MLOpsProfilerEvent(args)
         self.test_history: List[dict] = []
         # the fused round never surfaces a client's payload to the host, so
         # it and the trust-stack hooks exclude each other
@@ -118,6 +126,7 @@ class FedLLMAPI:
             return self._train_one_round_on_device(round_idx)
         client_ids = sample_clients(self.args, round_idx)
         payloads = []
+        self.event.log_event_started("round", round_idx)
         t0 = time.time()
         for cid in client_ids:
             self.client.set_id(cid)
@@ -129,7 +138,9 @@ class FedLLMAPI:
         model_list, _ = self.aggregator.on_before_aggregation(payloads)
         self.global_exchange = self.aggregator.aggregate(model_list)
         self.global_exchange = self.aggregator.on_after_aggregation(self.global_exchange)
-        report = {"round": round_idx, "round_sec": time.time() - t0}
+        dt = time.time() - t0
+        self.event.log_event_ended("round", round_idx)
+        report = {"round": round_idx, "round_sec": dt}
         self._maybe_test_and_checkpoint(round_idx, report)
         return report
 
@@ -141,11 +152,13 @@ class FedLLMAPI:
         if self._fed_round_key != key:
             self._fed_round = engine.compile_federated_round(*key)
             self._fed_round_key = key
+        self.event.log_event_started("round", round_idx)
         t0 = time.time()
         _, _, self.global_exchange, loss = self._fed_round(
             engine.params, engine.opt_state, self.global_exchange, xs, ys, ms, weights)
         loss = float(loss)  # waits for the device before the clock stops
         dt = time.time() - t0
+        self.event.log_event_ended("round", round_idx)
         report = {"round": round_idx, "round_sec": dt, "train_loss": loss}
         self._maybe_test_and_checkpoint(round_idx, report)
         return report
@@ -173,6 +186,7 @@ class FedLLMAPI:
         for r in range(rounds):
             self.train_one_round(r)
         wall = time.time() - t0
+        self.event.flush()
         final = self.test_history[-1] if self.test_history else {}
         return {
             "wall_clock_sec": wall,

@@ -520,3 +520,25 @@ def test_fa_entry_points_refuse_missing_cuda(monkeypatch):
     out = run_sketch_federation(n_clients=16, levels=(1, 4, 16), codec="votevec@256/3",
                                 vocab=32, device="cpu")
     assert out["stats"]["completed"] and out["heavy_hitters"] == out["ref_heavy_hitters"]
+
+
+@pytest.mark.parametrize("module", [
+    "fedml_tpu_torch.telemetry",
+    "fedml_tpu_torch.telemetry.registry",
+    "fedml_tpu_torch.telemetry.spans",
+    "fedml_tpu_torch.telemetry.flight_recorder",
+    "fedml_tpu_torch.telemetry.report",
+    "fedml_tpu_torch.core.mlops",
+    "fedml_tpu_torch.core.mlops.event",
+    "fedml_tpu_torch.core.mlops.metrics",
+    "fedml_tpu_torch.core.mlops.status",
+    "fedml_tpu_torch.core.mlops.log_daemon",
+    "fedml_tpu_torch.core.mlops.system_stats",
+    "fedml_tpu_torch.mlops",
+])
+def test_span_layer_modules_are_scanned(module):
+    """The span layer's modules (the registry, spans, the flight recorder,
+    the report, the MLOps facades) are among those both scans cover: none
+    imports JAX or the reference package, though several are copies of
+    reference modules that import no JAX."""
+    assert module in PORT_MODULES
