@@ -114,7 +114,7 @@ the final ``ok`` line:
     on 2 of 10 with krum: it fails unless krum keeps a benign update; then
     every registered defense's three hooks run on that round's 10 ResNet-18
     updates, each timed with its memory above them. (j3) cross-silo in
-    process, 4 silos over LOCAL, each one of 10 parts, 1 round,
+    process, 4 silos over LOCAL, each one of 40 parts, 1 round,
     ``integrity: true``,
     norm-difference clipping and local DP: it fails unless the fused path
     serves with clip factors, at least one upload is clipped
@@ -137,7 +137,8 @@ the final ``ok`` line:
     bytes. (k2) the same recipe with a server and 2 silos as processes over
     the broker, 1 round: every process exits 0. (k3) the Bonawitz FSM
     (``secure_aggregation: true``) on 3 silos with rank 3 dropping after the
-    share exchange, and (k4) LightSecAgg on 3 silos, 1 round each: each
+    share exchange, and (k4) LightSecAgg on 3 silos, each one of 40 parts,
+    1 round each: each
     fails unless the server's unmasked field sum equals the survivors' plain
     field sum and the global model is that sum dequantized and averaged; it
     prints the server's finite-field host ms;
@@ -296,7 +297,8 @@ the final ``ok`` line:
     with exit 0. Each leg's untraced twin (``untraced``) runs the same
     entry points with a memory-only tracer whose spans set no context and
     with ``sys_perf_profiling: false``. (r1) phase h's round on a sixteenth
-    of its training images (R1_DATA) untraced and then traced, under cuDNN's
+    of its training images (R1_DATA) untraced (and with ``FEDML_PROFILE=0``:
+    phase s2's twin) and then traced, under cuDNN's
     deterministic algorithms: it fails unless ``spans.jsonl`` holds
     ``round/0/{sample,train,aggregate,eval}`` and one
     ``round/0/client/<id>/train`` a client, the report's round wall lies
@@ -318,6 +320,29 @@ the final ``ok`` line:
     ``events.jsonl`` holds the round's event, the report's ``event/round``
     lies within R_WALL_TOL of the host-timed bracket and the flash
     launches counted around exactly ``train()`` are the predicted count.
+(s) device-side profiling (``telemetry.profiling``, ``device_stats``; no
+    kernel of its own). (s1) FedLLMAPI's fused round (S1_ARGS: phase e's
+    round cut to 4 layers, 2 rounds) with a ``round/<n>/train`` span
+    around each round and round 1 captured through
+    ``MLOpsProfilerEvent.start_trace/stop_trace``, then the same 2 rounds
+    with ``FEDML_PROFILE=0`` and no capture: it fails unless
+    ``programs.jsonl`` holds ``llm/fused_round`` with FLOPs within
+    S_FLOPS_TOL of 8 x ``train_step_flops`` and ``llm/train_step`` has no
+    calls of its own, the report (read back in a child process) gives the
+    round phase's FLOP/s within S_RATE_TOL of the script's FLOPs over its
+    host-timed rounds and an MFU, round 1's trace holds the flash kernels as
+    often as their launch counters (predicted 36 / 32 / 32) and stays under
+    its byte budget, the controller is available and the capture holds
+    kernel events, and the adapters and losses are bit-equal to the
+    unprofiled rounds; it prints the trace bytes, the stop-and-export
+    seconds and the µs of a cataloged call (S_NOOP_CALLS). (s2) phase r1's
+    round with ``trace_rounds: "0"``: it fails unless ``sp/local_train``,
+    ``compress/ef_encode`` (the int8 uplink's error-feedback encode) and
+    ``sp/evaluate`` have their calls, ``health.jsonl`` has ``mem_sample``
+    records with card bytes for train, aggregate and eval, the capture
+    holds kernel events, the report has its attribution section and the
+    digest equals the unprofiled twin's (r1's untraced leg, run with
+    ``FEDML_PROFILE=0``, when phase r ran).
     Each phase prints its seconds.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
@@ -326,7 +351,7 @@ Without a CUDA device the script exits with code 2 and prints no result;
 with one, it runs itself again under ``PYTHONHASHSEED=0`` unless that is
 set, so every phase and every process it starts draws the same CIFAR-10
 stand-in. The full per-shape results also go to
-``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklmnopqr``) runs
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklmnopqrs``) runs
 (a) and the phases named, and prints no kernels or ok line (phase g sets
 its round beside phase e's only when both run). ``--parent DIR`` builds the dequant and flash-forward kernels of
 another checkout (DIR, e.g. the parent commit unpacked by ``git archive``)
@@ -505,7 +530,8 @@ CS_TIMED_REPS = 5
 # uploads' weighted mean within TRUST_CONTAIN of the plain weighted mean's.
 # j2: one sp round on the decode fallback, byzantine (random) on 2 of 10
 # with krum, then each registered defense timed on that round's 10 updates.
-# j3: cross-silo in process, 4 silos each on one of 10 parts, 1 round,
+# j3: cross-silo in process, 4 silos each on one of 40 parts (10 before
+# phase s came, which this cut pays for; j3 gates on no test loss), 1 round,
 # ``integrity: true`` with
 # norm-difference clipping (bound TRUST_NORM_BOUND) and local DP (ε 8,
 # δ 1e-5, sensitivity 1e-3: noise of σ 6.1e-4, ~2.0 of L2 over the model).
@@ -526,7 +552,7 @@ TRUST_DECODE_CONFIG = {**SP_CONFIG, "data_args": TRUST_DATA, "train_args": {
 TRUST_NORM_BOUND = 2.0
 TRUST_CS_CONFIG = {**CS_CONFIG, "common_args": {
     **CS_CONFIG["common_args"], "run_id": "chip_smoke_trust"}, "train_args": {
-    **CS_CONFIG["train_args"], "client_num_in_total": 10, "comm_round": 1,
+    **CS_CONFIG["train_args"], "client_num_in_total": 40, "comm_round": 1,
     "integrity": True, "enable_defense": True, "defense_type": "norm_diff_clipping",
     "norm_bound": TRUST_NORM_BOUND, "enable_dp": True, "dp_solution_type": "LDP",
     "epsilon": 8.0, "delta": 1e-5, "sensitivity": 1e-3}}
@@ -547,7 +573,9 @@ TRUST_CONTAIN = 0.1
 # secagg_threshold: 2) on 3 silos, rank 3 dropping after the share exchange,
 # 1 round; sa_q_bits 12, because the 31-bit field leaves |x| < 0.33 at the
 # reference's 16 bits for CIFAR-10's 50,000 samples (sa_q_bits 12: < 5.2).
-# k4: LightSecAgg on 3 silos, 1 round (the reference's defaults).
+# k4: LightSecAgg on 3 silos, 1 round (the reference's defaults). k3 and
+# k4 train one of 40 parts a silo (10 before phase s came, which this cut
+# pays for; they gate on the field sums, not on the test loss).
 SECAGG_TRAIN = dict(client_num_in_total=20, compression="", secagg="int8",
                     secagg_clip=0.1, secagg_mod_bits=8)
 SECAGG_CONFIG = {**CS_CONFIG, "common_args": {
@@ -556,7 +584,7 @@ SECAGG_CONFIG = {**CS_CONFIG, "common_args": {
     "round_deadline_s": 240.0, "round_deadline_multiplier": 2.0}}
 SECAGG_STALL_RANK = 4
 SECAGG_BROKER_SILOS = 2
-MPC_TRAIN = dict(client_num_in_total=10, client_num_per_round=3, comm_round=1,
+MPC_TRAIN = dict(client_num_in_total=40, client_num_per_round=3, comm_round=1,
                  compression="")
 BONAWITZ_CONFIG = {**CS_CONFIG, "common_args": {
     **CS_CONFIG["common_args"], "run_id": "chip_smoke_bonawitz"}, "train_args": {
@@ -801,15 +829,25 @@ R3_ARGS = dict(model_size="llama3_8b", num_hidden_layers=2, lora_rank=16,
                epochs=1, comm_round=1, on_device_round=False, random_seed=0,
                learning_rate=1e-4, frequency_of_the_test=1, run_id="chip_smoke_r3")
 
-ALL_PHASES = "bcdefghijklmnopqr"
 
-# Published dense peaks (NVIDIA data sheets): memory bytes/s and bf16 FLOP/s.
-PEAKS = (
-    ("H100", "PCIE", 2.0e12, 756e12),
-    ("H100", "NVL", 3.9e12, 835e12),
-    ("H100", "", 3.35e12, 989e12),
-    ("H200", "", 4.8e12, 989e12),
-)
+# Phase (s), device-side profiling (ROADMAP A12b1). s1: phase e's round
+# (TRAIN_ARGS) cut to S1_LAYERS layers, 2 rounds, round 1 captured through
+# MLOpsProfilerEvent.start_trace/stop_trace, then the same 2 rounds with
+# FEDML_PROFILE=0 and no capture. The catalog's FLOPs of llm/fused_round
+# within S_FLOPS_TOL of 8 x train_step_flops (that formula also counts
+# layer 0's q/k/v input gradients, which autograd skips: 0.87% over at 4
+# layers); the report's round phase's FLOP/s within S_RATE_TOL of the
+# script's own FLOPs over its host-timed rounds. s2: phase r1's round
+# (R1_DATA) with trace_rounds "0", against r1's untraced twin (run with
+# FEDML_PROFILE=0) when phase r ran, else against its own.
+ALL_PHASES = "bcdefghijklmnopqrs"
+S1_LAYERS = 4
+S1_ARGS = dict(TRAIN_ARGS, num_hidden_layers=S1_LAYERS, run_id="chip_smoke_s1")
+S_FLOPS_TOL = 0.02
+S_RATE_TOL = 0.05
+S_NOOP_CALLS = 10_000
+S_KERNEL_NAMES = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+                  "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
 
 
 def share_stand_in_draws():
@@ -832,11 +870,13 @@ def share_stand_in_draws():
 
 
 def card_peaks(name: str):
-    up = name.upper()
-    for family, variant, bw, flops in PEAKS:
-        if family in up and variant in up:
-            return bw, flops
-    raise RuntimeError(f"no peak table entry for {name!r}")
+    """(bytes/s, bf16 FLOP/s) of the card, from the port's roofline table
+    (NVIDIA's data sheets); raises for a card the table does not name."""
+    from fedml_tpu_torch.telemetry.profiling.roofline import PEAK_FLOPS, PEAK_HBM_BW
+
+    if name not in PEAK_FLOPS:
+        raise RuntimeError(f"no peak table entry for {name!r}")
+    return PEAK_HBM_BW[name], PEAK_FLOPS[name]
 
 
 def nvidia_smi_line() -> str:
@@ -5509,9 +5549,11 @@ def traced_sp_phase(card: str):
         args.run_id, args.log_file_dir = "chip_smoke_r1", log_dir
         reset_tracer()
         undo = None
+        switch = catalog_switch(traced)
         if not traced:
             args.log_file_dir, args.sys_perf_profiling = twin_dir, False
             undo = untraced()
+        switch.__enter__()
         try:
             ds = load_federated(args)
             sim = create_simulator(args, "cuda", ds, create(args, ds.class_num))
@@ -5529,6 +5571,7 @@ def traced_sp_phase(card: str):
             api.train_one_round = timed
             sim.run()
         finally:
+            switch.__exit__(None, None, None)
             if undo is not None:
                 undo()
         return walls[0], digest(api.global_params), len(ds.train_data_local_dict)
@@ -5569,6 +5612,7 @@ def traced_sp_phase(card: str):
         return dict(traced_round_s=wall, untraced_round_s=untraced_s,
                     report_wall_ms=row["wall_ms"], wall_off=off, phase_ms=phases,
                     phase_sum_ms=phase_sum, span_us=cost, digest=dig,
+                    untraced_digest=untraced_digest,
                     report_lines=len(text.splitlines()))
     finally:
         torch.backends.cudnn.deterministic = cudnn_was
@@ -5753,6 +5797,335 @@ def traced_fedllm_phase(card: str, dev: str = "cuda"):
         shutil.rmtree(log_dir, ignore_errors=True)
 
 
+class catalog_switch:
+    """The program catalog on (the default) or off (``FEDML_PROFILE=0``) for
+    a block, with a fresh catalog and trace controller on entry and exit."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        from fedml_tpu_torch.telemetry.profiling import reset_catalog, reset_trace_controller
+
+        self.was = os.environ.get("FEDML_PROFILE")
+        if self.on:
+            os.environ.pop("FEDML_PROFILE", None)
+        else:
+            os.environ["FEDML_PROFILE"] = "0"
+        reset_catalog()
+        reset_trace_controller()
+        return self
+
+    def __exit__(self, *exc):
+        from fedml_tpu_torch.telemetry.profiling import reset_catalog, reset_trace_controller
+
+        if self.was is None:
+            os.environ.pop("FEDML_PROFILE", None)
+        else:
+            os.environ["FEDML_PROFILE"] = self.was
+        reset_trace_controller()
+        reset_catalog()
+        return False
+
+
+def _timed_stops(tc) -> list:
+    """Seconds of each capture's stop and Chrome-trace export by ``tc``."""
+    times, stop = [], tc._stop
+
+    def timed(trace_dir):
+        t0 = time.perf_counter()
+        ok = stop(trace_dir)
+        times.append(time.perf_counter() - t0)
+        return ok
+
+    tc._stop = timed
+    return times
+
+
+def trace_kernels(trace_dir: str) -> list:
+    """Names of the device kernels in a capture's Chrome trace."""
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    return [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+
+
+def _read_rows(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def catalog_call_us(n: int = S_NOOP_CALLS) -> tuple:
+    """Host µs of one call of a cataloged no-op on a card tensor after its
+    first call, and of the bare function, over ``n`` calls each."""
+    from fedml_tpu_torch.telemetry.profiling import wrap_program
+
+    x = torch.zeros(8, device="cuda")
+
+    def noop(t):
+        return t
+
+    prog = wrap_program("chip_smoke/noop", noop)
+    prog(x)
+    out = []
+    for fn in (prog, noop):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(x)
+        out.append((time.perf_counter() - t0) / n * 1e6)
+    return tuple(out)
+
+
+def eval_flops(cfg, batch: int, t: int) -> float:
+    """Model FLOPs of one evaluation forward: every projection, the
+    adapters and the LM head (2 FLOPs per weight per token), and the
+    attention kernel's products (4 per (query, key) pair and head dim)."""
+    h, d, kv = cfg.hidden_size, cfg.head_dim, cfg.num_key_value_heads * cfg.head_dim
+    proj = 2 * h * h + 2 * h * kv + 3 * h * cfg.intermediate_size
+    lora = cfg.lora_rank * (2 * (h + h) + 2 * (h + kv))
+    tokens = batch * t
+    per_layer = 2 * (proj + lora) * tokens + 4 * batch * cfg.num_attention_heads * d \
+        * attention_pairs(t, t, True)
+    return cfg.num_hidden_layers * per_layer + 2 * h * cfg.vocab_size * tokens
+
+
+def profiled_fedllm_phase(card: str, dev: str = "cuda"):
+    """Phase (s1): FedLLMAPI's fused round at S1_ARGS, profiled with round 1
+    captured, against the same rounds with the catalog off (see the module
+    doc)."""
+    import shutil
+    import tempfile
+    import types
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch import telemetry as tel
+    from fedml_tpu_torch.data.data_loader import load_synthetic_lm
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.telemetry.profiling import get_trace_controller
+    from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_s1_")
+
+    def run(profiled: bool) -> dict:
+        log_dir = os.path.join(work, "profiled" if profiled else "plain")
+        args = types.SimpleNamespace(**S1_ARGS, log_file_dir=log_dir)
+        if profiled:
+            args.jax_trace_dir = os.path.join(log_dir, "round1_trace")
+        with catalog_switch(profiled):
+            tel.reset_tracer()
+            _reset_trust()
+            fedml_tpu_torch.init(args)
+            api = FedLLMAPI(args, dev, load_synthetic_lm(args))
+            tracer = tel.configure_from_args(args, service="s1")
+            tc = get_trace_controller()
+            stops = _timed_stops(tc)
+            walls, marker, launches = [], None, None
+            for r in range(int(args.comm_round)):
+                if profiled and r == 1 and api.event.start_trace() is not True:
+                    raise RuntimeError(f"s1: start_trace refused ({tc.unavailable})")
+                torch.cuda.synchronize()
+                fa.FLASH_FWD_LAUNCHES = fa.FLASH_DQ_LAUNCHES = fa.FLASH_DKV_LAUNCHES = 0
+                t0 = time.perf_counter()
+                with tracer.span(f"round/{r}/train"):
+                    api.train_one_round(r)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if r == 1:
+                    launches = _flash_counts(fa)
+                    if profiled:
+                        marker = api.event.stop_trace()
+            api.event.flush()
+            tel.flush_run()
+            x_test = api.dataset.test_data_global[0]
+            out = dict(walls=walls, marker=marker, launches=launches, stops=stops,
+                       unavailable=tc.unavailable, budget=tc.byte_budget, cfg=api.cfg,
+                       eval_batch=min(len(x_test), api.client.engine.batch_size * 8),
+                       run_dir=os.path.join(log_dir, f"run_{args.run_id}"),
+                       lora={k: v.detach().cpu().clone()
+                             for k, v in api.global_exchange.items()},
+                       losses=[(h.get("test_loss"), h.get("train_loss"))
+                               for h in api.test_history])
+            del api
+            _reset_trust()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    try:
+        prof = run(True)
+        plain = run(False)
+        cfg, t = prof["cfg"], S1_ARGS["max_seq_length"]
+        n_clients, steps = S1_ARGS["client_num_per_round"], S1_ARGS["local_steps_per_round"]
+        step_flops = train_step_flops(cfg, S1_ARGS["per_device_batch_size"], t)
+        rows = {r["name"]: r for r in _read_rows(os.path.join(prof["run_dir"],
+                                                              "programs.jsonl"))}
+        fused = rows["llm/fused_round"]
+        want_fused = n_clients * steps * step_flops
+        flops_off = abs(fused["flops"] - want_fused) / want_fused
+        text, report = _telemetry_report(prof["run_dir"])
+        attr = report["attribution"]
+        (phase,) = [p for p in attr["phases"] if p["phase"] == "round/<n>/train"]
+        rounds = len(prof["walls"])
+        script_flops = rounds * (want_fused + eval_flops(cfg, prof["eval_batch"], t))
+        script_rate = script_flops / sum(prof["walls"])
+        rate_off = abs(phase["achieved_flops_per_s"] - script_rate) / script_rate
+        marker = prof["marker"]
+        names = trace_kernels(marker["trace_dir"])
+        traced = {k: sum(n in kname for kname in names) for k, n in S_KERNEL_NAMES.items()}
+        layers = cfg.num_hidden_layers
+        expected = {"flash_fwd": layers * (n_clients * steps + 1),
+                    "flash_bwd_dq": layers * n_clients * steps,
+                    "flash_bwd_dkv": layers * n_clients * steps}
+        same = (prof["losses"] == plain["losses"] and set(prof["lora"]) == set(plain["lora"])
+                and all(torch.equal(v, plain["lora"][k]) for k, v in prof["lora"].items()))
+        noop_us, bare_us = catalog_call_us()
+        print(f"  {card}: {layers} layers of {S1_ARGS['model_size']}, {n_clients} clients x "
+              f"{steps} steps at T={t}, {rounds} rounds; rounds profiled "
+              f"{', '.join(f'{w:.3f}' for w in prof['walls'])} s (round 1 captured), with "
+              f"FEDML_PROFILE=0 {', '.join(f'{w:.3f}' for w in plain['walls'])} s; "
+              f"llm/fused_round {fused['flops'] / 1e12:.3f} TFLOP counted against "
+              f"{want_fused / 1e12:.3f} TFLOP ({100 * flops_off:.2f}% off, limit "
+              f"{100 * S_FLOPS_TOL:.0f}%), first call {fused['compile_wall_ms']:.1f} ms, peak "
+              f"{fused['peak_hbm_bytes'] / 1e9:.2f} GB; the report's round phase "
+              f"{phase['achieved_flops_per_s'] / 1e12:.2f} TFLOP/s against the script's "
+              f"{script_rate / 1e12:.2f} ({100 * rate_off:.2f}% off, limit "
+              f"{100 * S_RATE_TOL:.0f}%), MFU {phase.get('mfu')} against "
+              f"{attr['peak_flops_per_s']}; round 1's trace {marker['trace_bytes']} bytes "
+              f"(budget {prof['budget']}), stop and export {prof['stops'][0]:.2f} s, "
+              f"{len(names)} kernel events, flash {traced}, launches {prof['launches']} "
+              f"(predicted {expected}); parameters profiled = plain: {same}; one cataloged "
+              f"call {noop_us:.2f} us against {bare_us:.2f} us bare ({S_NOOP_CALLS} calls)",
+              flush=True)
+        faults = []
+        if prof["unavailable"] or not marker or not marker["ok"]:
+            faults.append(f"the capture failed: {prof['unavailable']} {marker}")
+        elif not names:
+            faults.append("round 1's CUDA capture holds no kernel events")
+        if rows.get("llm/train_step", {}).get("calls"):
+            faults.append(f"llm/train_step has calls of its own: {rows['llm/train_step']}")
+        if fused["calls"] != rounds or flops_off > S_FLOPS_TOL:
+            faults.append(f"llm/fused_round: {fused}")
+        if phase.get("mfu") is None or rate_off > S_RATE_TOL:
+            faults.append(f"the round phase's rate: {phase}")
+        if traced != prof["launches"] or prof["launches"] != expected:
+            faults.append(f"flash kernels in the trace {traced}, launches "
+                          f"{prof['launches']}, predicted {expected}")
+        if not marker or marker["trace_bytes"] >= prof["budget"]:
+            faults.append(f"the capture is over its byte budget: {marker}")
+        if not same:
+            faults.append(f"profiling changed the rounds: {prof['losses']} vs "
+                          f"{plain['losses']}")
+        if faults:
+            raise RuntimeError("s1: " + "; ".join(faults))
+        return dict(layers=layers, walls=prof["walls"], plain_walls=plain["walls"],
+                    fused_flops=fused["flops"], formula_flops=want_fused, flops_off=flops_off,
+                    first_call_ms=fused["compile_wall_ms"], peak_gb=fused["peak_hbm_bytes"] / 1e9,
+                    phase_flops_per_s=phase["achieved_flops_per_s"], script_flops_per_s=script_rate,
+                    rate_off=rate_off, mfu=phase["mfu"], trace_bytes=marker["trace_bytes"],
+                    stop_export_s=prof["stops"][0], kernel_events=len(names), traced=traced,
+                    launches=prof["launches"], expected_launches=expected,
+                    catalog_call_us=noop_us, bare_call_us=bare_us,
+                    report_lines=len(text.splitlines()))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def profiled_sp_phase(card: str, twin_digest=None, dev: str = "cuda"):
+    """Phase (s2): phase r1's sp round with ``trace_rounds: "0"`` into a fresh
+    run dir, against its unprofiled twin (see the module doc)."""
+    import shutil
+    import tempfile
+
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.models.model_hub import create
+    from fedml_tpu_torch.resilience.durability.recover import digest
+    from fedml_tpu_torch.simulation.simulator import create_simulator
+    from fedml_tpu_torch.telemetry import reset_tracer
+    from fedml_tpu_torch.telemetry.profiling import get_trace_controller
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_s2_")
+    cudnn_was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def one_round(profiled: bool):
+        args = load_arguments_from_dict({**SP_CONFIG, "data_args": R1_DATA})
+        args.run_id = "chip_smoke_s2" if profiled else "chip_smoke_s2_plain"
+        args.log_file_dir = log_dir
+        if profiled:
+            args.trace_rounds = "0"
+        reset_tracer()
+        with catalog_switch(profiled):
+            stops = _timed_stops(get_trace_controller())
+            ds = load_federated(args)
+            sim = create_simulator(args, dev, ds, create(args, ds.class_num))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tc = get_trace_controller()
+            return dict(wall=wall, digest=digest(sim.fl_trainer.global_params),
+                        captures=list(tc.captures), unavailable=tc.unavailable, stops=stops,
+                        n_clients=len(ds.train_data_local_dict),
+                        run_dir=os.path.join(log_dir, f"run_{args.run_id}"))
+
+    try:
+        prof = one_round(True)
+        twin_wall = None
+        if twin_digest is None:
+            twin = one_round(False)
+            twin_digest, twin_wall = twin["digest"], twin["wall"]
+        run_dir, n = prof["run_dir"], prof["n_clients"]
+        rows = {r["name"]: r for r in _read_rows(os.path.join(run_dir, "programs.jsonl"))}
+        calls = {k: rows.get(k, {}).get("calls") for k in
+                 ("sp/local_train", "compress/ef_encode", "sp/evaluate")}
+        want_calls = {"sp/local_train": n, "compress/ef_encode": n, "sp/evaluate": 1}
+        samples = [r for r in _read_rows(os.path.join(run_dir, "health.jsonl"))
+                   if r.get("kind") == "mem_sample"]
+        by_phase = {r["phase"]: r for r in samples}
+        caps = prof["captures"]
+        names = trace_kernels(caps[0]["trace_dir"]) if caps and caps[0]["ok"] else []
+        text, report = _telemetry_report(run_dir)
+        attr = report["attribution"]
+        print(f"  {card}: {R1_DATA['train_size']} images, {n} clients; the profiled run "
+              f"{prof['wall']:.3f} s with round 0 captured"
+              + (f" (its FEDML_PROFILE=0 twin {twin_wall:.3f} s)" if twin_wall else
+                 " (twin: r1's untraced leg)")
+              + f"; programs {calls} (want {want_calls}); mem_sample phases "
+              f"{[r['phase'] for r in samples]}, card bytes in use "
+              f"{ {k: v['bytes_in_use'] for k, v in by_phase.items()} }; the trace "
+              f"{caps[0]['trace_bytes'] if caps else None} bytes, stop and export "
+              f"{prof['stops'][0] if prof['stops'] else float('nan'):.2f} s, "
+              f"{len(names)} kernel events; the report's programs "
+              f"{[p['name'] for p in attr.get('programs', [])]}; digest {prof['digest']}, "
+              f"twin {twin_digest}", flush=True)
+        faults = []
+        if calls != want_calls:
+            faults.append(f"programs.jsonl calls {calls} != {want_calls}")
+        for ph in ("train", "aggregate", "eval"):
+            r = by_phase.get(ph)
+            if not r or not r["device_stats_available"] or not r["bytes_in_use"] > 0:
+                faults.append(f"no mem_sample with card bytes for {ph}: {r}")
+        if prof["unavailable"] or [(c["round"], c["rule"], c["ok"]) for c in caps] != [
+                (0, "explicit", True)]:
+            faults.append(f"the capture failed: {prof['unavailable']} {caps}")
+        elif not names:
+            faults.append("round 0's CUDA capture holds no kernel events")
+        if not attr.get("programs"):
+            faults.append("the report has no attribution section")
+        if prof["digest"] != twin_digest:
+            faults.append(f"profiling changed the round: {prof['digest']} vs {twin_digest}")
+        if faults:
+            raise RuntimeError("s2: " + "; ".join(faults))
+        return dict(wall_s=prof["wall"], twin_wall_s=twin_wall, calls=calls,
+                    trace_bytes=caps[0]["trace_bytes"], stop_export_s=prof["stops"][0],
+                    kernel_events=len(names), digest=prof["digest"],
+                    mem_bytes_in_use={k: v["bytes_in_use"] for k, v in by_phase.items()})
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_was
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
 def step_sum(results, key, rows=DECODE_ROWS):
     """One pass's total over its 225 launches at ``rows`` rows (None where
     a time was not measured)."""
@@ -5821,7 +6194,7 @@ def main(argv=None) -> int:
 
     results = serve = flash = train = quantized = qlora = sp = cross_silo = trust = None
     secure = checkpoints = durable = tree = transports = analytics = llm_rest = None
-    spans = None
+    spans = profiling = None
     phase_s = {}
     parent_dequant = parent_fwd = None
     if opts.parent:
@@ -5974,6 +6347,17 @@ def main(argv=None) -> int:
               "llama3_8b widths, LoRA rank 16, T=2048, 2 clients x 1 step, 1 round",
               flush=True)
         spans["r3"] = timed("r3", lambda: traced_fedllm_phase(card))
+    if "s" in phases:
+        print(f"(s1) FedLLMAPI's fused round profiled: {S1_LAYERS} layers of llama3_8b "
+              "widths, LoRA rank 16, T=2048, 4 clients x 2 steps, 2 rounds, round 1 "
+              "captured through MLOpsProfilerEvent; then the same rounds with "
+              "FEDML_PROFILE=0", flush=True)
+        profiling = dict(s1=timed("s1", lambda: profiled_fedllm_phase(card)))
+        print(f"(s2) the sp round of phase r1 on {R1_DATA['train_size']} images with "
+              "trace_rounds 0: programs.jsonl, mem_sample records, the trace, the digest "
+              "against the unprofiled twin", flush=True)
+        twin = spans["r1"]["untraced_digest"] if spans else None
+        profiling["s2"] = timed("s2", lambda: profiled_sp_phase(card, twin))
     whole_s = time.perf_counter() - t_start
     print(f"    whole script: {whole_s:.1f} s from main's start (the limit is 1200 s)",
           flush=True)
@@ -5983,8 +6367,8 @@ def main(argv=None) -> int:
               "quantized": quantized, "qlora": qlora, "sp": sp, "cross_silo": cross_silo,
               "trust": trust, "secure": secure, "checkpoints": checkpoints,
               "durable": durable, "tree": tree, "transports": transports,
-              "analytics": analytics, "llm_rest": llm_rest, "spans": spans, "phase_s": phase_s,
-              "whole_s": whole_s}
+              "analytics": analytics, "llm_rest": llm_rest, "spans": spans,
+              "profiling": profiling, "phase_s": phase_s, "whole_s": whole_s}
     if sorted(phases) != list(ALL_PHASES):
         with open(os.path.join("results", "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
@@ -6030,7 +6414,8 @@ def main(argv=None) -> int:
                                  "l1": checkpoints["l1"]["launches"][kname],
                                  **{q: llm_rest[q]["launches"][kname]
                                     for q in ("q1", "q2", "q3")},
-                                 "r3": spans["r3"]["launches"][kname]},
+                                 "r3": spans["r3"]["launches"][kname],
+                                 "s1": profiling["s1"]["launches"][kname]},
             "max_abs_err": err,
             "ms": path["ms"][kname],
             "plain_ms": path["plain_ms"][kname],

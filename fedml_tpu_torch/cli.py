@@ -1,6 +1,6 @@
 """Command line of the port (argparse; counterpart of the ``serve``,
-``deploy broker``, ``chaos``, ``tree``, ``fa`` and ``telemetry report``
-commands of ``fedml_tpu/cli.py``).
+``deploy broker``, ``chaos``, ``tree``, ``fa``, ``telemetry report`` and
+``telemetry profile`` commands of ``fedml_tpu/cli.py``).
 
     python -m fedml_tpu_torch.cli serve --model llama3_8b --quantize int8
     python -m fedml_tpu_torch.cli deploy broker --port 18923
@@ -9,6 +9,7 @@ commands of ``fedml_tpu/cli.py``).
     python -m fedml_tpu_torch.cli fa --task heavy_hitter_triehh
     python -m fedml_tpu_torch.cli fa --federation --fed-clients 102400
     python -m fedml_tpu_torch.cli telemetry report .fedml_logs/run_0
+    python -m fedml_tpu_torch.cli telemetry profile --rounds 0 -- python run.py
 
 ``chaos`` runs a seeded fault scenario against a cross-silo federation and
 prints one JSON line (exit 1 unless it completed): message drop, duplicate
@@ -27,15 +28,25 @@ upload compressed deltas, edge aggregators forward partial sums in the
 compressed block domain, every tier closes on quorum and survives a kill
 window (``--kill-tier``/``--kill-node``/``--kill-round``). It prints one
 JSON line and exits 1 on a below-quorum abort; the same ``--seed``
-reproduces the same ``final_digest``. ``--metrics-port`` comes with the
-live plane (ROADMAP A12c), ``--trace-rounds`` with device traces (A12b).
+reproduces the same ``final_digest``. ``--trace-rounds 0,2`` captures a
+``torch.profiler`` trace of those rounds (the budgeted trace controller)
+into the run dir's ``traces/``. ``--metrics-port`` comes with the live
+plane (ROADMAP A12c).
 
 ``telemetry report RUN_DIR`` reads a run's sinks (``spans.jsonl``,
 ``events.jsonl``, ``telemetry.jsonl``; ``<log_file_dir>/run_<run_id>``)
 and prints each round's wall and phases, the phases' percentiles, the
 slowest clients, the comm bytes and the spans stitched across processes
-(``--json``: one sorted JSON object). It exits 1 on a directory with no
-spans and no metrics. It reads the JAX package's run dirs too.
+(``--json``: one sorted JSON object), and joins ``programs.jsonl`` (the
+program catalog) against the phase walls into the roofline attribution.
+It exits 1 on a directory with no spans and no metrics. It reads the JAX
+package's run dirs too.
+
+``telemetry profile [--rounds 0,2] [--trace-dir DIR] -- CMD ...`` runs
+CMD with ``FEDML_TRACE_ROUNDS`` / ``FEDML_TRACE_DIR`` set: every engine's
+round loop in it captures a ``torch.profiler`` trace of exactly those
+rounds into DIR (Chrome trace JSON), with a ``profile_capture`` marker in
+the run's ``telemetry.jsonl`` and flight recorder.
 
 ``fa`` runs a federated-analytics round over seeded synthetic data on
 ``--device`` and prints one JSON line (exit 1 on a failed round): by
@@ -76,6 +87,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import subprocess
 import sys
 import time
 from typing import List, Optional
@@ -186,7 +199,8 @@ def build_parser() -> argparse.ArgumentParser:
     tree.add_argument("--metrics-port", type=int, default=None,
                       help="live /metrics endpoint (not ported: ROADMAP A12c)")
     tree.add_argument("--trace-rounds", default="",
-                      help="rounds to capture a device trace of (not ported: ROADMAP A12b)")
+                      help="comma-separated round indices to capture a device trace "
+                           "of (budgeted trace controller)")
     tree.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     telemetry = sub.add_parser("telemetry", help="inspect a run's telemetry sinks")
     telemetry_sub = telemetry.add_subparsers(dest="tool", required=True)
@@ -197,6 +211,14 @@ def build_parser() -> argparse.ArgumentParser:
                                         "(<log_file_dir>/run_<run_id>)")
     report.add_argument("--json", dest="as_json", action="store_true",
                         help="emit the report as one JSON object")
+    profile = telemetry_sub.add_parser(
+        "profile", help="run CMD with device-trace capture armed for some rounds")
+    profile.add_argument("--rounds", dest="trace_rounds", default="0",
+                         help="comma-separated round indices to trace (default 0)")
+    profile.add_argument("--trace-dir", default=".fedml_logs/traces",
+                         help="where the captures land (default .fedml_logs/traces)")
+    profile.add_argument("cmd", nargs=argparse.REMAINDER,
+                         help="the command to run, after --")
     fa = sub.add_parser("fa", help="run a federated-analytics round over seeded synthetic "
                                    "data; prints one JSON line")
     fa.add_argument("--task", default="frequency_estimation",
@@ -292,9 +314,14 @@ def run_tree(args: argparse.Namespace) -> dict:
         default_template,
     )
 
-    if args.metrics_port is not None or args.trace_rounds:
-        raise NotImplementedError("tree --metrics-port / --trace-rounds: the live plane "
-                                  "comes with ROADMAP A12c, device traces with A12b")
+    from fedml_tpu_torch.telemetry.profiling import get_trace_controller, parse_rounds
+
+    if args.metrics_port is not None:
+        raise NotImplementedError("tree --metrics-port: the live plane comes with "
+                                  "ROADMAP A12c")
+    armed = parse_rounds(args.trace_rounds)
+    if armed:
+        get_trace_controller().arm_rounds(armed)
     chaos = []
     if args.kill_tier is not None:
         chaos.append(KillWindow(args.kill_tier, args.kill_node, args.kill_round,
@@ -430,10 +457,30 @@ def run_telemetry_report(args) -> int:
     return 0
 
 
+def run_telemetry_profile(args) -> int:
+    """``telemetry profile``: CMD's exit code, after running it with the
+    trace arm exported; lists the captures made under the trace dir."""
+    cmd = list(args.cmd)
+    if cmd and cmd[0] == "--":
+        cmd = cmd[1:]
+    if not cmd:
+        print("telemetry profile: no command given", file=sys.stderr, flush=True)
+        return 2
+    env = {**os.environ, "FEDML_TRACE_ROUNDS": args.trace_rounds,
+           "FEDML_TRACE_DIR": args.trace_dir}
+    rc = subprocess.call(cmd, env=env)
+    if os.path.isdir(args.trace_dir):
+        for name in sorted(os.listdir(args.trace_dir)):
+            print(f"trace: {os.path.join(args.trace_dir, name)}", file=sys.stderr,
+                  flush=True)
+    return rc
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "telemetry":
-        return run_telemetry_report(args)
+        return (run_telemetry_profile if args.tool == "profile"
+                else run_telemetry_report)(args)
     if args.command == "deploy":
         run_broker(args)
     elif args.command in ("chaos", "tree", "fa"):

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.compression import threefry
+from fedml_tpu_torch.telemetry.profiling.catalog import wrap_program
 from fedml_tpu_torch.utils.tree import Tree, tree_flatten
 
 WIRE_VERSION = 1
@@ -265,17 +266,17 @@ class Codec:
         if key is None:
             key = threefry.key(0)
         new_residual = None
-        with torch.no_grad():
+        from fedml_tpu_torch.telemetry.spans import get_tracer
+
+        with get_tracer().span("compress/encode", codec=self.name,
+                               n_leaves=len(leaves)), torch.no_grad():
             if residual is None:
-                arrays = self._encode_leaves(leaves, meta, key)
+                arrays = _encode_program(self, meta, tuple(leaves), key)
             else:
-                comp = [x + residual[k] for x, k in zip(leaves, keys)]
-                arrays = self._encode_leaves(comp, meta, key)
-                dec = self._decode_leaves(arrays, meta)
-                new_residual = {
-                    k: (c - d.to(c.dtype)) if _is_float_meta(dt)
-                    else torch.zeros_like(c)
-                    for k, c, d, (dt, _) in zip(keys, comp, dec, meta)}
+                arrays, new_res = _ef_encode_program(
+                    self, meta, tuple(leaves),
+                    tuple(residual[k] for k in keys), key)
+                new_residual = dict(zip(keys, new_res))
         ct = CompressedTree(self.name, WIRE_VERSION, is_delta, raw_nbytes,
                             meta, keys, [list(p) for p in arrays])
         return ct if residual is None else (ct, new_residual)
@@ -292,8 +293,12 @@ class Codec:
         if eff is not self:
             return eff.decode(ct)
         self.check_wire(ct)
-        with torch.no_grad():
-            flat = self._decode_leaves(ct.arrays, ct.meta)
+        from fedml_tpu_torch.telemetry.spans import get_tracer
+
+        with get_tracer().span("compress/decode", codec=self.name,
+                               n_leaves=len(ct.arrays)), torch.no_grad():
+            flat = _decode_program(self, ct.meta,
+                                   tuple(tuple(p) for p in ct.arrays))
         return dict(zip(ct.structure, flat))
 
     # -- dequant-fused weighted reduction ----------------------------------
@@ -305,6 +310,43 @@ class Codec:
         dec = torch.stack([self.decode_leaf([p[c] for p in stacked], dt, shape)
                            for c in range(w.shape[0])])
         return torch.einsum("c,c...->...", w, dec.float()).to(_dtype_from_str(dt))
+
+
+# -- the cataloged programs (telemetry.profiling; the reference's names) -----
+def _encode_program(codec: Codec, meta, leaves, key):
+    return tuple(tuple(p) for p in codec._encode_leaves(leaves, meta, key))
+
+
+def _ef_encode_program(codec: Codec, meta, leaves, res_leaves, key):
+    """Error-feedback encode: compensate, encode, decode and the new
+    residual."""
+    comp = [x + r for x, r in zip(leaves, res_leaves)]
+    enc = codec._encode_leaves(comp, meta, key)
+    dec = codec._decode_leaves(enc, meta)
+    new_res = tuple((c - d.to(c.dtype)) if _is_float_meta(dt) else torch.zeros_like(c)
+                    for c, d, (dt, _) in zip(comp, dec, meta))
+    return tuple(tuple(p) for p in enc), new_res
+
+
+def _decode_program(codec: Codec, meta, arrays):
+    return tuple(codec._decode_leaves(arrays, meta))
+
+
+def _fused_weighted_sum_program(codec: Codec, meta, stacked, w):
+    return tuple(codec.weighted_sum_leaf(parts, w, dt, sh)
+                 if _is_float_meta(dt) else _raw_weighted_sum(parts[0], w)
+                 for parts, (dt, sh) in zip(stacked, meta))
+
+
+_encode_program = wrap_program("compress/encode", _encode_program,
+                               static_argnums=(0, 1), multi_shape=True)
+_ef_encode_program = wrap_program("compress/ef_encode", _ef_encode_program,
+                                  static_argnums=(0, 1), multi_shape=True)
+_decode_program = wrap_program("compress/decode", _decode_program,
+                               static_argnums=(0, 1), multi_shape=True)
+_fused_weighted_sum_program = wrap_program(
+    "compress/fused_weighted_sum", _fused_weighted_sum_program,
+    static_argnums=(0, 1), multi_shape=True)
 
 
 def _raw_weighted_sum(leaf_stacked: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -376,9 +418,7 @@ def fused_weighted_sum(cts: Sequence[CompressedTree], weights) -> Tree:
     dev = stacked[0][0].device if stacked else None
     w = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
     with torch.no_grad():
-        flat = [codec.weighted_sum_leaf(parts, w, dt, sh)
-                if _is_float_meta(dt) else _raw_weighted_sum(parts[0], w)
-                for parts, (dt, sh) in zip(stacked, first.meta)]
+        flat = _fused_weighted_sum_program(codec, first.meta, stacked, w)
     return dict(zip(first.structure, flat))
 
 

@@ -70,15 +70,18 @@ class MLOpsProfilerEvent:
     def flush(self) -> Optional[str]:
         return self._tracer.flush()
 
-    # manual device traces go through the trace controller of ROADMAP A12b
+    # manual device traces go through the one budgeted trace controller
+    # that ``telemetry profile`` and the round hooks also use
     def start_trace(self) -> bool:
         if not self._trace_dir:
             return False
-        raise NotImplementedError("start_trace: device traces come with the trace "
-                                  "controller, ROADMAP A12b")
+        from fedml_tpu_torch.telemetry.profiling import get_trace_controller
+
+        return get_trace_controller().start_manual(self._trace_dir)
 
     def stop_trace(self):
         if not self._trace_dir:
             return None
-        raise NotImplementedError("stop_trace: device traces come with the trace "
-                                  "controller, ROADMAP A12b")
+        from fedml_tpu_torch.telemetry.profiling import get_trace_controller
+
+        return get_trace_controller().stop_manual()

@@ -72,7 +72,10 @@ so each silo's handler and training spans join the round's trace; then
 ``round/<n>/aggregate`` and ``round/<n>/eval``. The spans land in
 ``<log_file_dir>/run_<run_id>/spans.jsonl`` stamped ``rank0`` and the
 flight recorder is armed there; ``mlops.log`` records the init broadcast
-and each accepted round's metrics.
+and each accepted round's metrics. Device memory is sampled after each
+aggregate (``mem_sample`` in ``health.jsonl``), the trace controller
+brackets each round from its broadcast to its aggregate (``trace_rounds``
+captures it), and ``finish`` writes ``programs.jsonl``.
 
 Not ported yet, and refused when their arguments are set: FHE (A13) and the
 live telemetry plane (A12c).
@@ -130,6 +133,8 @@ from fedml_tpu_torch.resilience import (
     salvage_round,
 )
 from fedml_tpu_torch.telemetry.registry import get_registry
+from fedml_tpu_torch.telemetry.device_stats import DeviceStatsSampler
+from fedml_tpu_torch.telemetry.profiling import get_trace_controller
 from fedml_tpu_torch.telemetry.spans import configure_from_args, flush_run
 
 logger = logging.getLogger(__name__)
@@ -152,7 +157,7 @@ class _LatencyEWMA:
     """Each client's round latency (broadcast to upload) as an EWMA, folded
     when a round closes: the part of the reference's ``ClientHealthTracker``
     that the adaptive deadline reads (its scores are the run-health slice's,
-    ROADMAP A12b)."""
+    ROADMAP A12b2)."""
 
     def __init__(self, alpha: float = 0.4):
         self.alpha = float(alpha)
@@ -185,6 +190,8 @@ class FedMLServerManager(FedMLCommManager):
         super().__init__(args, comm, client_rank, client_num + 1, backend, device)
         # the run-dir sinks (spans, flight recorder), as the sp engine binds them
         self.tracer = configure_from_args(args, service=f"rank{self.rank}")
+        # device memory sampled per aggregate (mem/* gauges, health.jsonl)
+        self._devstats = DeviceStatsSampler()
         self.aggregator = aggregator
         self.round_num = int(getattr(args, "comm_round", 1))
         self.args.round_idx = 0
@@ -410,6 +417,12 @@ class FedMLServerManager(FedMLCommManager):
         return self._secagg.begin_round(int(self.args.round_idx), cohort)
 
     def send_init_msg(self) -> None:
+        # the first round opens here: without this hook the start round
+        # could never be traced
+        try:
+            get_trace_controller().on_round_start(self.args.round_idx)
+        except Exception:  # noqa: BLE001 - profiling never breaks the round
+            logger.exception("trace controller start hook failed")
         self._open_round(self.aggregator.get_global_model_params(), init=True)
         mlops.log({"event": "server.init_sent", "round": 0})
 
@@ -820,6 +833,17 @@ class FedMLServerManager(FedMLCommManager):
                 self._rollback_round(reason)
                 return
         self._latency.finish_round(self.args.round_idx)
+        self._devstats.sample("aggregate", self.args.round_idx)
+        # the trace round boundary: close the capture that bracketed the
+        # round that just aggregated, open one for the next if armed
+        try:
+            tc = get_trace_controller()
+            tc.on_round_end(self.args.round_idx)
+            if self.args.round_idx + 1 < self.round_num:
+                tc.on_round_start(self.args.round_idx + 1)
+        except Exception:  # noqa: BLE001 - profiling never breaks the round
+            logger.exception("trace controller round hook failed at round %d",
+                             self.args.round_idx)
         with self.tracer.span(f"round/{self.args.round_idx}/eval"):
             metrics = self.aggregator.test_on_server_for_all_clients(self.args.round_idx)
         if self._guard is not None:
@@ -1068,8 +1092,9 @@ class FedMLServerManager(FedMLCommManager):
         self._recovery_deadline.cancel()
         if self._journal is not None:
             self._journal.close()
+        get_trace_controller().finish()  # never leave a trace recording
         try:
-            flush_run()  # the spans and a registry snapshot into the run dir
+            flush_run()  # spans, a registry snapshot and programs.jsonl
         except OSError:  # observability never breaks shutdown
             logger.exception("telemetry flush failed at finish")
         super().finish()

@@ -14,10 +14,11 @@ its leaf order and layout), copied to the host once at the end.
 
 Telemetry lands per tier under the reference's ``tier/<d>/...`` names
 (upload bytes, contributions, quorum closes and failures, evictions,
-rejoins, restarts, screened uplinks, nodes and peak buffered bytes). The
-tier-tagged ``resilience_event`` records, the edge health scoring and the
-trace seam come with the run-health slice (ROADMAP A12b), ``live=`` with
-the live plane (A12c).
+rejoins, restarts, screened uplinks, nodes and peak buffered bytes); the
+trace controller brackets each round (``tree --trace-rounds`` captures
+it). The tier-tagged ``resilience_event`` records and the edge health
+scoring come with the run-health slice (ROADMAP A12b2), ``live=`` with the
+live plane (A12c).
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ from fedml_tpu_torch.hierarchy.tree import TreeTopology
 from fedml_tpu_torch.models.convert import flatten_paths
 from fedml_tpu_torch.resilience.quorum import quorum_size
 from fedml_tpu_torch.telemetry import get_registry
+from fedml_tpu_torch.telemetry.profiling import get_trace_controller
 from fedml_tpu_torch.utils.tree import Tree, tree_flatten
 
 logger = logging.getLogger(__name__)
@@ -451,7 +453,11 @@ class TreeRunner:
         self._tier_peak_buffer: Dict[int, int] = {}
         peak_round_bytes: Dict[int, int] = {}
         t0 = time.perf_counter()
-        self._run_rounds(rounds, reg, L, peak_round_bytes)
+        try:
+            self._run_rounds(rounds, reg, L, peak_round_bytes)
+        finally:
+            # a quorum abort mid-round must not leave a trace recording
+            get_trace_controller().finish()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
@@ -491,6 +497,9 @@ class TreeRunner:
 
     def _run_rounds(self, rounds: int, reg, L: int, peak_round_bytes: Dict[int, int]) -> None:
         for r in range(int(rounds)):
+            # the trace seam: --trace-rounds or a requested capture
+            # brackets exactly one tree round
+            get_trace_controller().on_round_start(r)
             self._tier_round_bytes: Dict[int, int] = {}
             self._root_close = None
             partials = self._leaf_round(r, reg)
@@ -522,6 +531,7 @@ class TreeRunner:
                     logger.exception("round listener failed at round %d", r)
             for d, b in self._tier_round_bytes.items():
                 peak_round_bytes[d] = max(peak_round_bytes.get(d, 0), b)
+            get_trace_controller().on_round_end(r)
 
     def _dp_root_update(self, round_idx: int, mean: Sequence[torch.Tensor],
                         total_w: float) -> List[torch.Tensor]:

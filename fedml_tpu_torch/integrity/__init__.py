@@ -16,7 +16,7 @@ a poisoned delta), in three rings on the fused compressed aggregation path:
 :mod:`.quarantine` holds the list both outer rings feed. Everything is
 counted under the reference's ``integrity/*`` names in the port's metrics
 registry (the ``health.jsonl`` events and their flight-recorder copies come
-with the run-health slice, ROADMAP A12b).
+with the run-health slice, ROADMAP A12b2).
 """
 from __future__ import annotations
 

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from fedml_tpu_torch.telemetry import get_registry
+from fedml_tpu_torch.telemetry.profiling import wrap_program
 from fedml_tpu_torch.utils.tree import Tree, tree_leaves
 
 logger = logging.getLogger(__name__)
@@ -30,11 +31,19 @@ class RollbackBudgetExceeded(RuntimeError):
     persistent and containment has failed."""
 
 
+def _finite_program(leaves) -> torch.Tensor:
+    flags = [torch.isfinite(x).all() for x in leaves if x.is_floating_point()]
+    return torch.stack(flags).all() if flags else torch.ones((), dtype=torch.bool)
+
+
+# cataloged (telemetry.profiling) under the reference's name
+_finite_program = wrap_program("integrity/accept_check", _finite_program,
+                               multi_shape=True)
+
+
 def params_finite(params: Tree) -> bool:
     """All float leaves finite: one reduction, one scalar read."""
-    flags = [torch.isfinite(x).all() for x in tree_leaves(params)
-             if x.is_floating_point()]
-    return bool(torch.stack(flags).all()) if flags else True
+    return bool(_finite_program(tuple(tree_leaves(params))))
 
 
 class AcceptanceGuard:

@@ -38,6 +38,7 @@ from fedml_tpu_torch.compression.codecs import (
     tree_delta,
 )
 from fedml_tpu_torch.telemetry import get_registry
+from fedml_tpu_torch.telemetry.profiling import wrap_program
 from fedml_tpu_torch.utils.tree import Tree, tree_flatten
 
 logger = logging.getLogger(__name__)
@@ -100,6 +101,11 @@ def leaf_sqnorms(codec_name: Optional[str], meta, arrays
         torch.zeros(0, device=dev)
 
 
+# cataloged (telemetry.profiling) under the reference's name
+_screen_program = wrap_program("integrity/screen", leaf_sqnorms,
+                               static_argnums=(0, 1), multi_shape=True)
+
+
 class ScreenStats:
     """One upload's screen facts (the single device-to-host read)."""
 
@@ -124,12 +130,13 @@ def screen_stats(payload: Any, base: Optional[Tree] = None) -> ScreenStats:
         if not payload.is_delta and base is not None:
             # a compressed FULL model: the displacement only exists decoded
             return screen_stats(codec.decode(payload), base=base)
-        finite, sq = leaf_sqnorms(payload.codec, payload.meta, payload.arrays)
+        finite, sq = _screen_program(payload.codec, payload.meta,
+                                     tuple(tuple(p) for p in payload.arrays))
     else:
         tree = tree_delta(payload, base) if base is not None else payload
         leaves, _ = tree_flatten(tree)
-        finite, sq = leaf_sqnorms(None, _tree_meta(leaves),
-                                  [(leaf,) for leaf in leaves])
+        finite, sq = _screen_program(None, _tree_meta(leaves),
+                                     tuple((leaf,) for leaf in leaves))
     host = torch.cat([finite.reshape(1).to(sq.dtype), sq]).cpu().double().numpy()
     ok, sq = bool(host[0]), host[1:]
     total = float(np.sqrt(np.sum(sq))) if np.all(np.isfinite(sq)) else float("nan")

@@ -24,6 +24,10 @@ gradient is exactly zero, so the port skips that step's forward and
 backward (the mask is on the host: no sync) and feeds the optimizer the
 gradient of the regularizers alone (FedProx's and FedDyn's terms,
 SCAFFOLD's correction), as the reference's program computes it.
+
+Both programs are cataloged (``telemetry.profiling``) under the
+reference's names: ``sp/local_train`` and ``sp/evaluate`` (one variant per
+test-set shape by design, hence ``multi_shape``).
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.utils.tree import Tree, leaf_order, tree_zeros_like
+from fedml_tpu_torch.telemetry.profiling import repeated_cost, wrap_program
 
 Leaves = List[torch.Tensor]
 
@@ -287,6 +292,10 @@ def build_local_fn(apply_fn: Callable, args: Any) -> Callable:
             valid_steps = (mask.detach().cpu().numpy().sum(1) > 0)
         n_steps = int(xs.shape[0])
         opt_state = tx.init(p)
+        # every step of a kind (valid or padded) does the same work: the
+        # program catalog counts one of each (repeated_cost)
+        n_valid = int(np.sum(valid_steps[:n_steps]))
+        n_of = {True: n_valid, False: n_steps - n_valid}
 
         mime_full_grad = None
         if fed_opt == "Mime":
@@ -294,35 +303,39 @@ def build_local_fn(apply_fn: Callable, args: Any) -> Callable:
             gsum = [torch.zeros_like(t) for t in p]
             wsum = p[0].new_zeros(())
             for i in range(n_steps):
-                _, _, _, g = value_and_grad(keys, state_l["anchor"], state_l,
-                                            xs[i], ys[i], mask[i], bool(valid_steps[i]))
-                w = torch.sum(mask[i])
-                torch._foreach_add_(gsum, torch._foreach_mul(g, w))
-                wsum = wsum + w
+                valid = bool(valid_steps[i])
+                with repeated_cost(("mime_full_grad", valid), n_of[valid]):
+                    _, _, _, g = value_and_grad(keys, state_l["anchor"], state_l,
+                                                xs[i], ys[i], mask[i], valid)
+                    w = torch.sum(mask[i])
+                    torch._foreach_add_(gsum, torch._foreach_mul(g, w))
+                    wsum = wsum + w
             mime_full_grad = torch._foreach_div(gsum, torch.clamp(wsum, min=1.0))
 
         losses, corrects, denoms = [], [], []
         for i in range(n_steps):
             valid = bool(valid_steps[i])
-            loss, correct, denom, grads = value_and_grad(
-                keys, p, state_l, xs[i], ys[i], mask[i], valid)
-            with torch.no_grad():
-                if fed_opt == "SCAFFOLD" and state_l["c_global"] is not None:
-                    grads = torch._foreach_sub(
-                        torch._foreach_add(grads, state_l["c_global"]), state_l["c_local"])
-                if fed_opt == "Mime":
-                    _, _, _, g_anchor = value_and_grad(
-                        keys, state_l["anchor"], state_l, xs[i], ys[i], mask[i], valid)
-                    grads = torch._foreach_add(torch._foreach_sub(grads, g_anchor),
-                                               mime_full_grad)
-                    updates = torch._foreach_add(
-                        torch._foreach_mul(grads, 1.0 - mime_beta),
-                        state_l["c_global"], alpha=mime_beta)
-                    updates = torch._foreach_mul(updates, -lr)
-                else:
-                    updates, opt_state = tx.update(grads, opt_state, p)
-                if valid:  # a padded step's update is multiplied by 0
-                    torch._foreach_add_(p, updates)
+            with repeated_cost(("step", valid), n_of[valid]):
+                loss, correct, denom, grads = value_and_grad(
+                    keys, p, state_l, xs[i], ys[i], mask[i], valid)
+                with torch.no_grad():
+                    if fed_opt == "SCAFFOLD" and state_l["c_global"] is not None:
+                        grads = torch._foreach_sub(
+                            torch._foreach_add(grads, state_l["c_global"]),
+                            state_l["c_local"])
+                    if fed_opt == "Mime":
+                        _, _, _, g_anchor = value_and_grad(
+                            keys, state_l["anchor"], state_l, xs[i], ys[i], mask[i], valid)
+                        grads = torch._foreach_add(torch._foreach_sub(grads, g_anchor),
+                                                   mime_full_grad)
+                        updates = torch._foreach_add(
+                            torch._foreach_mul(grads, 1.0 - mime_beta),
+                            state_l["c_global"], alpha=mime_beta)
+                        updates = torch._foreach_mul(updates, -lr)
+                    else:
+                        updates, opt_state = tx.update(grads, opt_state, p)
+                    if valid:  # a padded step's update is multiplied by 0
+                        torch._foreach_add_(p, updates)
             losses.append(loss)
             corrects.append(correct)
             denoms.append(denom)
@@ -352,7 +365,7 @@ def build_local_fn(apply_fn: Callable, args: Any) -> Callable:
                 metrics["mime_full_grad"] = dict(zip(keys, mime_full_grad))
         return dict(zip(keys, p)), new_state, metrics
 
-    return run_local
+    return wrap_program("sp/local_train", run_local)
 
 
 def init_local_state(params: Tree, args: Any) -> LocalState:
@@ -388,7 +401,7 @@ def build_evaluator(apply_fn: Callable, chunk: int = 4096) -> Callable:
             correct = correct + ok.sum()
         return loss_sum, correct, float(y.shape[0])
 
-    return evaluate
+    return wrap_program("sp/evaluate", evaluate, multi_shape=True)
 
 
 __all__ = ["LocalState", "softmax_ce_loss", "build_optimizer", "build_local_fn",

@@ -22,7 +22,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fedml_tpu_torch"
@@ -36,6 +36,22 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 # nvcc's stderr (ptxas register / shared-memory report) of each build made
 # by this process, for callers that want to print it
 build_logs: Dict[str, str] = {}
+# observers of the build cache: fn(hit) for every build request
+_cache_listeners: List[Callable[[bool], None]] = []
+
+
+def add_cache_listener(fn: Callable[[bool], None]) -> None:
+    """Call ``fn(hit)`` at every build request: ``hit`` when the library or
+    executable was already built (``telemetry.device_stats`` counts them)."""
+    if fn not in _cache_listeners:
+        _cache_listeners.append(fn)
+
+
+def _cached(out: Path) -> bool:
+    hit = out.exists()
+    for fn in list(_cache_listeners):
+        fn(hit)
+    return hit
 
 
 def find_nvcc() -> str:
@@ -104,14 +120,14 @@ def _compile(name: str, suffix: str, compiler: str, flags, out: Path) -> Path:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library already exists."""
     out = library_path(name)
-    return out if out.exists() else _compile(name, ".cu", find_nvcc(), NVCC_FLAGS, out)
+    return out if _cached(out) else _compile(name, ".cu", find_nvcc(), NVCC_FLAGS, out)
 
 
 def build_host(name: str) -> Path:
     """Compile the host library ``csrc/<name>.cpp`` unless it already
     exists; a failed build raises with the compiler's message."""
     out = library_path(name, ".cpp", CXX_FLAGS)
-    return out if out.exists() else _compile(name, ".cpp", find_cxx(), CXX_FLAGS, out)
+    return out if _cached(out) else _compile(name, ".cpp", find_cxx(), CXX_FLAGS, out)
 
 
 def build_executable(name: str) -> Path:
@@ -119,7 +135,7 @@ def build_executable(name: str) -> Path:
     exists; a failed build raises with the compiler's message."""
     with _lock:
         out = executable_path(name)
-        return out if out.exists() else _compile(name, ".cpp", find_cxx(), EXE_FLAGS, out)
+        return out if _cached(out) else _compile(name, ".cpp", find_cxx(), EXE_FLAGS, out)
 
 
 def load_host(name: str) -> ctypes.CDLL:

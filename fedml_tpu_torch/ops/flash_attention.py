@@ -19,11 +19,12 @@ which is what the CPU tests hold against the JAX kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from fedml_tpu_torch.ops import _build
+from fedml_tpu_torch.telemetry.profiling.catalog import kernel_cost
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIMS = (64, 128)
@@ -266,6 +267,27 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True,
 # ---------------------------------------------------------------------------
 # dispatch and autograd
 # ---------------------------------------------------------------------------
+def kernel_costs(q: torch.Tensor, k: torch.Tensor, causal: bool
+                 ) -> Dict[str, Tuple[float, float]]:
+    """Each kernel's ``(FLOPs, bytes)`` at these shapes, as the program
+    catalog books them: products of 4 (forward: q k^T, p v), 6 (dq) and 8
+    (dk/dv) FLOPs per (query, key) pair and head dim under the top-left
+    causal mask, and every input read once, every output written once."""
+    b, h, t, d = q.shape
+    hkv, s_len = k.shape[1], k.shape[2]
+    n = min(t, s_len)
+    pairs = n * (n + 1) // 2 + (t - n) * s_len if causal else t * s_len
+    per = b * h * d * pairs
+    q_bytes = q.element_size() * b * h * t * d
+    kv_bytes = k.element_size() * b * hkv * s_len * d
+    rows = 4 * b * h * t
+    return {
+        "fwd": (4.0 * per, 2 * q_bytes + 2 * kv_bytes + rows),
+        "dq": (6.0 * per, 3 * q_bytes + 2 * kv_bytes + 2 * rows),
+        "dkv": (8.0 * per, 2 * q_bytes + 4 * kv_bytes + 2 * rows),
+    }
+
+
 def _device_type(q: torch.Tensor) -> str:
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash attention runs on cuda or cpu, got {q.device}")
@@ -279,11 +301,12 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sm_scale: float):
-        if _device_type(q) == "cuda":
-            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            out, lse = flash_forward_cuda(q, k, v, causal, sm_scale)
-        else:
-            out, lse = flash_forward_reference(q, k, v, causal, sm_scale)
+        with kernel_cost(*kernel_costs(q, k, causal)["fwd"]):
+            if _device_type(q) == "cuda":
+                q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+                out, lse = flash_forward_cuda(q, k, v, causal, sm_scale)
+            else:
+                out, lse = flash_forward_reference(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return out
@@ -297,13 +320,17 @@ class _Flash(torch.autograd.Function):
                 "so a gradient of a gradient (DLG's match) needs the plain attention")
         q, k, v, out, lse = ctx.saved_tensors
         causal, scale = ctx.causal, ctx.sm_scale
-        if _device_type(q) == "cuda":
+        costs = kernel_costs(q, k, causal)
+        cuda = _device_type(q) == "cuda"
+        if cuda:
             do = do.contiguous()
-            delta = attention_delta(do, out)
-            dq = flash_dq_cuda(q, k, v, do, lse, delta, causal, scale)
-            dk, dv = flash_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
-        else:
-            dq, dk, dv = flash_backward_reference(q, k, v, out, lse, do, causal, scale)
+        delta = attention_delta(do, out)
+        with kernel_cost(*costs["dq"]):
+            dq = (flash_dq_cuda if cuda else flash_dq_reference)(
+                q, k, v, do, lse, delta, causal, scale)
+        with kernel_cost(*costs["dkv"]):
+            dk, dv = (flash_dkv_cuda if cuda else flash_dkv_reference)(
+                q, k, v, do, lse, delta, causal, scale)
         return dq, dk, dv, None, None
 
 

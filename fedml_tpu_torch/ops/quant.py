@@ -50,6 +50,7 @@ from torch import nn
 from fedml_tpu_torch.compression.codecs import _NF4_MIDPOINTS, NF4_CODEBOOK
 from fedml_tpu_torch.ops import _build
 from fedml_tpu_torch.telemetry import get_registry
+from fedml_tpu_torch.telemetry.profiling import kernel_cost, wrap_program
 
 MODES = ("dequant", "w8a8", "kernel")
 
@@ -390,7 +391,7 @@ class QuantizedTensor4:
 
     def matmul(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """``x @ dequant(W)``, as a frozen weight."""
-        return _FrozenBaseMatmul.apply(x, self, dtype)
+        return _dequant4_matmul_program(self.fmt, self.orig_shape, dtype, x, self)
 
     def _forward(self, x, dtype):
         ct = torch.promote_types(x.dtype, dtype)
@@ -400,11 +401,28 @@ class QuantizedTensor4:
         return dy @ self.dequantize(dtype).to(dy.dtype).T
 
 
+def _pack4(fmt: str, block: int, w: torch.Tensor):
+    return _quantize4_blocks(w, fmt, block)
+
+
+def _dequant4_matmul(fmt: str, shape, dtype: torch.dtype, x: torch.Tensor,
+                     w: "QuantizedTensor4") -> torch.Tensor:
+    return _FrozenBaseMatmul.apply(x, w, dtype)
+
+
+# cataloged (telemetry.profiling) under the reference's names; inside a
+# cataloged program (a train step, a serving step) they count for it
+_pack4_program = wrap_program("quant/pack4", _pack4, static_argnums=(0, 1),
+                              multi_shape=True)
+_dequant4_matmul_program = wrap_program("quant/dequant_matmul", _dequant4_matmul,
+                                        static_argnums=(0, 1, 2), multi_shape=True)
+
+
 def quantize_int4(w: torch.Tensor, fmt: str = "int4",
                   block: int = DEFAULT_BLOCK4) -> QuantizedTensor4:
     """Blockwise 4-bit quantization of a kernel (round-to-nearest)."""
     block = _check_fmt_block(fmt, block)
-    data, scale = _quantize4_blocks(w, fmt, block)
+    data, scale = _pack4_program(fmt, block, w)
     return QuantizedTensor4(data, scale, w.shape, fmt=fmt, block=block)
 
 
@@ -562,12 +580,15 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if dtype != torch.bfloat16 or rows > 128 or h % 128 or f % 128:
         return _dequant_formula(x.reshape(*lead, h), q, scale, dtype)
     x2 = x.reshape(-1, h).to(torch.bfloat16).contiguous()
-    if x2.device.type == "cpu":
-        out = dequant_matmul_reference(x2, q, scale, dtype)
-    elif x2.device.type == "cuda":
-        out = dequant_matmul_cuda(x2, q, scale)
-    else:
-        raise ValueError(f"dequant_matmul runs on cuda or cpu, got {x2.device}")
+    # the kernel's declared cost (telemetry.profiling): its products, the
+    # int8 weight, the scales, the bf16 activations in and out
+    with kernel_cost(2.0 * rows * h * f, h * f + 4 * f + 2 * rows * (h + f)):
+        if x2.device.type == "cpu":
+            out = dequant_matmul_reference(x2, q, scale, dtype)
+        elif x2.device.type == "cuda":
+            out = dequant_matmul_cuda(x2, q, scale)
+        else:
+            raise ValueError(f"dequant_matmul runs on cuda or cpu, got {x2.device}")
     return out.reshape(*lead, f)
 
 

@@ -49,6 +49,7 @@ from fedml_tpu_torch.compression.codecs import (
     _tree_meta,
 )
 from fedml_tpu_torch.privacy.secagg.masking import MOD_BITS_CHOICES
+from fedml_tpu_torch.telemetry.profiling import wrap_program
 from fedml_tpu_torch.utils.tree import Tree, tree_flatten
 
 __all__ = [
@@ -222,26 +223,43 @@ def masked_encode(delta: Tree, net_mask: Sequence[np.ndarray], codec: SecAggInt8
         res_leaves = [residual[k] for k in keys]
     device = leaves[0].device if leaves else torch.device("cpu")
     masks = _words_to_device(net_mask, device)
-    clip, bound, mod_bits = codec.clip, codec.bound, codec.mod_bits
-    scale = _f32(clip / float(bound))
-    inv_scale = _f32(np.float32(1.0) / np.float32(scale))
-    wmask = (1 << mod_bits) - 1
-    masked, new_res = [], {}
-    with torch.no_grad():
-        for i, (x, r, m, k) in enumerate(zip(leaves, res_leaves, masks, keys)):
-            comp = x.float() + r.float()
-            xc = torch.clamp(comp, -clip, clip)
-            u = threefry.uniform(threefry.fold_in(key, i), xc.shape, device)
-            q = torch.clamp(torch.floor(xc * inv_scale + u), -bound, bound)
-            y = (q.to(torch.int32) + m) & wmask
-            masked.append(_pack_nibbles(y) if mod_bits == 4
-                          else _to_wire_word(y, mod_bits).contiguous())
-            # everything the server will not see for this client: re-sent
-            new_res[k] = comp - q * scale
+    from fedml_tpu_torch.telemetry.spans import get_tracer
+
+    with get_tracer().span("compress/encode", codec=codec.name,
+                           n_leaves=len(leaves)), torch.no_grad():
+        masked, new_res = _masked_encode_program(
+            codec.clip, codec.bound, codec.mod_bits, meta, tuple(leaves),
+            tuple(res_leaves), tuple(masks), key)
     raw_nbytes = sum(_numel(sh) * 4 for _, sh in meta)
     ct = CompressedTree(codec.name, WIRE_VERSION_MASKED, True, raw_nbytes, meta, keys,
                         [[y] for y in masked], sa=sa)
-    return ct, new_res
+    return ct, dict(zip(keys, new_res))
+
+
+def _masked_encode_program(clip: float, bound: int, mod_bits: int, meta,
+                           leaves, res_leaves, masks, key):
+    """Compensate, clip, stochastically round and mask every leaf:
+    ``(masked wire words, new residuals)``."""
+    scale = _f32(clip / float(bound))
+    inv_scale = _f32(np.float32(1.0) / np.float32(scale))
+    wmask = (1 << mod_bits) - 1
+    masked, new_res = [], []
+    for i, (x, r, m) in enumerate(zip(leaves, res_leaves, masks)):
+        comp = x.float() + r.float()
+        xc = torch.clamp(comp, -clip, clip)
+        u = threefry.uniform(threefry.fold_in(key, i), xc.shape, x.device)
+        q = torch.clamp(torch.floor(xc * inv_scale + u), -bound, bound)
+        y = (q.to(torch.int32) + m) & wmask
+        masked.append(_pack_nibbles(y) if mod_bits == 4
+                      else _to_wire_word(y, mod_bits).contiguous())
+        # everything the server will not see for this client: re-sent
+        new_res.append(comp - q * scale)
+    return tuple(masked), tuple(new_res)
+
+
+# cataloged (telemetry.profiling) under the reference's name
+_masked_encode_program = wrap_program("secagg/masked_encode", _masked_encode_program,
+                                      static_argnums=(0, 1, 2, 3), multi_shape=True)
 
 
 def unmask_finalize(cts: Sequence[CompressedTree], base: Tree, codec: SecAggInt8Codec,
@@ -293,32 +311,51 @@ def unmask_finalize(cts: Sequence[CompressedTree], base: Tree, codec: SecAggInt8
         dp_key = torch.tensor([int(w) for w in np.asarray(dp_key_data).reshape(-1)[:2]],
                               dtype=torch.int64)
         sigma = _f32(dp_sigma)
-    scale = _f32(codec.clip / float(codec.bound))
-    half = 1 << (mod_bits - 1)
-    wmask = (1 << mod_bits) - 1
+    from fedml_tpu_torch.telemetry.spans import get_tracer
+
     n_div = torch.tensor(float(len(cts)), dtype=torch.float32, device=device)
-    out, on_device = [], True
-    with torch.no_grad():
-        for i, (ys, r, b, (dt, sh)) in enumerate(zip(stacked, rec, base_leaves, first.meta)):
-            if mod_bits == 4:
-                # unpack each client's nibbles, then exact mod-16 arithmetic
-                # in int32 (a packed-byte sum would carry between nibbles)
-                words = _unpack_nibbles(ys, _numel(sh)).sum(0)
-                if r is not None:
-                    words = words - r.reshape(-1)
-                s = (words & wmask).reshape(sh)
-            else:
-                s = _from_wire_word(ys).sum(0, dtype=torch.int32)
-                if r is not None:
-                    s = s - r
-                s = s & wmask
-            c = s - ((s >= half).to(torch.int32) << mod_bits)
-            agg = b.float() + c.float() * scale / n_div
-            on_device = on_device and agg.device == device
-            if with_noise:
-                z = threefry.normal(threefry.fold_in(dp_key, i), agg.shape, device)
-                agg = agg + sigma * z
-            out.append(agg.to(b.dtype))
+    with get_tracer().span("compress/decode", codec=codec.name,
+                           n_leaves=len(first.meta)), torch.no_grad():
+        out = _unmask_program(
+            codec.clip, codec.bound, mod_bits, first.meta, with_noise,
+            tuple(stacked), tuple(rec), tuple(base_leaves), n_div,
+            sigma if with_noise else 0.0, dp_key if with_noise else None)
+    on_device = all(a.device == device for a in out)
     _FINALIZE_TRACE.update(device=str(device), pre_noise_on_device=bool(on_device),
                            noised_in_program=with_noise)
     return dict(zip(keys, out))
+
+
+def _unmask_program(clip: float, bound: int, mod_bits: int, meta, with_noise: bool,
+                    stacked, rec, base_leaves, n_div, sigma, dp_key):
+    """Sum the masked words mod 2^mod_bits, take the recovery adjustment
+    off, centre, rescale onto the base (plus the DP noise): the new leaves."""
+    scale = _f32(clip / float(bound))
+    half = 1 << (mod_bits - 1)
+    wmask = (1 << mod_bits) - 1
+    out = []
+    for i, (ys, r, b, (dt, sh)) in enumerate(zip(stacked, rec, base_leaves, meta)):
+        if mod_bits == 4:
+            # unpack each client's nibbles, then exact mod-16 arithmetic
+            # in int32 (a packed-byte sum would carry between nibbles)
+            words = _unpack_nibbles(ys, _numel(sh)).sum(0)
+            if r is not None:
+                words = words - r.reshape(-1)
+            s = (words & wmask).reshape(sh)
+        else:
+            s = _from_wire_word(ys).sum(0, dtype=torch.int32)
+            if r is not None:
+                s = s - r
+            s = s & wmask
+        c = s - ((s >= half).to(torch.int32) << mod_bits)
+        agg = b.float() + c.float() * scale / n_div
+        if with_noise:
+            z = threefry.normal(threefry.fold_in(dp_key, i), agg.shape, agg.device)
+            agg = agg + sigma * z
+        out.append(agg.to(b.dtype))
+    return tuple(out)
+
+
+# cataloged (telemetry.profiling) under the reference's name
+_unmask_program = wrap_program("secagg/unmask_finalize", _unmask_program,
+                               static_argnums=(0, 1, 2, 3, 4), multi_shape=True)

@@ -22,7 +22,7 @@ honest-but-curious server and honest clients (``docs/privacy.md``).
 
 The ``secagg/*`` counters go to the port's metrics registry; the protocol
 events and phase markers are logged (their flight-recorder records and
-the doctor's secagg section come with the run-health slice, ROADMAP A12b).
+the doctor's secagg section come with the run-health slice, ROADMAP A12b2).
 """
 from __future__ import annotations
 

@@ -39,6 +39,7 @@ from fedml_tpu_torch.device import DeviceLike, resolve_device
 from fedml_tpu_torch.ops.quant import quantize_params_int4, quantize_params_int8
 from fedml_tpu_torch.serving.live.slots import ModelSlots, SlotLease
 from fedml_tpu_torch.telemetry import get_registry
+from fedml_tpu_torch.telemetry.profiling import wrap_program
 
 logger = logging.getLogger(__name__)
 
@@ -155,6 +156,13 @@ class ContinuousBatchingEngine:
         # many queued requests between decode steps
         self.admit_per_step = 1
         self.oplog: deque = deque(maxlen=4096)  # ("prefill"|"decode", ...)
+        # cataloged (telemetry.profiling) under the reference's names: one
+        # prefill variant per prompt bucket and one decode-group variant per
+        # group size, by design
+        self._prefill = wrap_program("serve/prefill", self._prefill, multi_shape=True)
+        self._decode = wrap_program("serve/decode", self._decode)
+        self._decode_group = wrap_program("serve/decode_group", self._decode_group,
+                                          multi_shape=True)
 
         # request observability: TTFT / TPOT attribution and saturation
         # gauges; the per-token seam is one perf_counter + list append

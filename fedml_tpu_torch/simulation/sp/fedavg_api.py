@@ -45,8 +45,12 @@ ends with ``telemetry.flush_run()``, so ``telemetry report`` reads the run
 dir as soon as it returns; ``sys_perf_profiling: false`` turns the events
 off. Spans never synchronise the card: their walls are host time.
 
-Not ported yet, and refused when their arguments are set: FHE (ROADMAP
-A13) and device trace capture (A12b). The ``sp/rounds`` counter and the
+Device-side profiling (ROADMAP A12b1) runs as in the reference: the
+client and eval programs are cataloged (``programs.jsonl``), device memory
+is sampled after ``train``, ``aggregate`` and ``eval`` (``mem_sample`` in
+``health.jsonl``), and the trace controller brackets every round, so
+``trace_rounds`` captures a ``torch.profiler`` trace of the rounds it
+names. FHE (ROADMAP A13) is refused. The ``sp/rounds`` counter and the
 ``sp/client_train_ms``, ``sp/encode_ms``, ``sp/screen_ms`` and
 ``sp/aggregate_ms`` histograms go to the port's metrics registry.
 """
@@ -97,6 +101,8 @@ from fedml_tpu_torch.models import model_hub
 from fedml_tpu_torch.models.convert import from_reference_layout, to_reference_layout
 from fedml_tpu_torch.simulation.sampling import sample_clients, sample_from_list
 from fedml_tpu_torch.telemetry import flight_recorder
+from fedml_tpu_torch.telemetry.device_stats import DeviceStatsSampler
+from fedml_tpu_torch.telemetry.profiling import get_trace_controller
 from fedml_tpu_torch.telemetry.registry import get_registry
 from fedml_tpu_torch.telemetry.spans import configure_from_args, flush_run
 from fedml_tpu_torch.utils.tree import (
@@ -110,11 +116,6 @@ from fedml_tpu_torch.utils.tree import (
 )
 
 logger = logging.getLogger(__name__)
-
-# arguments of features this engine does not have yet → the ROADMAP item
-_NOT_PORTED = {
-    "trace_rounds": "device trace capture (ROADMAP A12b)",
-}
 
 
 class _Stopwatch:
@@ -156,10 +157,6 @@ class FedAvgAPI:
     def __init__(self, args: Any, device: Any, dataset: FederatedDataset,
                  model: Any, client_trainer=None, server_aggregator=None):
         check_trust_stack(args)
-        for arg, what in _NOT_PORTED.items():
-            if getattr(args, arg, None):
-                raise NotImplementedError(
-                    f"{arg}: {what} is not ported to the sp engine yet")
         self.args = args
         self.device = resolve_device(device)
         self.dataset = dataset
@@ -187,6 +184,8 @@ class FedAvgAPI:
         self._m_screen_ms = reg.histogram("sp/screen_ms")
         self._m_aggregate_ms = reg.histogram("sp/aggregate_ms")
         self._m_rounds = reg.counter("sp/rounds")
+        # per-phase device memory samples (health.jsonl, mem/* gauges)
+        self._devstats = DeviceStatsSampler()
         self._codec = get_codec(getattr(args, "compression", ""), args)
         self._ef_by_client: Dict[int, ErrorFeedback] = {}
 
@@ -366,6 +365,15 @@ class FedAvgAPI:
 
     # -- round ----------------------------------------------------------------
     def train_one_round(self, round_idx: int) -> dict:
+        # an armed capture (trace_rounds, telemetry profile, a requested
+        # one) brackets exactly this round
+        get_trace_controller().on_round_start(round_idx)
+        try:
+            return self._train_one_round(round_idx)
+        finally:
+            get_trace_controller().on_round_end(round_idx)
+
+    def _train_one_round(self, round_idx: int) -> dict:
         if self._guard is not None:
             # the round-open state: with checkpoint_frequency 1, exactly the
             # last checkpoint
@@ -413,6 +421,7 @@ class FedAvgAPI:
                 taus.append(float(metrics.get("local_steps", 0.0)))
                 w_locals.append((n_k, w))
         self.event.log_event_ended("train", round_idx)
+        self._devstats.sample("train", round_idx)
 
         self.event.log_event_started("aggregate", round_idx)
         agg_span = self.tracer.begin(f"round/{round_idx}/aggregate")
@@ -469,6 +478,7 @@ class FedAvgAPI:
         self.tracer.end(agg_span)
         self.event.log_event_ended("aggregate", round_idx)
         self._m_rounds.inc()
+        self._devstats.sample("aggregate", round_idx)
         flight_recorder.record("round_end", round=round_idx)
 
         report: Dict[str, Any] = {"round": round_idx, "clients": client_ids,
@@ -482,6 +492,7 @@ class FedAvgAPI:
                 metrics = self.aggregator.test(self.global_params,
                                                self.dataset.test_data_global,
                                                self.device, self.args)
+            self._devstats.sample("eval", round_idx)
         if self._codec is not None:
             report["encode_ms"] = watches["encode"].total_ms()
             self._m_encode_ms.observe(report["encode_ms"])

@@ -14,8 +14,12 @@ compression-aware update norm (``health.update_norm``).
     telemetry.flush_run()  # spans.jsonl + telemetry.jsonl in the run dir
 
 ``python -m fedml_tpu_torch.cli telemetry report <run_dir>`` reads a run
-dir. The program catalog, the roofline, device traces, device stats, the
-client health tracker and ``doctor`` wait for ROADMAP A12b; causal
+dir. Device-side profiling (ROADMAP A12b1) is here too: the program
+catalog (``wrap_program``, ``programs.jsonl``), the H100 roofline and the
+report's attribution, ``torch.profiler`` round traces
+(``TraceController``) and phase-attributed device memory samples
+(``DeviceStatsSampler``, ``mem_sample`` records in ``health.jsonl``). The
+client health tracker and ``doctor`` wait for ROADMAP A12b2; causal
 tracing and the live plane for A12c.
 """
 from fedml_tpu_torch.telemetry.registry import (
@@ -54,6 +58,22 @@ from fedml_tpu_torch.telemetry.spans import (
     reset_tracer,
     unwrap_frame_body,
     wrap_frame_body,
+)
+from fedml_tpu_torch.telemetry.device_stats import (
+    DeviceStatsSampler,
+    install_compile_cache_counters,
+    memory_snapshot,
+    sample_now,
+)
+from fedml_tpu_torch.telemetry.health import log_health_event, update_norm
+from fedml_tpu_torch.telemetry.profiling import (
+    ProgramCatalog,
+    TraceController,
+    get_catalog,
+    get_trace_controller,
+    reset_catalog,
+    reset_trace_controller,
+    wrap_program,
 )
 from fedml_tpu_torch.telemetry.report import (
     RunData,
@@ -98,6 +118,19 @@ __all__ = [
     "load_metrics",
     "load_programs",
     "load_spans",
+    "DeviceStatsSampler",
+    "install_compile_cache_counters",
+    "memory_snapshot",
+    "sample_now",
+    "log_health_event",
+    "update_norm",
+    "ProgramCatalog",
+    "TraceController",
+    "get_catalog",
+    "get_trace_controller",
+    "reset_catalog",
+    "reset_trace_controller",
+    "wrap_program",
     "flight_recorder",
     "FlightRecorder",
     "get_flight_recorder",

@@ -12,9 +12,10 @@ and gives each round's wall, each phase's p50/p95 (from the raw spans, not
 bucket estimates), the slowest client of each round, the kernel-build vs
 execute split, the comm-bytes breakdown and the spans stitched across
 processes. Its keys are the reference's, and it reads either package's
-run dir. The sections whose sinks come later print the reference's "no
-data" notes: ``programs.jsonl`` (the roofline attribution) and the
-health sinks with ROADMAP A12b, the critical path with A12c.
+run dir, and joins ``programs.jsonl`` (the program catalog) against the
+phase walls into the roofline attribution. The sections whose sinks come
+later print the reference's "no data" notes: the client-health sinks with
+ROADMAP A12b2, the critical path with A12c.
 """
 from __future__ import annotations
 
@@ -374,18 +375,20 @@ def build_report(run_dir) -> Dict:
     serving_latency = {ep: row for ep, row in serving_latency.items() if row}
 
     # -- performance attribution (program catalog × phase walls) ----------
-    # programs.jsonl names every hot-path compiled program with its XLA
-    # cost/memory analysis; joining against the measured phase walls
-    # yields achieved FLOP/s + bytes/s per phase, a roofline class per
-    # program, and the per-round MFU decomposition (same "xla"
-    # provenance as bench.py's whole-run number)
+    # programs.jsonl names every hot-path program with its flops and bytes
+    # (the port's counted ones, or the reference's XLA cost analysis);
+    # joining against the measured phase walls yields achieved FLOP/s +
+    # bytes/s per phase, a roofline class per program, and the per-round
+    # MFU decomposition
     programs = data.programs
     attribution: Dict = {}
     if programs:
-        notes.setdefault(
-            "attribution",
-            f"no data: programs.jsonl has {len(programs)} program(s); the "
-            "roofline attribution comes with ROADMAP A12b")
+        from fedml_tpu_torch.telemetry.profiling.roofline import build_attribution
+
+        attribution = build_attribution(
+            phases=phase_rows, rounds=round_rows, programs=programs,
+            device_kind=next((p.get("device_kind") for p in programs
+                              if p.get("device_kind")), None))
     else:
         notes.setdefault(
             "attribution",

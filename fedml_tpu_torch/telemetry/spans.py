@@ -169,11 +169,15 @@ def unwrap_frame_body(body: bytes):
 # -- kernel-build attribution -------------------------------------------------
 def note_kernel_build(what: str, ms: float) -> None:
     """Attribute one first-use build (``ops/_build.py``) to the open span's
-    ``compile_ms`` and to the ``build/compile_ms`` histogram."""
+    ``compile_ms``, to the cataloged program on this thread's stack and to
+    the ``build/compile_ms`` histogram."""
     get_registry().histogram("build/compile_ms").observe(ms)
     span = _current.get()
     if span is not None:
         span.compile_ms += ms
+    from fedml_tpu_torch.telemetry.profiling import get_catalog
+
+    get_catalog().on_compile_event(ms)
     flight_recorder.record("kernel_build", what=what, ms=round(float(ms), 3))
 
 
@@ -385,21 +389,30 @@ def configure(run_dir: str, service: str = "") -> Tracer:
 def configure_from_args(args: Any, service: str = "") -> Tracer:
     """The global tracer for a run: sink dir ``<log_file_dir>/run_<run_id>/``
     (the layout core/mlops uses too) and ``service`` stamped on every record
-    (what tells the processes of a shared run dir apart). The reference's deep-trace knobs (``trace_rounds``)
-    come with ROADMAP A12b."""
+    (what tells the processes of a shared run dir apart). Also applies the
+    run's device-trace knobs (``trace_max_captures`` / ``trace_byte_budget``
+    / ``trace_rounds``) to the process's trace controller."""
     run_id = str(getattr(args, "run_id", "0") or "0")
     base = str(getattr(args, "log_file_dir", "") or ".fedml_logs")
-    return configure(os.path.join(base, f"run_{run_id}"), service=service)
+    tracer = configure(os.path.join(base, f"run_{run_id}"), service=service)
+    from fedml_tpu_torch.telemetry.profiling import trace as _trace
+
+    _trace.configure_from_args(args)
+    return tracer
 
 
 def flush_run() -> Optional[str]:
-    """Land the global tracer's spans and a registry snapshot in the run
-    dir (nothing for a memory-only tracer): the one call a
-    training loop makes at the end of ``train()``."""
+    """Land the global tracer's spans, a registry snapshot and the program
+    catalog's snapshot (``programs.jsonl``) in the run dir (nothing for a
+    memory-only tracer): the one call a training loop makes at the end of
+    ``train()``."""
     tracer = get_tracer()
     tracer.flush()
     if tracer.sink_dir is None:
         return None
+    from fedml_tpu_torch.telemetry.profiling import get_catalog
+
+    get_catalog().flush_jsonl(tracer.sink_dir)
     return get_registry().flush_jsonl(tracer.sink_dir)
 
 

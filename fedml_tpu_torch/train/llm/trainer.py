@@ -62,6 +62,7 @@ from fedml_tpu_torch.models.llm.llama import (
     causal_lm_loss,
 )
 from fedml_tpu_torch.ops.quant import quantize_params_int4, quantize_params_int8
+from fedml_tpu_torch.telemetry.profiling import repeated_cost, wrap_program
 
 logger = logging.getLogger(__name__)
 
@@ -272,6 +273,11 @@ class LLMTrainer:
 
         self._loss_fn = causal_lm_loss(apply_fn)
         self._eval_loss_fn = causal_lm_loss(eval_apply_fn)
+        # cataloged under the reference's names (telemetry.profiling); a
+        # step inside the fused round counts for the round alone
+        self._train_step = wrap_program("llm/train_step", self._train_step)
+        self._eval_step = wrap_program("llm/eval_step", self._eval_loss_fn,
+                                       multi_shape=True)
         self.model: Optional[LlamaForCausalLM] = None
         self.opt_state: Optional[AdamWState] = None
         self._trainable: Dict[str, torch.nn.Parameter] = {}
@@ -356,7 +362,7 @@ class LLMTrainer:
     def evaluate(self, x, y) -> dict:
         x, y = self._tokens(x), self._tokens(y)
         m = torch.ones((x.shape[0],), dtype=torch.float32, device=self.device)
-        loss, (correct, denom) = self._eval_loss_fn(self.model, x, y, m)
+        loss, (correct, denom) = self._eval_step(self.model, x, y, m)
         return {
             "eval_loss": float(loss),
             "eval_acc": float(correct) / max(float(denom), 1.0),
@@ -416,10 +422,15 @@ class LLMTrainer:
             acc = {k: torch.zeros(v.shape, dtype=torch.float32, device=self.device)
                    for k, v in global_lora.items()}
             losses = []
+            steps_in_round = n_clients * local_steps
             for c in range(n_clients):
                 merge_lora(self.model, global_lora)  # client-switch
-                steps = [self._train_step(xs[c, s][None], ys[c, s][None], ms[c, s][None])
-                         for s in range(local_steps)]
+                steps = []
+                for s in range(local_steps):
+                    # every step does the same work: the catalog counts one
+                    with repeated_cost("step", steps_in_round):
+                        steps.append(self._train_step(xs[c, s][None], ys[c, s][None],
+                                                      ms[c, s][None]))
                 losses.append(torch.stack(steps).mean())
                 for k, p in extract_lora(self.model).items():
                     acc[k].add_(w[c] * p.detach().to(torch.float32))
@@ -427,7 +438,7 @@ class LLMTrainer:
             new_global = {k: a / wsum for k, a in acc.items()}
             return self.model, self.opt_state, new_global, torch.stack(losses).mean()
 
-        return fed_round
+        return wrap_program("llm/fused_round", fed_round)
 
     # -- checkpointing -------------------------------------------------------
     def save_checkpoint(self, ckpt_dir: str, round_idx: int) -> str:

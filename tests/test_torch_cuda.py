@@ -1137,3 +1137,63 @@ def test_moe_and_embedding_backward_are_bit_identical_on_cuda():
         runs.append(torch.autograd.grad(loss, list(card.parameters())))
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     assert float(runs[0][0].abs().sum()) > 0  # the embedding got a gradient
+
+
+@pytest.mark.requires_cuda
+def test_cuda_round_capture_names_the_flash_forward_kernel(tmp_path):
+    """A trace controller capture around one flash forward on the card
+    holds the hand-written kernel's launch (CUPTI sees kernels launched
+    through ctypes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash kernels have no CPU mode")
+    import json
+    import os
+
+    from fedml_tpu_torch.telemetry.profiling import TraceController
+
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 8, 256, 128, generator=gen).to("cuda", torch.bfloat16)
+    k = torch.randn(1, 2, 256, 128, generator=gen).to("cuda", torch.bfloat16)
+    v = torch.randn(1, 2, 256, 128, generator=gen).to("cuda", torch.bfloat16)
+    tfa.flash_attention(q, k, v)  # builds and loads the kernels first
+    torch.cuda.synchronize()
+    tc = TraceController(trace_dir=str(tmp_path))
+    tc.arm_rounds([0])
+    assert tc.on_round_start(0) and tc.unavailable is None
+    tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    marker = tc.on_round_end(0)
+    assert marker["ok"] and marker["trace_bytes"] > 0
+    with open(os.path.join(marker["trace_dir"], "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert sum("flash_fwd_kernel" in n for n in kernels) == 1, kernels
+
+
+@pytest.mark.requires_cuda
+def test_cataloged_call_peak_agrees_with_the_allocator():
+    """``peak_hbm_bytes`` of a cataloged first call is the allocator's
+    high-water mark (within 1%), and the catalog leaves the caller's peak
+    statistics as they are."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch.telemetry.profiling import get_catalog, reset_catalog, wrap_program
+
+    reset_catalog()
+    f = wrap_program("test/peak", lambda x: (x @ x).relu().sum())
+    x = torch.randn(2048, 2048, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    f(x)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    rec = f.record
+    assert abs(rec.peak_hbm_bytes - peak) <= 0.01 * peak, (rec.peak_hbm_bytes, peak)
+    assert rec.flops == 2 * 2048 ** 3 and rec.argument_bytes == 4 * 2048 ** 2
+    big = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")  # raise the peak
+    del big
+    high = torch.cuda.max_memory_allocated()
+    f(x[:1024, :1024].contiguous())  # a new variant, below the caller's peak
+    assert torch.cuda.max_memory_allocated() == high  # not reset behind the caller
+    assert rec.n_signatures == 2
+    reset_catalog()

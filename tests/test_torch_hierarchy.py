@@ -563,7 +563,7 @@ def test_tree_command_prints_one_json_line():
         assert out[k] == ref[k], k
 
 
-def test_tree_command_below_quorum_and_refusals(capsys):
+def test_tree_command_below_quorum_and_refusals(capsys, tmp_path, monkeypatch):
     rc = tcli.main(["tree", "--clients", "20", "--tiers", "3", "--rounds", "1",
                     "--quorum", "1.0", "--kill-tier", "1", "--kill-node", "0",
                     "--kill-round", "0", "--device", "cpu"])
@@ -571,6 +571,18 @@ def test_tree_command_below_quorum_and_refusals(capsys):
     assert rc == 1 and len(out) == 1
     res = json.loads(out[0])
     assert res["completed"] is False and "below quorum at the root" in res["error"]
-    for flag in (["--metrics-port", "0"], ["--trace-rounds", "1"]):
-        with pytest.raises(NotImplementedError, match="A12"):
-            tcli.main(["tree", "--clients", "20", "--device", "cpu", *flag])
+    with pytest.raises(NotImplementedError, match="A12c"):
+        tcli.main(["tree", "--clients", "20", "--device", "cpu", "--metrics-port", "0"])
+    # device traces are ported: the armed round is captured
+    from fedml_tpu_torch.telemetry.profiling import get_trace_controller, reset_trace_controller
+
+    monkeypatch.chdir(tmp_path)
+    reset_trace_controller()
+    try:
+        assert tcli.main(["tree", "--clients", "20", "--device", "cpu",
+                          "--trace-rounds", "1"]) == 0
+        caps = get_trace_controller().captures
+    finally:
+        reset_trace_controller()
+    assert [(c["round"], c["rule"], c["ok"]) for c in caps] == [(1, "explicit", True)]
+    assert os.path.exists(os.path.join(caps[0]["trace_dir"], "trace.json"))

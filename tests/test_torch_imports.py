@@ -542,3 +542,20 @@ def test_span_layer_modules_are_scanned(module):
     imports JAX or the reference package, though several are copies of
     reference modules that import no JAX."""
     assert module in PORT_MODULES
+
+
+@pytest.mark.parametrize("module", [
+    "fedml_tpu_torch.telemetry.profiling",
+    "fedml_tpu_torch.telemetry.profiling.catalog",
+    "fedml_tpu_torch.telemetry.profiling.roofline",
+    "fedml_tpu_torch.telemetry.profiling.trace",
+    "fedml_tpu_torch.telemetry.device_stats",
+    "fedml_tpu_torch.telemetry.health",
+])
+def test_profiling_modules_are_scanned(module):
+    """The device-side profiling modules (the program catalog, the roofline,
+    the trace controller, device stats and the health sink) are among those
+    both scans cover: none imports JAX or the reference package, though the
+    roofline, the trace state machine and the catalog's accounting are
+    copies of reference modules."""
+    assert module in PORT_MODULES

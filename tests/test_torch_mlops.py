@@ -112,9 +112,18 @@ def test_event_sink_follows_the_run_dir_layout(tmp_path):
     ev.log_event_ended("round", 0)
     assert ev.flush() == os.path.join(str(tmp_path), "run_r5", "events.jsonl")
     assert ev.start_trace() is False and ev.stop_trace() is None
+    # a trace dir arms the manual trace through the one trace controller
+    from fedml_tpu_torch.telemetry.profiling import reset_trace_controller
+
     args.jax_trace_dir = str(tmp_path / "trace")
-    with pytest.raises(NotImplementedError, match="A12b"):
-        tevent.MLOpsProfilerEvent(args).start_trace()
+    traced = tevent.MLOpsProfilerEvent(args)
+    try:
+        assert traced.start_trace() is True
+        marker = traced.stop_trace()
+    finally:
+        reset_trace_controller()
+    assert marker["rule"] == "manual" and marker["trace_dir"] == args.jax_trace_dir
+    assert os.path.exists(tmp_path / "trace" / "trace.json")
 
 
 def test_mlops_event_context_manager(tmp_path, monkeypatch):

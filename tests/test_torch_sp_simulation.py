@@ -266,12 +266,17 @@ def test_unported_options_raise_naming_their_item(tmp_path):
     targs = targuments.load_arguments_from_dict(_lr_cfg(agg_robust="median"))
     with pytest.raises(ValueError, match="agg_robust rides the compressed"):
         create_simulator(targs, "cpu", tds, thub.create(targs, tds.class_num))
-    # contribution assessment and round checkpoints are ported: they build
+    # contribution assessment, round checkpoints and round traces are
+    # ported: they build
+    from fedml_tpu_torch.telemetry.profiling import reset_trace_controller
+
     for train in ({"enable_contribution": True},
-                  {"checkpoint_dir": str(tmp_path / "ck"), "resume": True}):
+                  {"checkpoint_dir": str(tmp_path / "ck"), "resume": True},
+                  {"trace_rounds": "1", "trace_dir": str(tmp_path / "tr")}):
         targs = targuments.load_arguments_from_dict(_lr_cfg(**train))
         create_simulator(targs, "cpu", tds, thub.create(targs, tds.class_num))
-    for train, item in [({"enable_fhe": True}, "A13"), ({"trace_rounds": [1]}, "A12"),
+    reset_trace_controller()
+    for train, item in [({"enable_fhe": True}, "A13"),
                         ({"backend": "mesh"}, "A11"),
                         ({"federated_optimizer": "fedgkt"}, "A13")]:
         cfg = _lr_cfg(**train)

@@ -779,7 +779,8 @@ def test_reports_agree_over_either_packages_run_dir(side, tmp_path):
         assert jr["compile_ms"] == tr["compile_ms"] == 0.0
         assert set(os.listdir(run_dir)) >= {"spans.jsonl", "events.jsonl", "telemetry.jsonl"}
     else:
-        assert "A12b" in tr["notes"]["attribution"]  # programs.jsonl read, not modelled
+        # programs.jsonl is joined into the reference's attribution section
+        assert tr["attribution"] == jr["attribution"] and tr["attribution"]["programs"]
 
 
 def _sections(text):
