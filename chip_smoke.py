@@ -99,8 +99,9 @@ the final ``ok`` line:
     went through the store, and prints the bytes published on the broker
     and written to the store, the ``safe_dumps`` / ``safe_loads`` ms of the
     broadcast and of one upload, and the round's wall;
-(j) the aggregation-side trust stack on phase h's model and data, j1 and
-    j2 on a quarter of its training images (no hand kernel on this path). (j1) the
+(j) the aggregation-side trust stack on phase h's model and data, j1 on a
+    quarter of its training images and j2 on an eighth (no hand kernel on
+    this path). (j1) the
     sp simulation, 10 of 10 clients, int8,
     2 rounds, ``integrity: true`` with ``agg_robust: trimmed_mean@0.2``;
     in round 0 one upload arrives with a NaN scale and one scaled ×100. It
@@ -171,7 +172,7 @@ the final ``ok`` line:
     ms, the checkpoint's ms and bytes. (l4) 4 silos over LOCAL, 1 round with
     a checkpoint and leave-one-out values, then a fresh server with
     ``resume: true``: it fails unless it starts at round 1 from the saved
-    parameters and both rounds end finite. (l5) DLG (300 iterations, cosine)
+    parameters and both rounds end finite. (l5) DLG (60 iterations, cosine)
     on ResNet-18 against one stand-in image: it fails unless the match loss
     falls and every tensor is finite, and prints ms an iteration and the
     reconstruction's MSE; ``revealing_labels`` from ResNet-18's classifier
@@ -206,8 +207,8 @@ the final ``ok`` line:
     updates) checkpoints every version. It prints updates/s, flush ms (CUDA
     events), the staleness histogram and the checkpoint ms a version;
 (n) the aggregation tree (``hierarchy.TreeRunner``, no hand kernel on this
-    path), int8 at every tier. (n1) ``TreeTopology.build(256, 4)`` (levels
-    1, 6, 40, 256) over phase h's ResNet-18 in the reference's layout as
+    path), int8 at every tier. (n1) ``TreeTopology.build(64, 4)`` (levels
+    1, 4, 16, 64) over phase h's ResNet-18 in the reference's layout as
     the template, seed 0, quorum 0.75, chunks of 8, 2 rounds; leaf client 17
     dead in round 0 and an ``EdgeKillWindow`` crashing tier-1 node 0 in
     round 1 after one accepted partial sum, with its journal in a temporary
@@ -221,7 +222,8 @@ the final ``ok`` line:
     append ms and bytes a partial sum, and the peak memory. (n2) ``python -m
     fedml_tpu_torch.cli tree --clients 100000 --tiers 3 --rounds 2 --params
     128 --codec int8 --quorum 0.5 --kill-tier 1 --kill-node 3 --kill-round
-    1 --device cuda`` in a child process, then the same run in process: both
+    1 --device cuda`` in a child process, the same run in process beside
+    it: both
     complete with equal digests, a quorum close at the root and an evicted
     edge, under the same gates; it prints rounds/s, the command's wall and
     per-tier bytes. (n3) per-edge-cohort SecAgg on ``(1, 4, 16)`` with the
@@ -254,7 +256,8 @@ the final ``ok`` line:
     ``--deadline-s 2 --quorum 0.5``, on the card and on the CPU: each line
     must equal the CPU's (``avg`` within FA_AVG_TOL) and TrieHH must find
     ``sun`` and ``moon``. (p2) the reference's 102,400-client heavy-hitter
-    acceptance (see FA_P2): levels (1, 800, 102400), ``votevec@1024/3``,
+    acceptance cut to a quarter (see FA_P2): levels (1, 200, 25600),
+    ``votevec@1024/3``,
     central DP, three leaf kills, an edge kill and a root crash after 2
     children restarted from its journal, no SecAgg, twice; it fails unless
     both complete, the root weight is the survivors', the heavy hitters are
@@ -276,8 +279,8 @@ the final ``ok`` line:
     peak stays under 74 GiB, and prints s a step, tokens/s, model TFLOP/s,
     the grouped AdamW update's ms (CUDA events) against its 28 B-a-parameter
     floor and the peak. (q2) the full-parameter federation through
-    FedLLMAPI's host loop at 2 layers: 2 clients x 2 steps, 2 rounds, a
-    checkpoint of every parameter each round; then the round-0 checkpoint
+    FedLLMAPI's host loop at 1 layer: 2 clients x 2 steps, 2 rounds, a
+    checkpoint of every parameter after round 0; then that checkpoint
     restored into a fresh FedLLMAPI (AdamW's moments, which no checkpoint
     carries, from a snapshot) and round 1 run again; it fails unless the
     restore and the resumed round's global state and test loss are bit for
@@ -296,8 +299,8 @@ the final ``ok`` line:
     fedml_tpu_torch.cli telemetry report`` must read in a child process
     with exit 0. Each leg's untraced twin (``untraced``) runs the same
     entry points with a memory-only tracer whose spans set no context and
-    with ``sys_perf_profiling: false``. (r1) phase h's round on a sixteenth
-    of its training images (R1_DATA) untraced (and with ``FEDML_PROFILE=0``:
+    with ``sys_perf_profiling: false``. (r1) phase h's round on a
+    thirty-second of its training images (R1_DATA) untraced (and with ``FEDML_PROFILE=0``:
     phase s2's twin) and then traced, under cuDNN's
     deterministic algorithms: it fails unless ``spans.jsonl`` holds
     ``round/0/{sample,train,aggregate,eval}`` and one
@@ -343,7 +346,43 @@ the final ``ok`` line:
     holds kernel events, the report has its attribution section and the
     digest equals the unprofiled twin's (r1's untraced leg, run with
     ``FEDML_PROFILE=0``, when phase r ran).
-    Each phase prints its seconds.
+(t) run health (``telemetry.health``'s tracker, ``telemetry.doctor``; no
+    kernel of its own), each leg into a fresh run dir that ``python -m
+    fedml_tpu_torch.cli telemetry doctor --json`` reads in a child process.
+    (t1) phase h's ResNet-18 with int8 uplinks on T1_DATA, 5 clients, 5
+    rounds, client T_SLOW sleeping T_SLOW_S after its training and client
+    T_NOISY uploading T_NOISY_SCALE x its delta: it fails unless
+    ``health.jsonl`` holds a ``client_health`` record for each of the 25
+    (round, client) pairs with a finite update norm read off the int8
+    blocks, the doctor flags exactly [T_SLOW] as a straggler and [T_NOISY]
+    as anomalous and its verdict names both, a ``train`` ``mem_sample``
+    holds card bytes every round, and the report's client health lists the
+    5 clients; it prints the median client wall, both scores, the tracker's
+    µs an ``observe`` and a ``finish_round`` and the doctor's seconds. (t2)
+    phase k1's masked federation on a quarter of its images (T2_PARTS),
+    its deadline multiplier T2_DEADLINE_MULTIPLIER: it
+    fails unless the doctor's secagg section holds ``recovery_started`` and
+    ``recovery_closed`` of round 1 evicting [SECAGG_STALL_RANK] and its
+    verdict names the recovery, the connectivity section holds the eviction,
+    the flight recorder's ring holds ``collect``, ``recover`` and
+    ``unmask`` markers with ``individual_plaintext: false``, every masked
+    upload's ``client_health`` has no update norm and a latency, and no
+    ``secagg/phases`` counter exists. (t3) phase n1's tree cut to T3 (64
+    clients, 4 tiers, 3 rounds), leaf clients T3_KILLS dead in round 1: it
+    fails unless there is one ``client_health`` record a leaf-parent edge a
+    round, the tier-tagged ``resilience_event`` records add up to the
+    ``tier/<d>/evicted`` and ``rejoined`` counters, and the doctor's tiers
+    section lists the kills; it prints the flagged edges (not gated).
+    Phase t runs after q and before r, so that its last doctor child runs
+    beside phase r.
+    Each phase prints its seconds. The phases whose work is child processes
+    run in a thread beside the in-process phases that follow them, none of
+    which gates on a time, reads a counter they move or has its own
+    deadline: i2 beside j, k2 beside k3, k4, l1 and l2, m1 beside l3, l4
+    and l5, o beside n, r2 beside r3 and s; their times and those of the
+    phases beside them are taken under that load. The report and doctor
+    children of phases r, s and t run beside the legs after theirs, and
+    their checks run after the last phase (``children``).
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``, after the whole script's seconds.
@@ -351,7 +390,7 @@ Without a CUDA device the script exits with code 2 and prints no result;
 with one, it runs itself again under ``PYTHONHASHSEED=0`` unless that is
 set, so every phase and every process it starts draws the same CIFAR-10
 stand-in. The full per-shape results also go to
-``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklmnopqrs``) runs
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklmnopqrst``) runs
 (a) and the phases named, and prints no kernels or ok line (phase g sets
 its round beside phase e's only when both run). ``--parent DIR`` builds the dequant and flash-forward kernels of
 another checkout (DIR, e.g. the parent commit unpacked by ``git archive``)
@@ -439,6 +478,9 @@ LOSS_REL_TOL = 1e-3
 W8A8_ROWS = (1, 8, 16, 17, 128, 2048)
 PASS_ROWS = (8, 128)
 QUANT_SERVE_MODES = ("w8a8", "nf4")
+# steady decode steps timed a served format (30 until phase t, which this
+# cut pays for: f's serve legs gate on their tokens, not on the step time)
+F_DECODE_STEPS = 10
 QUANT_REQUESTS, QUANT_CONCURRENT, QUANT_NEW_TOKENS = 4, 2, 16
 # layer 0's seven kernels and the LM head, by parameter name
 LAYER0_KERNELS = {
@@ -541,11 +583,14 @@ CS_TIMED_REPS = 5
 # the host-bound phases ~25% slower than others, and at half the images
 # (25,000) the whole script still ran 1,395 s on such a host.
 TRUST_DATA = {**SP_CONFIG["data_args"], "train_size": 12_500}
+# j2 on an eighth (6,250; a quarter until phase t, which this cut pays for:
+# j2 gates on krum keeping a benign update, not on the test loss)
+TRUST_DECODE_DATA = {**TRUST_DATA, "train_size": 6_250}
 TRUST_SP_CONFIG = {**SP_CONFIG, "data_args": TRUST_DATA, "train_args": {
     **SP_CONFIG["train_args"], "comm_round": 2, "integrity": True,
     "agg_robust": "trimmed_mean@0.2", "integrity_norm_mult": 1e6,
     "integrity_z_threshold": 1e6}}
-TRUST_DECODE_CONFIG = {**SP_CONFIG, "data_args": TRUST_DATA, "train_args": {
+TRUST_DECODE_CONFIG = {**SP_CONFIG, "data_args": TRUST_DECODE_DATA, "train_args": {
     **SP_CONFIG["train_args"], "comm_round": 1, "enable_attack": True,
     "attack_type": "byzantine", "attack_mode": "random", "byzantine_client_num": 2,
     "enable_defense": True, "defense_type": "krum", "krum_param_k": 1}}
@@ -584,6 +629,9 @@ SECAGG_CONFIG = {**CS_CONFIG, "common_args": {
     "round_deadline_s": 240.0, "round_deadline_multiplier": 2.0}}
 SECAGG_STALL_RANK = 4
 SECAGG_BROKER_SILOS = 2
+# k2 trains one of 80 parts a silo (20 until phase t, which this cut pays
+# for; k2 gates on one round of masked uploads, not on the test loss)
+SECAGG_BROKER_PARTS = 80
 MPC_TRAIN = dict(client_num_in_total=40, client_num_per_round=3, comm_round=1,
                  compression="")
 BONAWITZ_CONFIG = {**CS_CONFIG, "common_args": {
@@ -611,7 +659,8 @@ LSA_CONFIG = {**CS_CONFIG, "common_args": {
 # chance, where a coalition's accuracy moves by chance more than by a
 # client: one call valued an honest client below the flipped one). l4: 4 silos over LOCAL on l3's data, 1 round with
 # leave-one-out valuation, then a restarted server resumes for round 1.
-# l5: DLG (300 iterations, cosine) on ResNet-18 against one stand-in
+# l5: DLG (60 iterations, cosine; 300 until phase t, which this cut pays
+# for: the gate is a falling match loss) on ResNet-18 against one stand-in
 # image, and revealing_labels at init from a batch of 32.
 FEDLLM_HOST_ARGS = {**TRAIN_ARGS, "on_device_round": False, "train_size": 16,
                     "epochs": 1, "enable_defense": True,
@@ -634,14 +683,17 @@ Q1_ARGS = dict(model_size="llama3_8b", num_hidden_layers=10, lora_rank=0,
 Q1_STEPS, Q1_PEAK_GIB = 4, 74
 # (q2) the full-parameter federation through FedLLMAPI's host loop: the
 # clients' payloads, the global state and the aggregate are each a whole f32
-# model on the card (5.9 GB at 2 layers), as the reference holds them; 2
-# clients x 2 local steps (2 samples each at batch 1), 2 rounds
-Q2_ARGS = dict(model_size="llama3_8b", num_hidden_layers=2, lora_rank=0,
+# model on the card (5.1 GB at 1 layer), as the reference holds them; 2
+# clients x 2 local steps (2 samples each at batch 1), 2 rounds, round 0
+# checkpointed (save_every_rounds 2: the resume reads round 0's). Phase t
+# paid with two cuts here: the model at 1 layer (2 until then: 5.9 GB), and
+# round 1's ~12 s save, which nothing read
+Q2_ARGS = dict(model_size="llama3_8b", num_hidden_layers=1, lora_rank=0,
                remat_policy="none", use_flash_attention=True, max_seq_length=2048,
                per_device_batch_size=1, vocab_size=128256, client_num_in_total=2,
                client_num_per_round=2, train_size=4, test_size=1, epochs=1,
                comm_round=2, on_device_round=False, random_seed=0, learning_rate=1e-4,
-               frequency_of_the_test=1, save_every_rounds=1)
+               frequency_of_the_test=1, save_every_rounds=2)
 # (q3) an 8-expert top-2 MoE over a bf16 base (2.90 GB a layer): 16 layers
 # (~48.5 GB), since 32 would need ~95 GB; LoRA rank 16 and the routers train
 Q3_ARGS = dict(model_size="llama3_8b", num_hidden_layers=16, num_experts=8,
@@ -670,7 +722,7 @@ CS_RESUME_CONFIG = {**CS_CONFIG, "common_args": {
     **CONTRIB_CONFIG["data_args"]}, "train_args": {
     **CS_CONFIG["train_args"], "client_num_in_total": 50, "client_num_per_round": 4,
     "comm_round": 1, "enable_contribution": True, "contribution_method": "leave_one_out"}}
-DLG_ITERS, REVEAL_BATCH = 300, 32
+DLG_ITERS, REVEAL_BATCH = 60, 32
 
 # Phase (m), the durable cross-silo server and the async server (ROADMAP
 # A10.3a/b/d) on phase h's model and data, split into DURABLE_PARTS hetero
@@ -735,18 +787,20 @@ print("REF " + json.dumps({"digest": digest(server.fedml_aggregator.get_global_m
 """
 
 # Phase (n), the aggregation tree (ROADMAP A10.3c), int8 at every tier. n1:
-# TreeTopology.build(256, 4) (levels 1, 6, 40, 256) with phase h's ResNet-18
+# TreeTopology.build(64, 4) (levels 1, 4, 16, 64; 256 clients until phase
+# t, 128 until the phases ran beside each other: n1 gates on digests, the
+# restart and the eviction, not on a loss) with phase h's ResNet-18
 # in the reference's layout as the template (62 leaves, 11,173,962
 # parameters, from random_seed alone: the tree draws no stand-in images),
 # seed 0, quorum 0.75, chunks of 8 clients, 2 rounds; leaf client 17 dead in
 # round 0 (evicted, rejoins in round 1), and tier-1 node 0 crashed in round 1
 # after 1 accepted partial sum and restarted from its journal. n2: the
 # reference's 100k-client acceptance (tests/test_hierarchy.py) through the
-# ``tree`` command in a child process, then replayed in process. n3:
+# ``tree`` command in a child process, replayed in process beside it. n3:
 # per-edge-cohort SecAgg on (1, 4, 16) with the ResNet-18 template, seed 3,
 # quorum 0.5, chunks of 4, leaf client 5 dead in round 1, 2 rounds, twice.
-TREE_N1 = dict(clients=256, tiers=4, seed=0, quorum=0.75, chunk=8, rounds=2)
-TREE_N1_LEVELS = (1, 6, 40, 256)
+TREE_N1 = dict(clients=64, tiers=4, seed=0, quorum=0.75, chunk=8, rounds=2)
+TREE_N1_LEVELS = (1, 4, 16, 64)
 TREE_N1_KILL = (3, 17, 0)          # KillWindow(tier, node, round)
 TREE_N1_EDGE_KILL = (1, 0, 1, 1)   # EdgeKillWindow(tier, node, round, after_children)
 TREE_N2_ARGS = ("--clients", "100000", "--tiers", "3", "--rounds", "2", "--params", "128",
@@ -776,8 +830,11 @@ O_BROKER_TIMEOUT_S = 60   # deploy broker --native prints its address within thi
 # Phase (p), federated analytics (ROADMAP A10.5). p1: the ``fa`` command's
 # FSM for every task, 6 clients, seed 0, on the card and on the CPU, and the
 # frequency task with a 2 s deadline and quorum 0.5. p2: the reference's
-# 102,400-client acceptance (tests/test_fa_sketch.py): levels (1, 800,
-# 102400), votevec@1024/3, vocab 512, 12 hot words at p 0.5, 32 words a
+# 102,400-client acceptance (tests/test_fa_sketch.py) cut to a quarter of
+# its clients, 128 a cohort as there (levels (1, 800, 102400) until the
+# phases ran beside each other; the counts, the threshold and the dead
+# leaves scale with the clients): levels (1, 200,
+# 25600), votevec@1024/3, vocab 512, 12 hot words at p 0.5, 32 words a
 # client, threshold 0.02, central DP sigma 2.0, quorum 0.5, leaf clients 3,
 # n/2 and n-5 and tier-1 node 1 dead, the root crashed after 2 children and
 # journal-restarted; without SecAgg (the host Philox masks would take ~440 s
@@ -787,7 +844,7 @@ FA_P1_TASKS = ("avg", "heavy_hitter_triehh", "union", "intersection", "cardinali
                "frequency_estimation", "k_percentile_element", "histogram")
 FA_P1_QUORUM = ("--task", "frequency_estimation", "--deadline-s", "2", "--quorum", "0.5")
 FA_AVG_TOL = 1e-6   # avg on the card against the CPU (Python floats: exact so far)
-FA_P2 = dict(n_clients=102_400, levels=(1, 800, 102_400), codec="votevec@1024/3", seed=0,
+FA_P2 = dict(n_clients=25_600, levels=(1, 200, 25_600), codec="votevec@1024/3", seed=0,
              vocab=512, n_hot=12, p_hot=0.5, words_per_client=32, hh_threshold_frac=0.02,
              quorum=0.5, dp_sigma=2.0)
 FA_P2_DEAD_EDGE = 1
@@ -805,7 +862,9 @@ FA_COUNTERS = ("fa/rounds", "fa/quorum_rounds", "fa/deadline_fired", "fa/aborts"
 # into a fresh temporary ``log_file_dir`` read back by ``telemetry report``
 # in a child process. r1: phase h's sp round, untraced then traced, both
 # under cuDNN's deterministic algorithms, so the final parameters must be
-# bit-equal; cut to a sixteenth of h's training images (R1_DATA): with h's
+# bit-equal; cut to a thirty-second of h's training images (R1_DATA; a
+# sixteenth until phase t, which this cut pays for with s2's and t1's
+# share: none of the three gates on the test loss): with h's
 # own round as the untraced twin the whole script ran 1,093 s of its 1,200 s
 # on an NVIDIA H100 80GB HBM3 at 700 W, with a quarter 1,121 s, and with an
 # eighth 1,113 s on one host and 1,395 s on a slower one. r2: phase i2's
@@ -817,7 +876,7 @@ FA_COUNTERS = ("fa/rounds", "fa/quorum_rounds", "fa/deadline_fired", "fa/aborts"
 # wall is host time: the report's round wall must lie within R_WALL_TOL of
 # the host-timed round. R_SPAN_BENCH empty spans give the cost of one span
 # on the card's host.
-R1_DATA = {**SP_CONFIG["data_args"], "train_size": 3_125, "test_size": 2_500}
+R1_DATA = {**SP_CONFIG["data_args"], "train_size": 1_562, "test_size": 2_500}
 R_WALL_TOL = 0.05
 R_SPAN_BENCH = 10_000
 R2_HELD_RANK = 2
@@ -840,7 +899,7 @@ R3_ARGS = dict(model_size="llama3_8b", num_hidden_layers=2, lora_rank=16,
 # script's own FLOPs over its host-timed rounds. s2: phase r1's round
 # (R1_DATA) with trace_rounds "0", against r1's untraced twin (run with
 # FEDML_PROFILE=0) when phase r ran, else against its own.
-ALL_PHASES = "bcdefghijklmnopqrs"
+ALL_PHASES = "bcdefghijklmnopqrst"
 S1_LAYERS = 4
 S1_ARGS = dict(TRAIN_ARGS, num_hidden_layers=S1_LAYERS, run_id="chip_smoke_s1")
 S_FLOPS_TOL = 0.02
@@ -848,6 +907,36 @@ S_RATE_TOL = 0.05
 S_NOOP_CALLS = 10_000
 S_KERNEL_NAMES = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
                   "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+# Phase (t), run health (ROADMAP A12b2): each leg into a fresh log_file_dir,
+# triaged by ``python -m fedml_tpu_torch.cli telemetry doctor --json`` in a
+# child process. t1: phase h's ResNet-18 with int8 uplinks on R1_DATA's
+# images split IID over 5 clients (T1_DATA: on hetero parts a client's wall
+# follows its data, and the gate is about the injected faults), 5 rounds,
+# tested at rounds 0 and 4 (the engine always tests round 0); client T_SLOW
+# sleeps T_SLOW_S after its local training and client T_NOISY uploads
+# T_NOISY_SCALE x its delta. T_SLOW_S: 2.5x the median honest client wall
+# measured at this size is 0.88 s (350.4 ms on an NVIDIA H100 80GB HBM3 at
+# 700 W); 1.5 s leaves room for a host twice as slow (on twice the images
+# one host measured 354.2 ms and a slower one 760.8 ms, where a 0.9 s sleep
+# scored 2.08 against the 2.0 threshold). t2: phase k1's masked federation (SECAGG_CONFIG, 4 silos, 2
+# rounds, silo SECAGG_STALL_RANK stalled in round 1) on a quarter of its
+# images (T2_PARTS parts, one a silo), its adaptive deadline at
+# T2_DEADLINE_MULTIPLIER x the latency EWMA (the honest silos' round 1 takes
+# about a third of round 0's first-call latency). t3: phase n1's four tiers cut to
+# T3["clients"] clients and 3 rounds, leaf clients T3_KILLS dead in round 1.
+T1_DATA = {**R1_DATA, "partition_method": "homo"}
+T1_TRAIN = dict(client_num_in_total=5, client_num_per_round=5, comm_round=5,
+                frequency_of_the_test=5)
+T_SLOW = 1
+T_SLOW_S = 1.5
+T_NOISY = 3
+T_NOISY_SCALE = 10.0
+T2_PARTS = SECAGG_BROKER_PARTS   # a quarter of k1's images
+T2_DEADLINE_MULTIPLIER = 1.0   # k1's 2.0 would keep round 1 open twice round 0's latency
+T3 = dict(clients=64, tiers=4, seed=0, quorum=0.75, chunk=8, rounds=3)
+T3_LEVELS = (1, 4, 16, 64)
+T3_KILLS = ((3, 17, 1), (3, 40, 1))   # KillWindow(tier, node, round): leaf clients
 
 
 def share_stand_in_draws():
@@ -1988,7 +2077,7 @@ def quant_serve(mode: str):
         engine.stop()
     if engine.failure is not None:
         raise RuntimeError("serving engine failed") from engine.failure
-    step_s, dev_step_ms, busy = steady_decode(engine, rng)
+    step_s, dev_step_ms, busy = steady_decode(engine, rng, n_steps=F_DECODE_STEPS)
 
     # logits finite and of the vocab width, prefill and one decode step
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, 48))).cuda()
@@ -3559,8 +3648,9 @@ def secagg_inproc(card: str):
 def secagg_broker(card: str):
     """Phase (k2): ``secagg: int8`` with a server and SECAGG_BROKER_SILOS
     silos as processes over the broker, 1 round."""
-    kids, wall, published = _broker_federation("chip_smoke_secagg_broker",
-                                               SECAGG_BROKER_SILOS, **SECAGG_TRAIN)
+    kids, wall, published = _broker_federation(
+        "chip_smoke_secagg_broker", SECAGG_BROKER_SILOS,
+        **{**SECAGG_TRAIN, "client_num_in_total": SECAGG_BROKER_PARTS})
     server = kids[0]
     masked = sum(k["metrics"].get("secagg/masked_uploads", 0) for k in kids[1:])
     if server["result"].get("rounds") != 1 or masked != SECAGG_BROKER_SILOS:
@@ -4697,28 +4787,43 @@ def _device_kernels(prof) -> dict:
 
 def tree_100k_phase(card: str, dev: str = "cuda", cli_args=TREE_N2_ARGS):
     """Phase (n2): the reference's 100k-client acceptance through the
-    ``tree`` command in a child process, then replayed in process."""
+    ``tree`` command in a child process, replayed in process beside it."""
+    import tempfile
+
     from fedml_tpu_torch.hierarchy import KillWindow, TreeRunner, TreeTopology, default_template
 
     opts = dict(zip(cli_args[0::2], cli_args[1::2]))
+    # its output goes to files: nobody reads a pipe while the replay runs
+    out_f, err_f = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "fedml_tpu_torch.cli", "tree", *cli_args,
-                           "--device", dev], capture_output=True, text=True,
-                          timeout=TREE_CLI_TIMEOUT_S)
-    cli_wall = time.perf_counter() - t0
-    lines = proc.stdout.strip().splitlines()
+    proc = subprocess.Popen([sys.executable, "-m", "fedml_tpu_torch.cli", "tree", *cli_args,
+                             "--device", dev], stdout=out_f, stderr=err_f, text=True)
+    try:
+        topo = TreeTopology.build(int(opts["--clients"]), tiers=int(opts["--tiers"]))
+        with _Counted(_tree_counters(topo.n_tiers)) as counted:
+            runner = TreeRunner(topo, template=default_template(int(opts["--params"])),
+                                codec=opts["--codec"], seed=0, quorum=float(opts["--quorum"]),
+                                chaos=[KillWindow(int(opts["--kill-tier"]),
+                                                  int(opts["--kill-node"]),
+                                                  int(opts["--kill-round"]))], device=dev)
+            out = runner.run(int(opts["--rounds"]))
+        c = counted.delta
+        proc.wait(timeout=TREE_CLI_TIMEOUT_S)
+        cli_wall = time.perf_counter() - t0
+        out_f.seek(0)
+        err_f.seek(0)
+        stdout, stderr = out_f.read(), err_f.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out_f.close()
+        err_f.close()
+    lines = stdout.strip().splitlines()
     if proc.returncode != 0 or not lines:
         raise RuntimeError(f"n2: the tree command exited {proc.returncode}: "
-                           f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+                           f"{stdout[-2000:]} {stderr[-2000:]}")
     cli_out = json.loads(lines[-1])
-    topo = TreeTopology.build(int(opts["--clients"]), tiers=int(opts["--tiers"]))
-    with _Counted(_tree_counters(topo.n_tiers)) as counted:
-        runner = TreeRunner(topo, template=default_template(int(opts["--params"])),
-                            codec=opts["--codec"], seed=0, quorum=float(opts["--quorum"]),
-                            chaos=[KillWindow(int(opts["--kill-tier"]), int(opts["--kill-node"]),
-                                              int(opts["--kill-round"]))], device=dev)
-        out = runner.run(int(opts["--rounds"]))
-    c = counted.delta
     checks = {
         "both completed": bool(cli_out.get("completed")) and out["completed"],
         "digests equal": cli_out.get("final_digest") == out["final_digest"],
@@ -4728,7 +4833,7 @@ def tree_100k_phase(card: str, dev: str = "cuda", cli_args=TREE_N2_ARGS):
     _tree_gates(cli_out, "n2 (the command)")
     _tree_gates(out, "n2 (in process)")
     print(f"  {card}: n2 the tree command: {cli_wall:.1f} s wall (process included), "
-          f"{cli_out['rounds_per_s']:.3f} rounds/s inside; in process "
+          f"{cli_out['rounds_per_s']:.3f} rounds/s inside; in process, beside it, "
           f"{out['wall_s']:.2f} s = {out['rounds_per_s']:.3f} rounds/s; levels "
           f"{out['levels']}; per tier (peak round upload B, peak buffer B) "
           f"{[(r['peak_round_upload_bytes'], r['peak_buffer_bytes']) for r in out['per_tier'].values()]}; "
@@ -4864,7 +4969,8 @@ def fa_fsm_phase(card: str, dev: str = "cuda"):
 
 
 def fa_federation_phase(card: str, dev: str = "cuda"):
-    """Phase (p2): the reference's 102,400-client heavy-hitter acceptance on
+    """Phase (p2): the reference's 102,400-client heavy-hitter acceptance, at
+    FA_P2's quarter of its clients, on
     the card without SecAgg, twice."""
     import tempfile
 
@@ -5143,7 +5249,7 @@ def full_ft_phase(card: str, peak_bw: float, peak_flops: float, dev: str = "cuda
 def full_fedllm_phase(card: str, dev: str = "cuda"):
     """Phase (q2): the full-parameter federation, FedLLMAPI's host loop at
     Llama-3-8B widths and Q2_ARGS' depth: 2 clients x 2 local steps, 2
-    rounds, a checkpoint each round (every parameter), the flash launches
+    rounds, round 0 checkpointed (every parameter), the flash launches
     counted around exactly ``train()``. Then the round-0 checkpoint is
     restored into a freshly built FedLLMAPI and round 1 runs again. The
     checkpoint carries no optimizer state (as the reference's does not), so
@@ -5232,8 +5338,10 @@ def full_fedllm_phase(card: str, dev: str = "cuda"):
                   f"({tokens_per_round / rep['round_sec']:.1f} tokens/s), test loss "
                   f"{rep['test_loss']:.5f}; local steps {rep.get('steps_s', 0):.3f} s, "
                   f"exchange {rep.get('exchange_s', 0) * 1e3:.1f} ms, aggregation "
-                  f"{rep.get('aggregation_s', 0) * 1e3:.1f} ms; checkpoint "
-                  f"{rep['checkpoint_bytes']} B in {rep['checkpoint_ms']:.1f} ms", flush=True)
+                  f"{rep.get('aggregation_s', 0) * 1e3:.1f} ms"
+                  + (f"; checkpoint {rep['checkpoint_bytes']} B in "
+                     f"{rep['checkpoint_ms']:.1f} ms" if "checkpoint" in rep else ""),
+                  flush=True)
         print(f"  train(): {args.comm_round} rounds in {train_wall_s:.2f} s; peak memory "
               f"{peak_gb:.3f} GB; launches {launches} (expected {expected})", flush=True)
         if launches != expected:
@@ -5457,22 +5565,6 @@ def moe_phase(card: str, dev: str = "cuda"):
         capacity=cap, dropped=dropped, expert_load=[ld for ld, _ in loads], boot_s=boot_s)
 
 
-def _telemetry_report(run_dir: str) -> tuple:
-    """``python -m fedml_tpu_torch.cli telemetry report RUN_DIR`` in a child
-    process (it must exit 0), then the same report as a dict."""
-    from fedml_tpu_torch.telemetry import build_report
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run([sys.executable, "-m", "fedml_tpu_torch.cli", "telemetry", "report",
-                           run_dir], cwd=here, env=env, capture_output=True, text=True,
-                          timeout=120)
-    if proc.returncode:
-        raise RuntimeError(f"telemetry report {run_dir} exited {proc.returncode}:\n"
-                           f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
-    return proc.stdout, build_report(run_dir)
-
-
 def _spans(run_dir: str) -> list:
     with open(os.path.join(run_dir, "spans.jsonl")) as f:
         return [json.loads(line) for line in f if line.strip()]
@@ -5537,10 +5629,11 @@ def traced_sp_phase(card: str):
     from fedml_tpu_torch.models.model_hub import create
     from fedml_tpu_torch.resilience.durability.recover import digest
     from fedml_tpu_torch.simulation.simulator import create_simulator
-    from fedml_tpu_torch.telemetry import reset_tracer
+    from fedml_tpu_torch.telemetry import build_report, reset_tracer
 
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_r1_")
     twin_dir = tempfile.mkdtemp(prefix="chip_smoke_r1_untraced_")
+    dirs = [log_dir, twin_dir]  # handed to the report child's check once it starts
     cudnn_was = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
 
@@ -5582,7 +5675,9 @@ def traced_sp_phase(card: str):
             raise RuntimeError("the untraced twin of r1 wrote spans")
         wall, dig, n_clients = one_round(True)
         run_dir = os.path.join(log_dir, "run_chip_smoke_r1")
-        text, report = _telemetry_report(run_dir)
+        _report_later("r1", run_dir, dirs)
+        dirs = []
+        report = build_report(run_dir)
         names = [s["name"] for s in _spans(run_dir) if "duration_ms" in s]
         want = [f"round/0/{p}" for p in ("sample", "train", "aggregate", "eval")]
         clients = [n for n in names if n.startswith("round/0/client/")]
@@ -5612,12 +5707,11 @@ def traced_sp_phase(card: str):
         return dict(traced_round_s=wall, untraced_round_s=untraced_s,
                     report_wall_ms=row["wall_ms"], wall_off=off, phase_ms=phases,
                     phase_sum_ms=phase_sum, span_us=cost, digest=dig,
-                    untraced_digest=untraced_digest,
-                    report_lines=len(text.splitlines()))
+                    untraced_digest=untraced_digest)
     finally:
         torch.backends.cudnn.deterministic = cudnn_was
-        shutil.rmtree(log_dir, ignore_errors=True)
-        shutil.rmtree(twin_dir, ignore_errors=True)
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
 
 
 def traced_cross_silo_phase(card: str):
@@ -5630,11 +5724,12 @@ def traced_cross_silo_phase(card: str):
     import threading
 
     from fedml_tpu_torch.core.distributed.message import Message
-    from fedml_tpu_torch.telemetry import TraceContext, wrap_frame_body
+    from fedml_tpu_torch.telemetry import TraceContext, build_report, wrap_frame_body
     from fedml_tpu_torch.utils.serialization import safe_dumps
 
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_r2_")
     twin_dir = tempfile.mkdtemp(prefix="chip_smoke_r2_untraced_")
+    dirs = [log_dir, twin_dir]  # handed to the report child's check once it starts
     det = {"CHIP_SMOKE_DETERMINISTIC": "1"}
     twin = {}
 
@@ -5665,7 +5760,15 @@ def traced_cross_silo_phase(card: str):
             raise RuntimeError("r2's untraced twin wrote spans")
         twin_server = twin["kids"][0]
         run_dir = os.path.join(log_dir, "run_chip_smoke_broker")
-        text, report = _telemetry_report(run_dir)
+
+        def stitched_in_text(text):
+            if "cross-process stitched spans" not in text:
+                raise RuntimeError("r2: the report's text lacks the cross-process stitched "
+                                   "spans")
+
+        _report_later("r2", run_dir, dirs, stitched_in_text)
+        dirs = []
+        report = build_report(run_dir)
         recs = _spans(run_dir)
         spans = [r for r in recs if "duration_ms" in r]
         services = sorted({r.get("service") for r in recs})
@@ -5706,7 +5809,7 @@ def traced_cross_silo_phase(card: str):
                 r["trace_id"] != sync["trace_id"] or r["parent_id"] not in server
                 for r in silo):
             raise RuntimeError(f"silo-side handler spans off the server's trace: {silo}")
-        if stitched_silo != ["rank1", "rank2"] or "cross-process stitched spans" not in text:
+        if stitched_silo != ["rank1", "rank2"]:
             raise RuntimeError(f"the report's stitched spans: {stitched_silo}")
         if kids[0]["digest"] != twin_server["digest"]:
             raise RuntimeError(f"tracing changed the aggregate: {kids[0]['digest']} vs "
@@ -5725,8 +5828,8 @@ def traced_cross_silo_phase(card: str):
                     round_ms=(kids[0]["metrics"].get("cross_silo/round_ms") or {}).get("sum"))
     finally:
         beside.join()
-        shutil.rmtree(log_dir, ignore_errors=True)
-        shutil.rmtree(twin_dir, ignore_errors=True)
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
 
 
 def traced_fedllm_phase(card: str, dev: str = "cuda"):
@@ -5740,9 +5843,11 @@ def traced_fedllm_phase(card: str, dev: str = "cuda"):
     import fedml_tpu_torch
     from fedml_tpu_torch.data.data_loader import load_synthetic_lm
     from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.telemetry import build_report
     from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
 
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_r3_")
+    dirs = [log_dir]  # handed to the report child's check once it starts
     try:
         args = types.SimpleNamespace(**R3_ARGS, log_file_dir=log_dir)
         _reset_trust()
@@ -5771,7 +5876,9 @@ def traced_fedllm_phase(card: str, dev: str = "cuda"):
         run_dir = os.path.join(log_dir, f"run_{args.run_id}")
         with open(os.path.join(run_dir, "events.jsonl")) as f:
             events = [json.loads(line) for line in f if line.strip()]
-        text, report = _telemetry_report(run_dir)
+        _report_later("r3", run_dir, dirs)
+        dirs = []
+        report = build_report(run_dir)
         (phase,) = [p for p in report["phases"] if p["phase"] == "event/round"]
         off = abs(phase["total_ms"] - host_ms) / host_ms
         print(f"  {card}: {layers} layers of {args.model_size}, {steps} local steps at "
@@ -5794,7 +5901,8 @@ def traced_fedllm_phase(card: str, dev: str = "cuda"):
                     round_event_ms=phase["total_ms"], host_ms=host_ms, wall_off=off,
                     test_loss=out["test_loss"])
     finally:
-        shutil.rmtree(log_dir, ignore_errors=True)
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
 
 
 class catalog_switch:
@@ -5904,6 +6012,7 @@ def profiled_fedllm_phase(card: str, dev: str = "cuda"):
     from fedml_tpu_torch.train.llm.run_fedllm import FedLLMAPI
 
     work = tempfile.mkdtemp(prefix="chip_smoke_s1_")
+    dirs = [work]  # handed to the report child's check once it starts
 
     def run(profiled: bool) -> dict:
         log_dir = os.path.join(work, "profiled" if profiled else "plain")
@@ -5961,7 +6070,9 @@ def profiled_fedllm_phase(card: str, dev: str = "cuda"):
         fused = rows["llm/fused_round"]
         want_fused = n_clients * steps * step_flops
         flops_off = abs(fused["flops"] - want_fused) / want_fused
-        text, report = _telemetry_report(prof["run_dir"])
+        _report_later("s1", prof["run_dir"], dirs)
+        dirs = []
+        report = tel.build_report(prof["run_dir"])
         attr = report["attribution"]
         (phase,) = [p for p in attr["phases"] if p["phase"] == "round/<n>/train"]
         rounds = len(prof["walls"])
@@ -6023,10 +6134,10 @@ def profiled_fedllm_phase(card: str, dev: str = "cuda"):
                     rate_off=rate_off, mfu=phase["mfu"], trace_bytes=marker["trace_bytes"],
                     stop_export_s=prof["stops"][0], kernel_events=len(names), traced=traced,
                     launches=prof["launches"], expected_launches=expected,
-                    catalog_call_us=noop_us, bare_call_us=bare_us,
-                    report_lines=len(text.splitlines()))
+                    catalog_call_us=noop_us, bare_call_us=bare_us)
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
 
 
 def profiled_sp_phase(card: str, twin_digest=None, dev: str = "cuda"):
@@ -6040,10 +6151,11 @@ def profiled_sp_phase(card: str, twin_digest=None, dev: str = "cuda"):
     from fedml_tpu_torch.models.model_hub import create
     from fedml_tpu_torch.resilience.durability.recover import digest
     from fedml_tpu_torch.simulation.simulator import create_simulator
-    from fedml_tpu_torch.telemetry import reset_tracer
+    from fedml_tpu_torch.telemetry import build_report, reset_tracer
     from fedml_tpu_torch.telemetry.profiling import get_trace_controller
 
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_s2_")
+    dirs = [log_dir]  # handed to the report child's check once it starts
     cudnn_was = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
 
@@ -6085,7 +6197,9 @@ def profiled_sp_phase(card: str, twin_digest=None, dev: str = "cuda"):
         by_phase = {r["phase"]: r for r in samples}
         caps = prof["captures"]
         names = trace_kernels(caps[0]["trace_dir"]) if caps and caps[0]["ok"] else []
-        text, report = _telemetry_report(run_dir)
+        _report_later("s2", run_dir, dirs)
+        dirs = []
+        report = build_report(run_dir)
         attr = report["attribution"]
         print(f"  {card}: {R1_DATA['train_size']} images, {n} clients; the profiled run "
               f"{prof['wall']:.3f} s with round 0 captured"
@@ -6123,7 +6237,479 @@ def profiled_sp_phase(card: str, twin_digest=None, dev: str = "cuda"):
                     mem_bytes_in_use={k: v["bytes_in_use"] for k, v in by_phase.items()})
     finally:
         torch.backends.cudnn.deterministic = cudnn_was
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+
+
+class _CliChild:
+    """``python -m fedml_tpu_torch.cli ARGV`` in a child process, started at
+    once and left to run beside what follows; ``result()`` waits for it (it
+    must exit 0) and gives its standard output and the child's own seconds."""
+
+    def __init__(self, argv):
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ,
+                   PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.argv, self.out = list(argv), {}
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "fedml_tpu_torch.cli", *self.argv],
+                                cwd=here, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+        def wait():
+            try:
+                self.out["stdout"], self.out["stderr"] = proc.communicate(timeout=180)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                self.out["stdout"], self.out["stderr"] = proc.communicate()
+            self.out["rc"], self.out["s"] = proc.returncode, time.perf_counter() - t0
+
+        self.thread = threading.Thread(target=wait, daemon=True)
+        self.thread.start()
+
+    def result(self) -> tuple:
+        self.thread.join()
+        if self.out["rc"]:
+            raise RuntimeError(f"{' '.join(self.argv)} exited {self.out['rc']}:\n"
+                               f"{self.out['stdout'][-2000:]}{self.out['stderr'][-2000:]}")
+        return self.out["stdout"], self.out["s"]
+
+
+class _DoctorChild(_CliChild):
+    """``telemetry doctor --json RUN_DIR`` in a child process; ``result()``
+    gives the triage and the child's seconds."""
+
+    def __init__(self, run_dir: str):
+        super().__init__(("telemetry", "doctor", "--json", run_dir))
+
+    def result(self) -> tuple:
+        text, s = super().result()
+        return json.loads(text), s
+
+
+# checks that wait for a child process (a leg's ``telemetry report``), each
+# run after the last phase, by leg; ``_report_later`` fills it
+_LATER: dict = {}
+
+
+def _report_later(leg: str, run_dir: str, dirs, check=None) -> None:
+    """``telemetry report RUN_DIR`` in a child process beside the next legs:
+    after the last phase it must have exited 0 and ``check(text)`` holds;
+    then ``dirs`` (the leg's, which hold the run dir) go, pass or fail."""
+    import shutil
+
+    child = _CliChild(("telemetry", "report", run_dir))
+
+    def finish():
+        try:
+            text, s = child.result()
+            if check is not None:
+                check(text)
+            return dict(report_lines=len(text.splitlines()), report_child_s=s)
+        finally:
+            for d in dirs:
+                shutil.rmtree(d, ignore_errors=True)
+
+    _LATER[leg] = finish
+
+
+class _Beside:
+    """A phase whose work runs in child processes, started in a thread so
+    that the next phases run beside it (its lines print as it goes);
+    ``result()`` waits for it, prints its seconds and raises what it
+    raised."""
+
+    def __init__(self, name: str, fn, phase_s: dict):
+        self.name, self.phase_s, self.box = name, phase_s, {}
+        t0 = time.perf_counter()
+
+        def run():
+            try:
+                self.box["out"] = fn()
+            except BaseException as e:  # noqa: BLE001 - raised again by result()
+                self.box["error"] = e
+            self.box["s"] = time.perf_counter() - t0
+
+        self.thread = threading.Thread(target=run, name=f"phase-{name}")
+        self.thread.start()
+
+    def result(self, beside: str):
+        self.thread.join()
+        self.phase_s[self.name] = self.box["s"]
+        print(f"    phase {self.name}: {self.box['s']:.1f} s (beside {beside})", flush=True)
+        if "error" in self.box:
+            raise self.box["error"]
+        return self.box["out"]
+
+
+class _TimedTracker:
+    """Host µs of each ``observe`` and ``finish_round`` of a health tracker."""
+
+    def __init__(self, tracker):
+        self.observe_us, self.finish_us = [], []
+        for name, sink in (("observe", self.observe_us), ("finish_round", self.finish_us)):
+            setattr(tracker, name, self._timed(getattr(tracker, name), sink))
+
+    @staticmethod
+    def _timed(fn, sink):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sink.append((time.perf_counter() - t0) * 1e6)
+            return out
+
+        return timed
+
+
+def _fresh_telemetry() -> None:
+    """A fresh registry, tracer and flight recorder, so a leg's run dir holds
+    its own records alone (the catalog is ``catalog_switch``'s)."""
+    from fedml_tpu_torch.telemetry import reset_flight_recorder, reset_registry, reset_tracer
+
+    reset_registry()
+    reset_tracer()
+    reset_flight_recorder()
+
+
+def _health_records(run_dir: str, kind: str) -> list:
+    return [r for r in _read_rows(os.path.join(run_dir, "health.jsonl")) if r.get("kind") == kind]
+
+
+def _deferred(log_dir: str, gate):
+    """The rest of a leg once its doctor child is done: ``gate()`` checks and
+    prints, then the leg's log dir goes, pass or fail."""
+    import shutil
+
+    def finish():
+        try:
+            return gate()
+        finally:
+            shutil.rmtree(log_dir, ignore_errors=True)
+
+    return finish
+
+
+def _run_gates(gates: dict) -> dict:
+    """Every leg's checks (each waits for its child process, so none is left
+    running), then the first failure, if any."""
+    out, errors = {}, []
+    for leg, gate in gates.items():
+        try:
+            out[leg] = gate()
+        except Exception as e:  # noqa: BLE001 - raised below, after the others
+            errors.append(e)
+    if errors:
+        raise errors[0]
+    return out
+
+
+def health_sp_phase(card: str, dev: str = "cuda"):
+    """Phase (t1): the sp simulation with a slowed and a noisy client, triaged
+    by the doctor (see the module doc). Returns the function that waits for
+    the doctor and checks."""
+    import shutil
+    import tempfile
+
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.compression import CompressedTree
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.ml.trainer.classification_trainer import ClassificationTrainer
+    from fedml_tpu_torch.models.model_hub import create
+    from fedml_tpu_torch.simulation.sp import fedavg_api
+    from fedml_tpu_torch.telemetry import build_doctor, build_report
+
+    class FaultyTrainer(ClassificationTrainer):
+        """Client T_SLOW sleeps after its training; client T_NOISY uploads
+        T_NOISY_SCALE x its delta."""
+
+        def train(self, params, train_data, device, args):
+            new, metrics = super().train(params, train_data, device, args)
+            if self.id == T_SLOW:
+                time.sleep(T_SLOW_S)
+            if self.id == T_NOISY:
+                new = {k: p + T_NOISY_SCALE * (new[k] - p) if p.is_floating_point() else new[k]
+                       for k, p in params.items()}
+            return new, metrics
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_t1_")
+    norm_inputs = []
+    inner_norm = fedavg_api.update_norm
+
+    def recorded_norm(update, base=None):
+        norm_inputs.append(type(update).__name__ if not isinstance(update, CompressedTree)
+                           else update.codec)
+        return inner_norm(update, base)
+
+    try:
+        args = load_arguments_from_dict({**SP_CONFIG, "data_args": T1_DATA, "train_args": {
+            **SP_CONFIG["train_args"], **T1_TRAIN}})
+        args.run_id, args.log_file_dir = "chip_smoke_t1", log_dir
+        _fresh_telemetry()
+        ds = load_federated(args)
+        model = create(args, ds.class_num)
+        api = fedavg_api.FedAvgAPI(args, dev, ds, model,
+                                   client_trainer=FaultyTrainer(model, args))
+        timed = _TimedTracker(api._health)
+        fedavg_api.update_norm = recorded_norm
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            fedavg_api.update_norm = inner_norm
+        run_dir = os.path.join(log_dir, "run_chip_smoke_t1")
+        child = _DoctorChild(run_dir)
+        t0 = time.perf_counter()
+        build_doctor(run_dir)
+        doctor_s = time.perf_counter() - t0
+        report = build_report(run_dir)
+    except BaseException:
         shutil.rmtree(log_dir, ignore_errors=True)
+        raise
+
+    def gate():
+        doctor, child_s = child.result()
+        ch = _health_records(run_dir, "client_health")
+        mem = {r["round"]: r for r in _health_records(run_dir, "mem_sample")
+               if r.get("phase") == "train"}
+        n = int(T1_TRAIN["client_num_in_total"])
+        honest = [r["latency_ms"] for r in ch if r["client"] not in (T_SLOW, T_NOISY)]
+        med_ms = float(np.median(honest)) if honest else float("nan")
+        later = [r["latency_ms"] for r in ch if r["client"] not in (T_SLOW, T_NOISY)
+                 and r["round"] > 0]
+        scores = {r["client"]: (r["straggler_score"], r["anomaly_score"])
+                  for r in doctor["stragglers"] + doctor["anomalies"]}
+        flagged = {k: [r["client"] for r in doctor[k]] for k in ("stragglers", "anomalies")}
+        print(f"  {card}: t1 {len(ch)} client_health records in {wall:.3f} s (5 rounds); the "
+              f"median honest client wall {med_ms:.1f} ms (rounds 1-4: "
+              f"{float(np.median(later)) if later else float('nan'):.1f} ms), client "
+              f"{T_SLOW} slowed by {T_SLOW_S * 1e3:.0f} ms; doctor stragglers "
+              f"{flagged['stragglers']}, anomalies {flagged['anomalies']}, scores (straggler, "
+              f"anomaly) {scores}; update norms off {sorted(set(norm_inputs))}; the tracker "
+              f"{np.median(timed.observe_us):.1f} us an observe (median of "
+              f"{len(timed.observe_us)}), {np.median(timed.finish_us):.1f} us a finish_round "
+              f"(max {max(timed.finish_us):.1f}); the doctor {child_s:.2f} s in a child "
+              f"process, {doctor_s * 1e3:.1f} ms in process; train mem_sample bytes "
+              f"{ {r: m.get('bytes_in_use') for r, m in sorted(mem.items())} }", flush=True)
+        for v in doctor["verdict"]:
+            print(f"  {card}: t1 verdict: {v}", flush=True)
+        faults = []
+        pairs = sorted((r["round"], r["client"]) for r in ch)
+        if pairs != [(r, c) for r in range(int(T1_TRAIN["comm_round"])) for c in range(n)]:
+            faults.append(f"client_health pairs {pairs}")
+        if not all(r["update_norm"] is not None and math.isfinite(r["update_norm"]) for r in ch):
+            faults.append(f"a non-finite or missing update norm: "
+                          f"{[(r['round'], r['client'], r['update_norm']) for r in ch]}")
+        if set(norm_inputs) != {"int8"}:
+            faults.append(f"update norms were not read off int8 blocks: {set(norm_inputs)}")
+        if flagged != {"stragglers": [str(T_SLOW)], "anomalies": [str(T_NOISY)]}:
+            faults.append(f"the doctor flagged {flagged}")
+        verdict = "\n".join(doctor["verdict"])
+        if (f"client {T_SLOW} is a straggler" not in verdict
+                or f"client {T_NOISY} sends anomalous updates" not in verdict):
+            faults.append("the verdict does not name both clients")
+        if sorted(mem) != list(range(int(T1_TRAIN["comm_round"]))) or not all(
+                (m.get("bytes_in_use") or 0) > 0 for m in mem.values()):
+            faults.append(f"train mem_sample rounds {sorted(mem)} without card bytes")
+        if sorted(report["client_health"]) != [str(c) for c in range(n)]:
+            faults.append(f"the report's client health lists {sorted(report['client_health'])}")
+        if faults:
+            raise RuntimeError("t1: " + "; ".join(faults))
+        return dict(wall_s=wall, median_client_ms=med_ms, scores=scores, flagged=flagged,
+                    observe_us=float(np.median(timed.observe_us)),
+                    finish_round_us=float(np.median(timed.finish_us)),
+                    doctor_child_s=child_s, doctor_s=doctor_s, verdict=doctor["verdict"])
+
+    return _deferred(log_dir, gate)
+
+
+def health_secagg_phase(card: str):
+    """Phase (t2): phase k1's masked federation on a quarter of its images,
+    triaged by the doctor (see the module doc). Returns the function that
+    waits for the doctor and checks."""
+    import shutil
+    import tempfile
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.core.distributed.communication.local_comm import LocalBroker
+    from fedml_tpu_torch.cross_silo.message_define import MyMessage
+    from fedml_tpu_torch.cross_silo.run_inproc import (
+        build_cross_silo_inproc,
+        run_managers_to_completion,
+    )
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.models.model_hub import create
+    from fedml_tpu_torch.telemetry import get_flight_recorder, get_registry
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_t2_")
+    _reset_trust()
+    try:
+        cfg = {**SECAGG_CONFIG,
+               "common_args": {**SECAGG_CONFIG["common_args"], "run_id": "chip_smoke_t2",
+                               "log_file_dir": log_dir},
+               "train_args": {**SECAGG_CONFIG["train_args"], "client_num_in_total": T2_PARTS,
+                              "round_deadline_multiplier": T2_DEADLINE_MULTIPLIER}}
+        args = fedml_tpu_torch.init(load_arguments_from_dict(cfg))
+        ds = load_federated(args)
+        model = create(args, ds.class_num)
+        LocalBroker.destroy(args.run_id)
+        _fresh_telemetry()  # the ring holds this leg's records alone
+        server, clients = build_cross_silo_inproc(args, ds, model, "cuda")
+        smgr = server.manager
+        for c in clients:
+            mgr = c.manager
+            if mgr.rank != SECAGG_STALL_RANK:
+                continue
+            trainer = mgr.trainer_dist_adapter.trainer
+            train = trainer.run_local_training
+
+            def stalled(params, *a, mgr=mgr, train=train, **kw):
+                if mgr.round_idx != 1:
+                    return train(params, *a, **kw)
+                end = time.monotonic() + 900
+                while smgr.result is None and smgr.handler_error is None:
+                    if time.monotonic() > end:
+                        raise TimeoutError("t2: round 1 never closed at quorum")
+                    time.sleep(0.05)
+                return {k: v.clone() for k, v in params.items()}, {}
+
+            trainer.run_local_training = stalled
+        t0 = time.perf_counter()
+        result = run_managers_to_completion([smgr] + [c.manager for c in clients], args.run_id,
+                                            MyMessage.MSG_TYPE_CONNECTION_IS_READY, timeout=900)
+        wall = time.perf_counter() - t0
+        run_dir = os.path.join(log_dir, "run_chip_smoke_t2")
+        child = _DoctorChild(run_dir)
+        markers = [r for r in get_flight_recorder().snapshot() if r.get("kind") == "secagg_phase"]
+        names = {m["name"] for m in get_registry().snapshot()}
+    except BaseException:
+        shutil.rmtree(log_dir, ignore_errors=True)
+        raise
+    finally:
+        _reset_trust()
+
+    def gate():
+        doctor, child_s = child.result()
+        ch = _health_records(run_dir, "client_health")
+        events = {e["event"]: e for e in doctor["secagg"]["events"]}
+        print(f"  {card}: t2 {args.client_num_in_total} parts, {wall:.3f} s, result "
+              f"{ {k: result.get(k) for k in ('rounds', 'test_loss')} if result else result}; "
+              f"doctor secagg counters {doctor['secagg']['counters']}, events "
+              f"{[(e['event'], e.get('round'), e.get('evicted')) for e in doctor['secagg']['events']]}; "
+              f"evicted {doctor['connectivity']['evicted_clients']}; markers "
+              f"{[(m['phase'], m['round']) for m in markers]}; {len(ch)} client_health "
+              f"records, latency ms {[r['latency_ms'] for r in ch]}; the doctor {child_s:.2f} s "
+              f"in a child process", flush=True)
+        faults = []
+        if not (result and result.get("rounds") == 2):
+            faults.append(f"the federation did not run 2 rounds: {result}")
+        for ev in ("recovery_started", "recovery_closed"):
+            e = events.get(ev)
+            if not (e and e.get("round") == 1 and e.get("evicted") == [SECAGG_STALL_RANK]):
+                faults.append(f"no {ev} of round 1 evicting [{SECAGG_STALL_RANK}]: {e}")
+        if not any(v.startswith("secagg round 1 closed via mask recovery")
+                   for v in doctor["verdict"]):
+            faults.append(f"the verdict names no recovery: {doctor['verdict']}")
+        if not any(e.get("event") == "evicted" and e.get("client") == SECAGG_STALL_RANK
+                   for e in doctor["connectivity"]["events"]):
+            faults.append("the connectivity section holds no eviction")
+        if ({"collect", "recover", "unmask"} - {m["phase"] for m in markers}
+                or any(m.get("individual_plaintext") is not False for m in markers)):
+            faults.append(f"the ring's secagg markers: {markers}")
+        if not ch or not all(r["update_norm"] is None and r["latency_ms"] is not None
+                             for r in ch):
+            faults.append(f"masked uploads' health records: {ch}")
+        if "secagg/phases" in names or "phases" in doctor["secagg"]["counters"]:
+            faults.append("a secagg/phases counter exists")
+        if faults:
+            raise RuntimeError("t2: " + "; ".join(faults))
+        return dict(wall_s=wall, counters=doctor["secagg"]["counters"],
+                    markers=[(m["phase"], m["round"]) for m in markers],
+                    latency_ms=[r["latency_ms"] for r in ch], doctor_child_s=child_s)
+
+    return _deferred(log_dir, gate)
+
+
+def health_tree_phase(card: str, dev: str = "cuda"):
+    """Phase (t3): the ResNet-18-wide tree with leaf kills, triaged by the
+    doctor (see the module doc). Returns the function that waits for the
+    doctor and checks."""
+    import shutil
+    import tempfile
+
+    from fedml_tpu_torch.hierarchy import KillWindow, TreeRunner, TreeTopology
+    from fedml_tpu_torch.telemetry import configure, flush_run, reset_tracer
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_t3_")
+    try:
+        topo = TreeTopology.build(T3["clients"], tiers=T3["tiers"])
+        if topo.levels != T3_LEVELS:
+            raise RuntimeError(f"t3: levels {topo.levels}, expected {T3_LEVELS}")
+        run_dir = os.path.join(log_dir, "run_chip_smoke_t3")
+        _fresh_telemetry()
+        configure(run_dir, service="tree")
+        runner = TreeRunner(topo, template=resnet_wire_template(dev), codec="int8",
+                            seed=T3["seed"], quorum=T3["quorum"], chunk=T3["chunk"],
+                            chaos=[KillWindow(*k) for k in T3_KILLS], device=dev)
+        with _Counted(_tree_counters(topo.n_tiers)) as counted:
+            out = runner.run(T3["rounds"])
+        flush_run()
+        reset_tracer()
+        child = _DoctorChild(run_dir)
+    except BaseException:
+        shutil.rmtree(log_dir, ignore_errors=True)
+        raise
+
+    def gate():
+        doctor, child_s = child.result()
+        ch = _health_records(run_dir, "client_health")
+        ev = [e for e in _health_records(run_dir, "resilience_event")
+              if e.get("tier") is not None]
+        n_edges = topo.levels[topo.leaf_tier - 1]
+        from_records = {}
+        for e in ev:
+            key = f"tier/{e['tier']}/{e['event']}"
+            from_records[key] = from_records.get(key, 0) + len(
+                e.get("clients") or e.get("nodes") or [e.get("node")])
+        counted_ev = {k: v for k, v in counted.delta.items()
+                      if k.split("/")[-1] in ("evicted", "rejoined") and v}
+        flagged = {k: [(r["client"], round(r["straggler_score"], 2),
+                        round(r["anomaly_score"], 2)) for r in doctor[k]]
+                   for k in ("stragglers", "anomalies")}
+        lat = [r["latency_ms"] for r in ch]
+        print(f"  {card}: t3 levels {topo.levels}, {T3['rounds']} rounds in "
+              f"{out['wall_s']:.3f} s; {len(ch)} client_health records (edges x rounds "
+              f"{n_edges} x {T3['rounds']}), edge reduce {np.median(lat):.1f} ms median "
+              f"({min(lat):.1f}-{max(lat):.1f}); tier events {from_records} against "
+              f"counters {counted_ev}; flagged edges {flagged} (not gated); the doctor "
+              f"{child_s:.2f} s in a child process", flush=True)
+        for v in doctor["verdict"]:
+            print(f"  {card}: t3 verdict: {v}", flush=True)
+        faults = []
+        pairs = sorted((r["round"], r["client"]) for r in ch)
+        if pairs != [(r, e) for r in range(T3["rounds"]) for e in range(n_edges)]:
+            faults.append(f"client_health pairs {pairs}")
+        if {k: v for k, v in from_records.items()
+                if k.split("/")[-1] in ("evicted", "rejoined")} != counted_ev:
+            faults.append(f"tier events {from_records} against counters {counted_ev}")
+        leaf = topo.leaf_tier
+        killed = sorted(k[1] for k in T3_KILLS)
+        listed = sorted(c for e in doctor["tiers"]["events"]
+                        if e.get("event") == "evicted" and e.get("tier") == leaf
+                        and e.get("round") == 1 for c in e.get("clients") or [])
+        if listed != killed:
+            faults.append(f"the tiers section lists evictions {listed}, not {killed}")
+        if not counted_ev.get(f"tier/{leaf}/evicted") == len(killed):
+            faults.append(f"tier/{leaf}/evicted {counted_ev}")
+        if faults:
+            raise RuntimeError("t3: " + "; ".join(faults))
+        return dict(wall_s=out["wall_s"], edge_reduce_ms=lat, tier_events=from_records,
+                    flagged=flagged, doctor_child_s=child_s)
+
+    return _deferred(log_dir, gate)
 
 
 def step_sum(results, key, rows=DECODE_ROWS):
@@ -6194,7 +6780,7 @@ def main(argv=None) -> int:
 
     results = serve = flash = train = quantized = qlora = sp = cross_silo = trust = None
     secure = checkpoints = durable = tree = transports = analytics = llm_rest = None
-    spans = profiling = None
+    spans = profiling = health = None
     phase_s = {}
     parent_dequant = parent_fwd = None
     if opts.parent:
@@ -6211,6 +6797,11 @@ def main(argv=None) -> int:
         phase_s[name] = time.perf_counter() - t0
         print(f"    phase {name}: {phase_s[name]:.1f} s", flush=True)
         return out
+
+    def beside(name, fn):
+        """Start a phase of child processes beside the next phases: none of
+        those gates on a time or reads a counter it moves (see _Beside)."""
+        return _Beside(name, fn, phase_s)
 
     if "b" in phases:
         print("(b) dequant_matmul vs plain version", flush=True)
@@ -6241,8 +6832,8 @@ def main(argv=None) -> int:
               "stand-in, 4 silos, int8 uplinks, 2 rounds", flush=True)
         inproc = timed("i1", lambda: cross_silo_inproc(card))
         print(f"(i2) cross-silo FedAvg over the broker: a server and {CS_BROKER_SILOS} "
-              "silos as processes, 1 round", flush=True)
-        cross_silo = dict(inproc=inproc, broker=timed("i2", lambda: cross_silo_broker(card)))
+              "silos as processes, 1 round, beside phase j", flush=True)
+        broker_phase = beside("i2", lambda: cross_silo_broker(card))
     if "j" in phases:
         print("(j1) the trust stack in the sp simulation: integrity + trimmed_mean@0.2, a NaN "
               f"and a x{TRUST_SCALE:g} upload, 2 rounds; (j2) the decode fallback: "
@@ -6251,13 +6842,15 @@ def main(argv=None) -> int:
         print("(j3) the trust stack in cross-silo: 4 silos over LOCAL, norm-difference "
               "clipping + local DP on the fused path, 1 round", flush=True)
         trust["j3"] = timed("j3", lambda: trust_cross_silo_phase(card))
+    if "i" in phases:
+        cross_silo = dict(inproc=inproc, broker=broker_phase.result("phase j"))
     if "k" in phases:
         print("(k1) secure aggregation, secagg: int8: 4 silos over LOCAL, 2 rounds, silo "
               f"{SECAGG_STALL_RANK} stalled in round 1 (recovery)", flush=True)
         secure = dict(k1=timed("k1", lambda: secagg_inproc(card)))
         print(f"(k2) secagg: int8 over the broker: a server and {SECAGG_BROKER_SILOS} silos "
-              "as processes, 1 round", flush=True)
-        secure["k2"] = timed("k2", lambda: secagg_broker(card))
+              "as processes, 1 round, beside phases k3, k4, l1 and l2", flush=True)
+        masked_broker = beside("k2", lambda: secagg_broker(card))
         print("(k3) the Bonawitz FSM: 3 silos, one dropout after the share exchange, "
               "1 round", flush=True)
         secure["k3"] = timed("k3", lambda: finite_field_phase(card, "k3"))
@@ -6276,6 +6869,15 @@ def main(argv=None) -> int:
                 checkpoints["l1"]["checkpoint"]))
         finally:
             shutil.rmtree(checkpoints["l1"]["work"], ignore_errors=True)
+    if "k" in phases:
+        secure["k2"] = masked_broker.result("phases k3, k4, l1 and l2")
+    if "m" in phases:
+        print("(m1) the durable cross-silo server over the broker: a server and 2 silos as "
+              "processes, the server SIGKILLed in round 1 and respawned with resume; "
+              "identity, 2 rounds, then int8, 2 rounds; beside phases l3, l4 and l5",
+              flush=True)
+        durable_phase = beside("m1", lambda: durable_cross_silo(card))
+    if "l" in phases:
         print("(l3) sp resume and contribution: resnet18, 50 clients, 4 a round, FedOpt, "
               "gtg_shapley with one flipped client", flush=True)
         ds, flipped = contribution_data()
@@ -6288,29 +6890,29 @@ def main(argv=None) -> int:
         checkpoints["l5"] = timed("l5", lambda: reconstruction_phase(card, ds))
         del ds
     if "m" in phases:
-        print("(m1) the durable cross-silo server over the broker: a server and 2 silos as "
-              "processes, the server SIGKILLed in round 1 and respawned with resume; "
-              "identity, 2 rounds, then int8, 2 rounds", flush=True)
-        durable = dict(m1=timed("m1", lambda: durable_cross_silo(card)))
+        durable = dict(m1=durable_phase.result("phases l3, l4 and l5"))
         print("(m2) the async server over LOCAL: 4 silos, int8, FedBuff of 4, 8 updates, "
               "a journal refill, then instant apply", flush=True)
         durable["m2"] = timed("m2", lambda: async_phase(card))
+    if "o" in phases:
+        print(f"(o) the other transports, at once: a server and {O_SILOS} silos as processes "
+              "each over tRPC (o1), cross-cloud over the C++ broker with an S3 store (o2) "
+              "and gRPC (o3); resnet18, int8, 1 round; beside phase n", flush=True)
+        transports_beside = beside("o", lambda: transports_phase(card))
     if "n" in phases:
-        print("(n1) the aggregation tree: resnet18-wide, 256 clients over 4 tiers, int8, a "
+        print(f"(n1) the aggregation tree: resnet18-wide, {TREE_N1['clients']} clients over 4 "
+              "tiers, int8, a "
               "leaf client killed and an interior aggregator crashed and journal-restored, "
               "2 rounds", flush=True)
         tree = dict(n1=timed("n1", lambda: tree_resnet_phase(card)))
-        print("(n2) the 100k-client acceptance: the tree command in a child process, then "
-              "in process", flush=True)
+        print("(n2) the 100k-client acceptance: the tree command in a child process, "
+              "replayed in process beside it", flush=True)
         tree["n2"] = timed("n2", lambda: tree_100k_phase(card))
         print("(n3) per-edge-cohort secagg at resnet18 width: (1, 4, 16), a leaf client "
               "killed, 2 rounds, twice", flush=True)
         tree["n3"] = timed("n3", lambda: tree_secagg_phase(card))
     if "o" in phases:
-        print(f"(o) the other transports, at once: a server and {O_SILOS} silos as processes "
-              "each over tRPC (o1), cross-cloud over the C++ broker with an S3 store (o2) "
-              "and gRPC (o3); resnet18, int8, 1 round", flush=True)
-        transports = timed("o", lambda: transports_phase(card))
+        transports = transports_beside.result("phase n")
     if "p" in phases:
         print("(p1) federated analytics: the fa command's FSM for every task, 6 clients, on "
               "the card against the CPU", flush=True)
@@ -6327,13 +6929,28 @@ def main(argv=None) -> int:
               f"layers: f32 weights, T=2048, {Q1_STEPS} steps and an eval", flush=True)
         llm_rest = dict(q1=timed("q1", lambda: full_ft_phase(card, peak_bw, peak_flops)))
         print(f"(q2) the full-parameter federation: FedLLMAPI's host loop at "
-              f"{Q2_ARGS['num_hidden_layers']} layers, 2 clients x 2 steps, 2 rounds, a "
-              "checkpoint each round; round 1 again from the round-0 checkpoint", flush=True)
+              f"{Q2_ARGS['num_hidden_layers']} layers, 2 clients x 2 steps, 2 rounds, round 0 "
+              "checkpointed; round 1 again from the round-0 checkpoint", flush=True)
         llm_rest["q2"] = timed("q2", lambda: full_fedllm_phase(card))
         print(f"(q3) MoE rounds: {Q3_ARGS['num_experts']} experts, top-2, "
               f"{Q3_ARGS['num_hidden_layers']} layers of llama3_8b widths, bf16 base, LoRA "
               "rank 16, on-device round, 4 clients x 2 steps, 2 rounds", flush=True)
         llm_rest["q3"] = timed("q3", lambda: moe_phase(card))
+    gates = {}
+    if "t" in phases:
+        # before r: each leg's doctor child runs beside the next leg (the last
+        # one's beside phases r and s), and its checks run after phase s
+        print(f"(t1) run health in the sp simulation: resnet18, int8, 5 clients, 5 rounds, "
+              f"client {T_SLOW} slowed by {T_SLOW_S} s and client {T_NOISY} uploading "
+              f"{T_NOISY_SCALE:g}x its delta; the doctor in a child process", flush=True)
+        gates["t1"] = timed("t1", lambda: health_sp_phase(card))
+        print(f"(t2) run health in cross-silo secagg: phase k1's federation on a quarter of "
+              f"its images, silo {SECAGG_STALL_RANK} stalled in round 1", flush=True)
+        gates["t2"] = timed("t2", lambda: health_secagg_phase(card))
+        print(f"(t3) run health in the tree: resnet18-wide, {T3['clients']} clients over "
+              f"{T3['tiers']} tiers, leaf clients {[k[1] for k in T3_KILLS]} dead in round 1, "
+              f"{T3['rounds']} rounds", flush=True)
+        gates["t3"] = timed("t3", lambda: health_tree_phase(card))
     if "r" in phases:
         print(f"(r1) the sp round of phase h on {R1_DATA['train_size']} images, untraced then "
               "traced: spans into a fresh run dir, the report read back, the parameters "
@@ -6341,8 +6958,9 @@ def main(argv=None) -> int:
         spans = dict(r1=timed("r1", lambda: traced_sp_phase(card)))
         print(f"(r2) phase i2's federation on {R2_TRAIN} images traced: a server and "
               f"{CS_BROKER_SILOS} silos as processes in one run dir, silo {R2_HELD_RANK} sent "
-              "SIGTERM after the round, its untraced twin beside it", flush=True)
-        spans["r2"] = timed("r2", lambda: traced_cross_silo_phase(card))
+              "SIGTERM after the round, its untraced twin beside it; beside phases r3 and s",
+              flush=True)
+        traced_broker = beside("r2", lambda: traced_cross_silo_phase(card))
         print(f"(r3) FedLLMAPI's host loop traced: {R3_ARGS['num_hidden_layers']} layers of "
               "llama3_8b widths, LoRA rank 16, T=2048, 2 clients x 1 step, 1 round",
               flush=True)
@@ -6358,6 +6976,17 @@ def main(argv=None) -> int:
               "against the unprofiled twin", flush=True)
         twin = spans["r1"]["untraced_digest"] if spans else None
         profiling["s2"] = timed("s2", lambda: profiled_sp_phase(card, twin))
+    if "r" in phases:
+        spans["r2"] = traced_broker.result("phases r3 and s")
+    later = {**gates, **_LATER}
+    if later:
+        print(f"(t, r, s) the children's checks: the doctors of {sorted(gates)}, the "
+              f"reports of {sorted(_LATER)}", flush=True)
+        children = timed("children", lambda: _run_gates(later))
+        health = {leg: children[leg] for leg in gates}
+        for leg, out in children.items():
+            if leg not in gates:
+                (spans if leg.startswith("r") else profiling)[leg].update(out)
     whole_s = time.perf_counter() - t_start
     print(f"    whole script: {whole_s:.1f} s from main's start (the limit is 1200 s)",
           flush=True)
@@ -6368,7 +6997,8 @@ def main(argv=None) -> int:
               "trust": trust, "secure": secure, "checkpoints": checkpoints,
               "durable": durable, "tree": tree, "transports": transports,
               "analytics": analytics, "llm_rest": llm_rest, "spans": spans,
-              "profiling": profiling, "phase_s": phase_s, "whole_s": whole_s}
+              "profiling": profiling, "health": health, "phase_s": phase_s,
+              "whole_s": whole_s}
     if sorted(phases) != list(ALL_PHASES):
         with open(os.path.join("results", "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)

@@ -1,6 +1,7 @@
 """Command line of the port (argparse; counterpart of the ``serve``,
-``deploy broker``, ``chaos``, ``tree``, ``fa``, ``telemetry report`` and
-``telemetry profile`` commands of ``fedml_tpu/cli.py``).
+``deploy broker``, ``chaos``, ``tree``, ``fa``, ``telemetry report``,
+``telemetry doctor`` and ``telemetry profile`` commands of
+``fedml_tpu/cli.py``).
 
     python -m fedml_tpu_torch.cli serve --model llama3_8b --quantize int8
     python -m fedml_tpu_torch.cli deploy broker --port 18923
@@ -9,6 +10,7 @@
     python -m fedml_tpu_torch.cli fa --task heavy_hitter_triehh
     python -m fedml_tpu_torch.cli fa --federation --fed-clients 102400
     python -m fedml_tpu_torch.cli telemetry report .fedml_logs/run_0
+    python -m fedml_tpu_torch.cli telemetry doctor .fedml_logs/run_0 --json
     python -m fedml_tpu_torch.cli telemetry profile --rounds 0 -- python run.py
 
 ``chaos`` runs a seeded fault scenario against a cross-silo federation and
@@ -41,6 +43,15 @@ slowest clients, the comm bytes and the spans stitched across processes
 program catalog) against the phase walls into the roofline attribution.
 It exits 1 on a directory with no spans and no metrics. It reads the JAX
 package's run dirs too.
+
+``telemetry doctor RUN_DIR [--json] [--straggler-threshold 2.0]
+[--anomaly-threshold 4.0]`` triages the same run dir: the stragglers and
+anomalous clients (from ``health.jsonl``'s ``client_health`` records), the
+memory growth, the compression payoff, the faults the resilience, secagg,
+integrity and tree layers absorbed, and the crash context of a dead run
+from ``flight_recorder.jsonl``. It prints the verdict and a section each
+(``--json``: one sorted JSON object), and exits 1 on a directory with no
+telemetry of any kind.
 
 ``telemetry profile [--rounds 0,2] [--trace-dir DIR] -- CMD ...`` runs
 CMD with ``FEDML_TRACE_ROUNDS`` / ``FEDML_TRACE_DIR`` set: every engine's
@@ -211,6 +222,19 @@ def build_parser() -> argparse.ArgumentParser:
                                         "(<log_file_dir>/run_<run_id>)")
     report.add_argument("--json", dest="as_json", action="store_true",
                         help="emit the report as one JSON object")
+    doctor = telemetry_sub.add_parser(
+        "doctor", help="triage a run: stragglers, anomalous clients, memory growth, "
+                       "compression, absorbed faults and the crash context")
+    doctor.add_argument("run_dir", help="a run's sink directory "
+                                        "(<log_file_dir>/run_<run_id>)")
+    doctor.add_argument("--json", dest="as_json", action="store_true",
+                        help="emit the raw triage dict as JSON")
+    doctor.add_argument("--straggler-threshold", type=float, default=2.0,
+                        help="flag clients whose median latency score exceeds this "
+                             "multiple of the cohort median (default 2.0)")
+    doctor.add_argument("--anomaly-threshold", type=float, default=4.0,
+                        help="flag clients whose median per-round update-norm/loss "
+                             "robust z exceeds this (default 4.0)")
     profile = telemetry_sub.add_parser(
         "profile", help="run CMD with device-trace capture armed for some rounds")
     profile.add_argument("--rounds", dest="trace_rounds", default="0",
@@ -457,6 +481,23 @@ def run_telemetry_report(args) -> int:
     return 0
 
 
+def run_telemetry_doctor(args) -> int:
+    """``telemetry doctor``: the triage of a run dir, as text or JSON; exit 1
+    when the directory holds no telemetry of any kind."""
+    from fedml_tpu_torch.telemetry.doctor import build_doctor, format_doctor
+
+    triage = build_doctor(args.run_dir, straggler_threshold=args.straggler_threshold,
+                          anomaly_threshold=args.anomaly_threshold)
+    if "run" in triage["notes"]:
+        print(triage["notes"]["run"], flush=True)
+        return 1
+    if args.as_json:
+        print(json.dumps(triage, indent=1, sort_keys=True, default=str), flush=True)
+    else:
+        print(format_doctor(triage), flush=True)
+    return 0
+
+
 def run_telemetry_profile(args) -> int:
     """``telemetry profile``: CMD's exit code, after running it with the
     trace arm exported; lists the captures made under the trace dir."""
@@ -479,8 +520,8 @@ def run_telemetry_profile(args) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "telemetry":
-        return (run_telemetry_profile if args.tool == "profile"
-                else run_telemetry_report)(args)
+        return {"profile": run_telemetry_profile, "doctor": run_telemetry_doctor,
+                "report": run_telemetry_report}[args.tool](args)
     if args.command == "deploy":
         run_broker(args)
     elif args.command in ("chaos", "tree", "fa"):

@@ -153,6 +153,8 @@ class FedMLCommManager(Observer):
         msg_id = msg_params.get(Message.MSG_ARG_KEY_MSG_ID)
         if msg_id is not None and self._deduper.seen(msg_id):
             self._m_dups.inc()
+            flight_recorder.record("duplicate_dropped", rank=self.rank,
+                                   msg_type=str(msg_type), msg_id=msg_id)
             logger.debug("rank %d: duplicate %s dropped (%s)", self.rank, msg_type, msg_id)
             return
         self.liveness.note(msg_params.get_sender_id())
@@ -235,6 +237,8 @@ class FedMLCommManager(Observer):
 
         def on_retry(attempt: int, exc: BaseException) -> None:
             self._m_retries.inc()
+            flight_recorder.record("send_retry", rank=self.rank, attempt=attempt,
+                                   msg_type=message.get_type(), error=repr(exc))
 
         try:
             self._send_retry.call(lambda: self.com_manager.send_message(message),

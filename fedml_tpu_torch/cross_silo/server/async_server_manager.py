@@ -73,7 +73,7 @@ from fedml_tpu_torch.models.convert import (
     to_wire_params,
 )
 from fedml_tpu_torch.resilience.durability import journal_from_args
-from fedml_tpu_torch.telemetry import get_registry
+from fedml_tpu_torch.telemetry import flight_recorder, get_registry
 from fedml_tpu_torch.utils.tree import Tree
 
 logger = logging.getLogger(__name__)
@@ -265,6 +265,9 @@ class AsyncFedMLServerManager(FedMLCommManager):
             self.flushes += 1
             logger.debug("fedbuff flush v%d: %d contribution(s), mean staleness %.2f",
                          self.version, stats["flushed"], stats["mean_staleness"])
+            flight_recorder.record("fedbuff_flush", round=self.version,
+                                   flushed=stats["flushed"],
+                                   mean_staleness=stats["mean_staleness"])
             if self._journal is not None:
                 self._journal.append("buffer_flush", version=int(self.version),
                                      applied=int(self.applied),
@@ -292,6 +295,8 @@ class AsyncFedMLServerManager(FedMLCommManager):
         staleness = max(0, self.version - base_version)
         # the async world's straggler signal: ever-staler updates
         self._m_staleness.observe(float(staleness))
+        flight_recorder.record("async_update", round=self.version, sender=sender,
+                               staleness=staleness)
         with self._state_lock:
             self.applied += 1
         self.staleness_seen.append(staleness)

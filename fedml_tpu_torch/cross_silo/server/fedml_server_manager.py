@@ -77,6 +77,16 @@ aggregate (``mem_sample`` in ``health.jsonl``), the trace controller
 brackets each round from its broadcast to its aggregate (``trace_rounds``
 captures it), and ``finish`` writes ``programs.jsonl``.
 
+Run health is the reference's: a ``ClientHealthTracker`` scores each client
+from its admitted uploads (latency from the broadcast, update norm, the
+heartbeat's loss and memory) and its status heartbeats, and writes a
+``client_health`` record a client each aggregated round; its latency EWMA
+sets the adaptive deadline. Every fault the server absorbs (a stale,
+invalid or screened-out upload, a deadline, an eviction, a rejoin, a
+recovery wave, a journal replay, an abort) lands as a ``resilience_event``
+record beside its counter, and a masked round that cannot resume as a
+``secagg_event``; ``telemetry doctor`` triages them.
+
 Not ported yet, and refused when their arguments are set: FHE (A13) and the
 live telemetry plane (A12c).
 ``cross_silo/round_ms`` (broadcast to the test after aggregation), the
@@ -87,7 +97,6 @@ registry.
 from __future__ import annotations
 
 import logging
-import math
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -132,8 +141,14 @@ from fedml_tpu_torch.resilience import (
     quorum_size,
     salvage_round,
 )
+from fedml_tpu_torch.telemetry import flight_recorder
 from fedml_tpu_torch.telemetry.registry import get_registry
 from fedml_tpu_torch.telemetry.device_stats import DeviceStatsSampler
+from fedml_tpu_torch.telemetry.health import (
+    ClientHealthTracker,
+    log_health_event,
+    update_norm,
+)
 from fedml_tpu_torch.telemetry.profiling import get_trace_controller
 from fedml_tpu_torch.telemetry.spans import configure_from_args, flush_run
 
@@ -153,35 +168,6 @@ def refuse_unported(args: Any, table: Dict[str, str]) -> None:
                 f"{arg}: {what} is not ported to the cross-silo path yet")
 
 
-class _LatencyEWMA:
-    """Each client's round latency (broadcast to upload) as an EWMA, folded
-    when a round closes: the part of the reference's ``ClientHealthTracker``
-    that the adaptive deadline reads (its scores are the run-health slice's,
-    ROADMAP A12b2)."""
-
-    def __init__(self, alpha: float = 0.4):
-        self.alpha = float(alpha)
-        self._lock = threading.Lock()
-        self._pending: Dict[int, Dict[int, float]] = {}
-        self.ewma: Dict[int, float] = {}
-
-    def observe(self, client_id: int, round_idx: int, latency_s: float) -> None:
-        if math.isfinite(latency_s):
-            with self._lock:
-                self._pending.setdefault(int(round_idx), {})[client_id] = float(latency_s)
-
-    def finish_round(self, round_idx: int) -> None:
-        with self._lock:
-            for cid, lat in self._pending.pop(int(round_idx), {}).items():
-                prev = self.ewma.get(cid)
-                self.ewma[cid] = lat if prev is None else (
-                    self.alpha * lat + (1 - self.alpha) * prev)
-
-    def snapshot(self) -> Dict[int, float]:
-        with self._lock:
-            return dict(self.ewma)
-
-
 class FedMLServerManager(FedMLCommManager):
     def __init__(self, args: Any, aggregator: FedMLAggregator, comm=None,
                  client_rank: int = 0, client_num: int = 0,
@@ -190,8 +176,12 @@ class FedMLServerManager(FedMLCommManager):
         super().__init__(args, comm, client_rank, client_num + 1, backend, device)
         # the run-dir sinks (spans, flight recorder), as the sp engine binds them
         self.tracer = configure_from_args(args, service=f"rank{self.rank}")
-        # device memory sampled per aggregate (mem/* gauges, health.jsonl)
+        # device memory sampled per aggregate (mem/* gauges, health.jsonl);
+        # each client scored from its uploads and piggybacked heartbeats
+        # (client_health records, health/* gauges; its latency EWMA sets the
+        # adaptive deadline)
         self._devstats = DeviceStatsSampler()
+        self._health = ClientHealthTracker()
         self.aggregator = aggregator
         self.round_num = int(getattr(args, "comm_round", 1))
         self.args.round_idx = 0
@@ -222,7 +212,6 @@ class FedMLServerManager(FedMLCommManager):
         # resolve only in aggregate; a quorum close with missing clients runs
         # the seed-reveal recovery before it aggregates
         self._secagg = SecAggServerSession.from_args(args, client_num)
-        self._latency = _LatencyEWMA()
         self._bcast_ts: Dict[int, float] = {}
         self._round_t0 = 0.0
         self._round_lock = threading.Lock()
@@ -307,6 +296,8 @@ class FedMLServerManager(FedMLCommManager):
             # uploads can never unmask, so the round restarts from the
             # checkpoint boundary, loudly
             reg.counter("secagg/resume_aborts").inc()
+            log_health_event({"kind": "secagg_event", "event": "resume_aborted",
+                              "round": sal.round_idx, "uploads_dropped": len(sal.uploads)})
             logger.error("secagg round %d cannot resume mid-round after a restart (masks "
                          "are irrecoverable without the session): dropping %d journaled "
                          "masked upload(s) and restarting the round from the checkpoint "
@@ -447,6 +438,9 @@ class FedMLServerManager(FedMLCommManager):
 
     def handle_message_client_status_update(self, msg: Message) -> None:
         sender = msg.get_sender_id()
+        hb = msg.get(Message.MSG_ARG_KEY_HEALTH)
+        if isinstance(hb, dict):
+            self._health.heartbeat(sender, hb)
         if self._secagg is not None:
             # the key advertisement rides every status and heartbeat
             pk = msg.get(SecAggMessage.MSG_ARG_KEY_SECAGG_PK)
@@ -546,10 +540,7 @@ class FedMLServerManager(FedMLCommManager):
                 if screened is not None:
                     self._screened_out.add(sender)
                 else:
-                    sent = self._bcast_ts.get(sender)
-                    if sent:
-                        self._latency.observe(sender, self.args.round_idx,
-                                              time.time() - sent)
+                    self._observe_client_upload(sender, msg, model_params)
                     if self._journal is not None:
                         # durable before it is applied, in its wire form
                         self._journal_upload(msg, sender, wire)
@@ -565,7 +556,9 @@ class FedMLServerManager(FedMLCommManager):
             self._kill_window.maybe_kill(int(self.args.round_idx),
                                          self.aggregator.n_received())
         if invalid is not None:
-            get_registry().counter("secagg/invalid_uploads").inc()
+            self._resilience_event("secagg_invalid_upload", client=sender,
+                                   round=self.args.round_idx, reason=invalid,
+                                   counter="secagg/invalid_uploads")
             logger.warning("dropping invalid masked upload from client %s: %s", sender,
                            invalid)
             return
@@ -578,7 +571,9 @@ class FedMLServerManager(FedMLCommManager):
         if stale:
             # a closed round's upload, or one from outside the cohort: never
             # applied; from an evicted client it is also its sign of life
-            get_registry().counter("resilience/stale_uploads").inc()
+            self._resilience_event("stale_upload", client=sender, upload_round=msg_round,
+                                   server_round=self.args.round_idx,
+                                   counter="resilience/stale_uploads")
             logger.warning("dropping stale upload from client %s (round %s, server at "
                            "round %s)", sender, msg_round, self.args.round_idx)
             if self.liveness.is_evicted(sender):
@@ -632,7 +627,10 @@ class FedMLServerManager(FedMLCommManager):
                     "round %d closing BELOW quorum after z-outlier drops: %d/%d "
                     "honest uploads (quorum %d)", int(self.args.round_idx), received,
                     expected, need)
-                get_registry().counter("integrity/below_quorum_closes").inc()
+                self._resilience_event("below_quorum_integrity_close",
+                                       round=int(self.args.round_idx), received=received,
+                                       expected=expected, quorum=need,
+                                       counter="integrity/below_quorum_closes")
         missing_idx = self.aggregator.close_round_quorum(expected)
         self._round_closed = True
         self._deadline.cancel()
@@ -666,7 +664,9 @@ class FedMLServerManager(FedMLCommManager):
                 if extended:
                     self._deadline.arm(round_idx, self.resilience.round_deadline_s)
         need = quorum_size(len(cohort), self.resilience.round_quorum)
-        get_registry().counter("resilience/deadline_fired").inc()
+        self._resilience_event("deadline_expired", round=round_idx, received=received,
+                               expected=len(cohort), quorum=need,
+                               counter="resilience/deadline_fired")
         if missing is None:
             if extended:
                 logger.warning("round %d deadline expired with %d/%d uploads (< quorum "
@@ -694,9 +694,12 @@ class FedMLServerManager(FedMLCommManager):
         (which the in-process harness and any supervisor watch) and a
         stopped receive loop."""
         logger.error("aborting federation: %s", reason)
-        get_registry().counter("resilience/aborts").inc()
+        self._resilience_event("federation_aborted", reason=reason,
+                               counter="resilience/aborts")
+        err = RuntimeError(reason)
+        flight_recorder.get_flight_recorder().dump(reason="federation_abort", exc=err)
         with self._round_lock:
-            self.handler_error = RuntimeError(reason)
+            self.handler_error = err
         self.com_manager.stop_receive_message()
 
     def _finish_round(self, missing_clients: List[int]) -> None:
@@ -708,7 +711,8 @@ class FedMLServerManager(FedMLCommManager):
             reg.counter("resilience/quorum_rounds").inc()
             for cid in missing_clients:
                 if self.liveness.evict(cid):
-                    reg.counter("resilience/clients_evicted").inc()
+                    self._resilience_event("evicted", client=cid, round=self.args.round_idx,
+                                           counter="resilience/clients_evicted")
         if (self._secagg is not None and missing_clients
                 and not self._secagg.recovery_complete()):
             self._secagg_start_recovery(missing_clients)
@@ -731,7 +735,10 @@ class FedMLServerManager(FedMLCommManager):
                 f"< {need} (quorum floor; privacy floor is 2 — a lone survivor's upload "
                 "would unmask)")
             return
-        get_registry().counter("resilience/quorum_recoveries").inc()
+        self._resilience_event("secagg_recovery", round=self.args.round_idx,
+                               evicted=list(self._secagg.evicted), survivors=ask,
+                               wave=self._secagg.recovery_waves,
+                               counter="resilience/quorum_recoveries")
         logger.warning("secagg round %s recovery wave %d: evicted %s, asking %s",
                        self.args.round_idx, self._secagg.recovery_waves,
                        self._secagg.evicted, ask)
@@ -768,7 +775,9 @@ class FedMLServerManager(FedMLCommManager):
             except (TypeError, ValueError) as e:
                 err = str(e)
         if err is not None:
-            get_registry().counter("secagg/invalid_reveals").inc()
+            self._resilience_event("secagg_invalid_reveal", client=sender,
+                                   round=self.args.round_idx, reason=err,
+                                   counter="secagg/invalid_reveals")
             logger.warning("dropping invalid secagg reveal from client %s: %s", sender, err)
             return
         if complete:
@@ -784,7 +793,6 @@ class FedMLServerManager(FedMLCommManager):
         sa = self._secagg
         if sa is None:
             return
-        reg = get_registry()
         with self._round_lock:
             # decided and mutated under the round lock: a reveal completing
             # concurrently lands either before (complete → return) or after
@@ -800,12 +808,15 @@ class FedMLServerManager(FedMLCommManager):
             if not exhausted:
                 for cid in pending:
                     if self.liveness.evict(cid):
-                        reg.counter("resilience/clients_evicted").inc()
+                        self._resilience_event("evicted", client=cid, round=round_idx,
+                                               counter="resilience/clients_evicted")
                     self.aggregator.drop_client_upload(cohort.index(cid))
                 ask = sa.begin_recovery(sa.survivors, set(sa.evicted) | set(pending))
         need = max(2, quorum_size(len(cohort), self.resilience.round_quorum))
         if exhausted or len(ask) < need:
-            reg.counter("secagg/recovery_failures").inc()
+            self._resilience_event("secagg_recovery_failed", round=round_idx,
+                                   pending=pending, waves=sa.recovery_waves,
+                                   counter="secagg/recovery_failures")
             self._abort_federation(
                 f"secagg round {round_idx} mask recovery stuck: survivors {pending} never "
                 f"revealed after {sa.recovery_waves} bounded waves" if exhausted else
@@ -832,7 +843,7 @@ class FedMLServerManager(FedMLCommManager):
             if reason is not None:
                 self._rollback_round(reason)
                 return
-        self._latency.finish_round(self.args.round_idx)
+        self._health.finish_round(self.args.round_idx)
         self._devstats.sample("aggregate", self.args.round_idx)
         # the trace round boundary: close the capture that bracketed the
         # round that just aggregated, open one for the next if armed
@@ -1016,6 +1027,8 @@ class FedMLServerManager(FedMLCommManager):
         reg = get_registry()
         reg.counter("resilience/journal_replays").inc()
         reg.counter("resilience/journal_salvaged").inc(len(sal.uploads))
+        self._resilience_event("journal_replayed", round=sal.round_idx,
+                               salvaged=sorted(sal.uploaded_clients), closed=sal.closed)
         logger.warning("restart: journal replay re-entered round %d mid-flight with %d/%d "
                        "salvaged upload(s)%s", sal.round_idx, len(sal.uploads), len(cohort),
                        " (round already quorum-closed)" if sal.closed else "")
@@ -1055,7 +1068,8 @@ class FedMLServerManager(FedMLCommManager):
         if cfg.deadline_adaptive:
             # no history → the static ceiling, so a cold first round never
             # fires early
-            timeout = adaptive_deadline_s(self._latency.snapshot(), cfg.deadline_multiplier,
+            timeout = adaptive_deadline_s(self._health.snapshot()["latency_ewma_s"],
+                                          cfg.deadline_multiplier,
                                           cfg.deadline_grace_s, cfg.deadline_min_s,
                                           cfg.round_deadline_s)
         self._deadline.arm(int(self.args.round_idx), timeout)
@@ -1067,7 +1081,8 @@ class FedMLServerManager(FedMLCommManager):
         cohort at the next selection."""
         if not self.liveness.readmit(client_id):
             return
-        get_registry().counter("resilience/clients_rejoined").inc()
+        self._resilience_event("rejoined", client=client_id, round=self.args.round_idx,
+                               counter="resilience/clients_rejoined")
         logger.info("client %s rejoined at round %s", client_id, self.args.round_idx)
         m = Message(MyMessage.MSG_TYPE_S2C_REJOIN_SYNC, self.get_sender_id(), client_id)
         m.add_params(MyMessage.MSG_ARG_KEY_MODEL_PARAMS,
@@ -1077,6 +1092,38 @@ class FedMLServerManager(FedMLCommManager):
         if self._codec is not None:
             m.add_params(Message.MSG_ARG_KEY_COMPRESSION, self._codec.spec)
         self.send_message(m)
+
+    def _resilience_event(self, event: str, counter: Optional[str] = None,
+                          **fields) -> None:
+        """One resilience event, landed everywhere the doctor looks: its
+        ``resilience/*`` (or ``secagg/*``, ``integrity/*``) counter, a
+        ``resilience_event`` record in ``health.jsonl`` and the flight
+        recorder."""
+        if counter:
+            get_registry().counter(counter).inc()
+        try:
+            log_health_event({"kind": "resilience_event", "event": event, **fields})
+        except OSError:  # observability never breaks the round
+            logger.exception("resilience event logging failed")
+        flight_recorder.record("resilience_event", event=event, **fields)
+
+    def _observe_client_upload(self, sender: int, msg: Message, model_params) -> None:
+        """Feed the health tracker from one admitted upload: its latency from
+        the broadcast, its update norm against the round's upload base (off
+        the wire arrays for a compressed delta; None for a masked one), and
+        the loss and memory of its piggybacked heartbeat. Introspection never
+        breaks the round."""
+        try:
+            sent = self._bcast_ts.get(sender)
+            hb = msg.get(Message.MSG_ARG_KEY_HEALTH)
+            hb = hb if isinstance(hb, dict) else {}
+            self._health.observe(
+                sender, self.args.round_idx,
+                latency_s=(time.time() - sent) if sent else None,
+                update_norm=update_norm(model_params, base=self._screen_base(model_params)),
+                train_loss=hb.get("train_loss"), heartbeat=hb or None)
+        except Exception:  # noqa: BLE001 - observability never breaks the round
+            logger.exception("client health observation failed")
 
     def _send_finish(self) -> None:
         for client_id in range(1, self.client_num + 1):

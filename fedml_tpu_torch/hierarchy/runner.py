@@ -16,9 +16,13 @@ Telemetry lands per tier under the reference's ``tier/<d>/...`` names
 (upload bytes, contributions, quorum closes and failures, evictions,
 rejoins, restarts, screened uplinks, nodes and peak buffered bytes); the
 trace controller brackets each round (``tree --trace-rounds`` captures
-it). The tier-tagged ``resilience_event`` records and the edge health
-scoring come with the run-health slice (ROADMAP A12b2), ``live=`` with the
-live plane (A12c).
+it). Every tier counter's event (eviction, rejoin, restart, screened
+uplink, quorum close or failure) is also a tier-tagged ``resilience_event``
+record in ``health.jsonl``, and each leaf-parent edge is scored as a client
+of a ``ClientHealthTracker`` (its cohort's reduce wall is its round
+latency; on the card the reduce's span between two CUDA events, read at the
+round's end), so ``telemetry doctor`` triages a tree run's tiers and slow
+edges. ``live=`` comes with the live plane (ROADMAP A12c).
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ from fedml_tpu_torch.hierarchy.tree import TreeTopology
 from fedml_tpu_torch.models.convert import flatten_paths
 from fedml_tpu_torch.resilience.quorum import quorum_size
 from fedml_tpu_torch.telemetry import get_registry
+from fedml_tpu_torch.telemetry.health import ClientHealthTracker, log_health_event
 from fedml_tpu_torch.telemetry.profiling import get_trace_controller
 from fedml_tpu_torch.utils.tree import Tree, tree_flatten
 
@@ -267,11 +272,25 @@ class TreeRunner:
         ct = self.codec.encode(dict(zip(self._keys, self.global_leaves)),
                                key=derive_key(self.seed, 0, 0), is_delta=True)
         self.per_client_wire_nbytes = compressed_nbytes(ct)
+        # each leaf-parent edge is a client of the health tracker: a
+        # consistently slow edge surfaces in the doctor as a straggler
+        self._health = ClientHealthTracker()
         self.stats: Dict[str, Any] = {}
 
     # -- chaos + telemetry helpers ----------------------------------------
     def _dead(self, tier: int, round_idx: int) -> set:
         return {kw.node for kw in self.chaos if kw.dead_at(tier, round_idx)}
+
+    def _event(self, event: str, tier: int, counter, n: int = 1, **fields) -> None:
+        """One tier event: its ``tier/<d>/*`` counter (registered by the
+        caller under a literal name) and a tier-tagged ``resilience_event``
+        record in ``health.jsonl``."""
+        counter.inc(n)
+        try:
+            log_health_event({"kind": "resilience_event", "event": event, "tier": tier,
+                              **fields})
+        except OSError:  # observability never breaks the round
+            logger.exception("tier event logging failed")
 
     def _scalar(self, v: float) -> torch.Tensor:
         # a divisor on the device: CUDA multiplies by the reciprocal of a
@@ -305,13 +324,16 @@ class TreeRunner:
             return partials
         admitted: Dict[int, PartialSum] = {}
         for node, ps in sorted(partials.items()):
-            if screen.admit(node, round_idx, ps.ct) is not None:
-                reg.counter(f"tier/{tier}/screened").inc()
+            reason = screen.admit(node, round_idx, ps.ct)
+            if reason is not None:
+                self._event("upload_screened", tier, reg.counter(f"tier/{tier}/screened"),
+                            1, round=round_idx, node=node, reason=reason)
                 continue
             admitted[node] = ps
-        for node in screen.close_round(round_idx):
+        for node, reason in screen.close_round(round_idx).items():
             if admitted.pop(node, None) is not None:
-                reg.counter(f"tier/{tier}/screened").inc()
+                self._event("upload_screened", tier, reg.counter(f"tier/{tier}/screened"),
+                            1, round=round_idx, node=node, reason=reason)
         return admitted
 
     def _restart_edge(self, round_idx: int, tier: int, node: int, dead: EdgeAggregator,
@@ -327,7 +349,8 @@ class TreeRunner:
         reg.counter("resilience/restarts").inc()
         reg.counter("resilience/journal_replays").inc()
         reg.counter("resilience/journal_salvaged").inc(salvaged)
-        reg.counter(f"tier/{tier}/restarts").inc()
+        self._event("edge_restarted", tier, reg.counter(f"tier/{tier}/restarts"), 1,
+                    round=round_idx, node=node, salvaged=salvaged)
         logger.warning("chaos: tier %d node %d killed and journal-restarted at round %d "
                        "with %d salvaged partial sum(s)", tier, node, round_idx, salvaged)
         return fresh
@@ -350,22 +373,44 @@ class TreeRunner:
                                           if (lo + int(i)) not in dead_clients], np.int64)
                 back = cohort.readmit(alive_again)
                 if len(back):
-                    reg.counter(f"tier/{L}/rejoined").inc(len(back))
+                    self._event("rejoined", L, reg.counter(f"tier/{L}/rejoined"), len(back),
+                                round=round_idx, clients=[int(c) for c in back[:16]])
             alive = np.ones(len(cohort.client_ids), bool)
             for c in dead_clients:
                 if 0 <= c - lo < len(alive):
                     alive[c - lo] = False
             expected = cohort.n_expected()
+            # the reduce wall is the edge's round latency; on the card it is
+            # the reduce's span on the device (CUDA events, read once at the
+            # round's end: the host clock would cover only the launches, and
+            # a sync an edge would stall the launch queue)
+            if self.device.type == "cuda":
+                started = torch.cuda.Event(enable_timing=True)
+                started.record()
+            else:
+                started = time.perf_counter()
             sum_leaves, total_w, n_recv = cohort.reduce(round_idx, alive)
+            if self.device.type == "cuda":
+                ended = torch.cuda.Event(enable_timing=True)
+                ended.record()
+                self._edge_walls.append((int(e), started, ended))
+            else:
+                self._health.observe(int(e), round_idx,
+                                     latency_s=time.perf_counter() - started)
             dead_local = np.nonzero(~alive & ~cohort.evicted_mask)[0]
             if len(dead_local):
                 gone = cohort.evict(dead_local)
-                reg.counter(f"tier/{L}/evicted").inc(len(gone))
+                self._event("evicted", L, reg.counter(f"tier/{L}/evicted"), len(gone),
+                            round=round_idx, clients=[int(c) for c in gone[:16]])
             if n_recv < quorum_size(max(1, expected), self.quorum) or sum_leaves is None:
-                reg.counter(f"tier/{L - 1}/quorum_failures").inc()
+                self._event("quorum_failed", L - 1,
+                            reg.counter(f"tier/{L - 1}/quorum_failures"), 1,
+                            round=round_idx, node=e, received=n_recv, expected=expected)
                 continue
             if n_recv < expected:
-                reg.counter(f"tier/{L - 1}/quorum_closes").inc()
+                self._event("quorum_close", L - 1,
+                            reg.counter(f"tier/{L - 1}/quorum_closes"), 1,
+                            round=round_idx, node=e, received=n_recv, expected=expected)
             if getattr(cohort, "returns_mean", False):
                 mean = sum_leaves  # a robust cohort reduces straight to the statistic
             else:
@@ -398,7 +443,9 @@ class TreeRunner:
             # probe/rejoin before the round opens (same rule as the leaves)
             for c in agg.evicted():
                 if c not in dead_here and c in child_partials and agg.readmit(c):
-                    reg.counter(f"tier/{tier + 1}/rejoined").inc()
+                    self._event("rejoined", tier + 1,
+                                reg.counter(f"tier/{tier + 1}/rejoined"), 1,
+                                round=round_idx, node=c)
             expected = agg.begin_round(round_idx)
             kill = next((k for k in self.edge_kills
                          if k.tier == tier and k.node == node and k.round == round_idx), None)
@@ -417,24 +464,34 @@ class TreeRunner:
             if tier == 0:
                 mean, total_w, missing = agg.close_round_root()
                 if missing:
-                    reg.counter("tier/1/evicted").inc(len(missing))
+                    self._event("evicted", 1, reg.counter("tier/1/evicted"), len(missing),
+                                round=round_idx, nodes=missing)
                 if mean is None:
                     raise RuntimeError(
                         f"global round {round_idx} below quorum at the root: {received}/"
                         f"{len(expected)} tier-1 partial sums (need "
                         f"{quorum_size(max(1, len(expected)), self.quorum)})")
                 if received < len(expected):
-                    reg.counter("tier/0/quorum_closes").inc()
+                    self._event("quorum_close", 0, reg.counter("tier/0/quorum_closes"), 1,
+                                round=round_idx, received=received,
+                                expected=len(expected))
                 self._root_close = ([mean[k] for k in self._keys], total_w)
             else:
                 ps, missing = agg.close_round(key)
                 if missing:
-                    reg.counter(f"tier/{tier + 1}/evicted").inc(len(missing))
+                    self._event("evicted", tier + 1, reg.counter(f"tier/{tier + 1}/evicted"),
+                                len(missing), round=round_idx, nodes=missing)
                 if ps is None:
-                    reg.counter(f"tier/{tier}/quorum_failures").inc()
+                    self._event("quorum_failed", tier,
+                                reg.counter(f"tier/{tier}/quorum_failures"), 1,
+                                round=round_idx, node=node, received=received,
+                                expected=len(expected))
                     continue
                 if received < len(expected):
-                    reg.counter(f"tier/{tier}/quorum_closes").inc()
+                    self._event("quorum_close", tier,
+                                reg.counter(f"tier/{tier}/quorum_closes"), 1,
+                                round=round_idx, node=node, received=received,
+                                expected=len(expected))
                 out[node] = self._maybe_corrupt(tier, node, round_idx, ps, reg)
             self._tier_peak_buffer[tier] = max(self._tier_peak_buffer.get(tier, 0),
                                                agg.peak_buffered_nbytes)
@@ -502,6 +559,7 @@ class TreeRunner:
             get_trace_controller().on_round_start(r)
             self._tier_round_bytes: Dict[int, int] = {}
             self._root_close = None
+            self._edge_walls: List[tuple] = []
             partials = self._leaf_round(r, reg)
             if L == 1:
                 # 2-tier tree: the root IS the single leaf cohort's edge — decode
@@ -516,6 +574,11 @@ class TreeRunner:
                 partials = self._interior_round(r, tier, partials, reg)
             if self._root_close is None:  # pragma: no cover - defensive
                 raise RuntimeError(f"round {r} never reached the root")
+            if self._edge_walls:
+                self._edge_walls[-1][2].synchronize()
+                for e, started, ended in self._edge_walls:
+                    self._health.observe(e, r, latency_s=started.elapsed_time(ended) / 1e3)
+            self._health.finish_round(r)  # the edges' straggler scoring
             mean, total_w = self._root_close
             self.last_root_weight = float(total_w)
             with torch.no_grad():

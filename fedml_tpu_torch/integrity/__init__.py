@@ -15,8 +15,9 @@ a poisoned delta), in three rings on the fused compressed aggregation path:
 
 :mod:`.quarantine` holds the list both outer rings feed. Everything is
 counted under the reference's ``integrity/*`` names in the port's metrics
-registry (the ``health.jsonl`` events and their flight-recorder copies come
-with the run-health slice, ROADMAP A12b2).
+registry, and each screened upload, quarantine and rollback is an
+``integrity_event`` record in ``health.jsonl`` with its flight-recorder
+copy, which the doctor's integrity section reads.
 """
 from __future__ import annotations
 

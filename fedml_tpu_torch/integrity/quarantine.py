@@ -7,6 +7,9 @@ readmitted on its next sign of life — but selection also asks this list,
 so it sits out until its ``quarantine_rounds`` elapse. The counters and
 gauge are the reference's: ``integrity/quarantined``,
 ``integrity/quarantine_released`` and ``integrity/quarantine_active``.
+Each quarantine is also an ``integrity_event`` record in ``health.jsonl``
+and the flight recorder (:func:`record_integrity_event`, which the screen
+and the rollback guard use for theirs).
 """
 from __future__ import annotations
 
@@ -14,11 +17,22 @@ import logging
 import threading
 from typing import Any, Dict, List, Optional
 
-from fedml_tpu_torch.telemetry import get_registry
+from fedml_tpu_torch.telemetry import flight_recorder, get_registry
+from fedml_tpu_torch.telemetry.health import log_health_event
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["QuarantineList"]
+__all__ = ["QuarantineList", "record_integrity_event"]
+
+
+def record_integrity_event(event: str, **fields) -> None:
+    """One ``integrity_event`` record in ``health.jsonl`` and its copy in the
+    flight recorder, where the doctor's integrity section reads them."""
+    try:
+        log_health_event({"kind": "integrity_event", "event": event, **fields})
+    except OSError:  # observability never breaks the round
+        logger.exception("integrity event logging failed")
+    flight_recorder.record("integrity_event", event=event, **fields)
 
 
 class QuarantineList:
@@ -45,6 +59,8 @@ class QuarantineList:
             active = len(self._until)
         self._reg.counter("integrity/quarantined").inc()
         self._reg.gauge("integrity/quarantine_active").set(active)
+        record_integrity_event("quarantined", client=client, round=int(round_idx),
+                               until_round=until, reason=str(reason))
         logger.warning("client %s QUARANTINED until round %d: %s", client, until, reason)
         return True
 

@@ -5,7 +5,8 @@ After every aggregate the guard checks that the new global parameters are
 finite (one reduction on their device, one scalar read) and, on eval
 rounds, that the eval loss has not spiked past ``loss_mult ×`` the EWMA of
 accepted rounds. A rejected round is the caller's to unwind; past
-``max_rollbacks`` consecutive rollbacks :meth:`record_rollback` raises
+``max_rollbacks`` consecutive rollbacks :meth:`record_rollback` (which
+writes each rollback's ``round_rolled_back`` record) raises
 :class:`RollbackBudgetExceeded`, which every engine turns into a loud
 abort.
 """
@@ -17,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from fedml_tpu_torch.integrity.quarantine import record_integrity_event
 from fedml_tpu_torch.telemetry import get_registry
 from fedml_tpu_torch.telemetry.profiling import wrap_program
 from fedml_tpu_torch.utils.tree import Tree, tree_leaves
@@ -101,6 +103,8 @@ class AcceptanceGuard:
         self.rollbacks += 1
         self.total_rollbacks += 1
         get_registry().counter("integrity/rollbacks").inc()
+        record_integrity_event("round_rolled_back", round=int(round_idx),
+                               reason=str(reason), consecutive=self.rollbacks)
         logger.error("round %d REJECTED (%s) — rolling back to the last accepted "
                      "state (rollback %d/%d)", round_idx, reason, self.rollbacks,
                      self.max_rollbacks)

@@ -15,7 +15,8 @@ applies the reference's three rules (:class:`UpdateScreen`):
   norm across the round's cohort, high side only, with a 20% relative
   floor on the scale and a 3× ratio condition.
 
-Flagged uploads are dropped and counted (``integrity/*``), and the caller
+Flagged uploads are dropped and counted (``integrity/*``, and an
+``upload_screened`` record in ``health.jsonl``), and the caller
 quarantines their senders. A masked secure-aggregation upload cannot be
 screened (per-upload introspection is what the masks prevent): it raises.
 """
@@ -37,6 +38,7 @@ from fedml_tpu_torch.compression.codecs import (
     get_codec,
     tree_delta,
 )
+from fedml_tpu_torch.integrity.quarantine import record_integrity_event
 from fedml_tpu_torch.telemetry import get_registry
 from fedml_tpu_torch.telemetry.profiling import wrap_program
 from fedml_tpu_torch.utils.tree import Tree, tree_flatten
@@ -163,6 +165,8 @@ class UpdateScreen:
     def _flag(self, counter: str, client: Any, round_idx: int, reason: str) -> str:
         self._reg.counter("integrity/screened_uploads").inc()
         self._reg.counter(counter).inc()
+        record_integrity_event("upload_screened", client=client, round=int(round_idx),
+                               reason=reason)
         logger.warning("upload of client %s screened at round %d: %s",
                        client, round_idx, reason)
         return reason

@@ -20,9 +20,10 @@ peer), ever. Malformed headers, keys, uploads and reveals raise
 ``ValueError`` (the server drops and counts them). Threat model: an
 honest-but-curious server and honest clients (``docs/privacy.md``).
 
-The ``secagg/*`` counters go to the port's metrics registry; the protocol
-events and phase markers are logged (their flight-recorder records and
-the doctor's secagg section come with the run-health slice, ROADMAP A12b2).
+The ``secagg/*`` counters go to the port's metrics registry; each phase
+(collect, recover, unmask) leaves a ``secagg_phase`` marker in the flight
+recorder, and a recovery's start and close a ``secagg_event`` record in
+``health.jsonl``, which the doctor's secagg section reads.
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ from fedml_tpu_torch.privacy.secagg.codec import (
     masked_encode,
     unmask_finalize,
 )
-from fedml_tpu_torch.telemetry import get_registry
+from fedml_tpu_torch.telemetry import flight_recorder, get_registry
+from fedml_tpu_torch.telemetry.health import log_health_event
 from fedml_tpu_torch.utils.tree import Tree, tree_flatten
 
 logger = logging.getLogger(__name__)
@@ -83,12 +85,22 @@ def _counter(name: str, **labels):
     return get_registry().counter(name, labels=labels or None)
 
 
+def _secagg_event(event: str, **fields) -> None:
+    """One protocol event, landed where the doctor looks: a ``secagg_event``
+    record in ``health.jsonl`` and the flight recorder."""
+    try:
+        log_health_event({"kind": "secagg_event", "event": event, **fields})
+    except OSError:  # observability never breaks the round
+        logger.exception("secagg event logging failed")
+    flight_recorder.record("secagg_event", event=event, **fields)
+
+
 def record_phase(phase: str, round_idx: int, **fields) -> None:
-    """A phase marker of a masked round: no phase ever materializes an
+    """The flight recorder's phase marker of a masked round.
+    ``individual_plaintext`` is the invariant: no phase ever materializes an
     individual client's unmasked delta on the server."""
-    _counter("secagg/phases", phase=phase).inc()
-    logger.info("secagg phase %s round %d (masked, no individual plaintext) %s",
-                phase, int(round_idx), fields)
+    flight_recorder.record("secagg_phase", phase=phase, round=int(round_idx),
+                           masked=True, individual_plaintext=False, **fields)
 
 
 def _validate_pk(pk: Any) -> bytes:
@@ -340,9 +352,12 @@ class SecAggServerSession:
                                self.evicted, newly)
             self.recovery_waves += 1
             _counter("secagg/recoveries").inc()
-            record_phase("recover", self.round_idx if self.round_idx is not None else -1,
+            # the reference's ``round_idx or -1``: round 0 is stamped -1
+            record_phase("recover", self.round_idx or -1,
                          wave=self.recovery_waves, evicted=self.evicted,
                          survivors=list(self.survivors))
+            _secagg_event("recovery_started", round=self.round_idx,
+                          wave=self.recovery_waves, evicted=list(self.evicted))
             return list(self.survivors)
 
     def note_reveal(self, sender: int, payload: Any, round_idx: Any) -> bool:
@@ -403,12 +418,12 @@ class SecAggServerSession:
         dp_sigma, dp_key = self._dp_noise_params()
         out = unmask_finalize(ordered, base, self.codec, recovery=recovery,
                               dp_sigma=dp_sigma, dp_key_data=dp_key)
-        record_phase("unmask", self.round_idx if self.round_idx is not None else -1,
+        record_phase("unmask", self.round_idx or -1,
                      survivors=ranks, recovered=len(self.evicted), dp_noised=dp_sigma > 0)
         if self.evicted:
-            logger.warning("secagg round %s recovered: evicted %s, %d seeds revealed",
-                           self.round_idx, self.evicted,
-                           sum(len(v) for v in self.reveals.values()))
+            _secagg_event("recovery_closed", round=self.round_idx,
+                          evicted=list(self.evicted),
+                          seeds=sum(len(v) for v in self.reveals.values()))
         return out
 
     def _dp_noise_params(self) -> Tuple[float, Optional[np.ndarray]]:

@@ -1,8 +1,9 @@
-"""Run supervision policy — the port's copy of three names of
-``fedml_tpu/scheduler/supervision.py`` (:43-147): restart backoff and
+"""Run supervision policy — the port's copy of four names of
+``fedml_tpu/scheduler/supervision.py`` (:43-159): restart backoff and
 crash-loop containment, for the kill-and-respawn runner
-(``resilience/durability/recover``). The rest of the scheduler comes with
-ROADMAP A13.
+(``resilience/durability/recover``), and :func:`sched_event`, the job
+plane's record for the doctor, which the scheduler's agents (ROADMAP A13,
+with the rest of the scheduler) will call.
 
 Policy:
 
@@ -21,10 +22,16 @@ Policy:
 from __future__ import annotations
 
 import json
+import logging
 import signal
 from typing import Any, Dict, List, Optional, Tuple
 
-__all__ = ["RestartPolicy", "RestartTracker", "describe_rc"]
+from fedml_tpu_torch.telemetry import flight_recorder
+from fedml_tpu_torch.telemetry.health import log_health_event
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["RestartPolicy", "RestartTracker", "describe_rc", "sched_event"]
 
 
 def describe_rc(rc: Optional[int]) -> str:
@@ -117,3 +124,13 @@ class RestartTracker:
         self.restarts += 1
         self.delays_s.append(delay)
         return ("restart", delay)
+
+
+def sched_event(event: str, **fields: Any) -> None:
+    """One job-plane event, landed where the doctor looks: a ``sched_event``
+    record in ``health.jsonl`` and the flight recorder."""
+    try:
+        log_health_event({"kind": "sched_event", "event": event, **fields})
+    except OSError:  # observability never breaks the supervisor
+        logger.exception("sched event logging failed")
+    flight_recorder.record("sched_event", event=event, **fields)

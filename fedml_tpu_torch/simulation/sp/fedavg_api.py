@@ -50,7 +50,13 @@ client and eval programs are cataloged (``programs.jsonl``), device memory
 is sampled after ``train``, ``aggregate`` and ``eval`` (``mem_sample`` in
 ``health.jsonl``), and the trace controller brackets every round, so
 ``trace_rounds`` captures a ``torch.profiler`` trace of the rounds it
-names. FHE (ROADMAP A13) is refused. The ``sp/rounds`` counter and the
+names. Run health (ROADMAP A12b2) is the reference's: each client's
+wall (on the card, synchronised at the client's end), its update norm (the
+raw displacement without a codec, else the encoded delta's, read off its
+blocks after the screen admits it) and its loss go to a
+``ClientHealthTracker`` that scores the round at its end (``client_health``
+records in ``health.jsonl``, ``health/*`` gauges), which ``telemetry
+doctor`` triages. FHE (ROADMAP A13) is refused. The ``sp/rounds`` counter and the
 ``sp/client_train_ms``, ``sp/encode_ms``, ``sp/screen_ms`` and
 ``sp/aggregate_ms`` histograms go to the port's metrics registry.
 """
@@ -102,6 +108,7 @@ from fedml_tpu_torch.models.convert import from_reference_layout, to_reference_l
 from fedml_tpu_torch.simulation.sampling import sample_clients, sample_from_list
 from fedml_tpu_torch.telemetry import flight_recorder
 from fedml_tpu_torch.telemetry.device_stats import DeviceStatsSampler
+from fedml_tpu_torch.telemetry.health import ClientHealthTracker, update_norm
 from fedml_tpu_torch.telemetry.profiling import get_trace_controller
 from fedml_tpu_torch.telemetry.registry import get_registry
 from fedml_tpu_torch.telemetry.spans import configure_from_args, flush_run
@@ -184,8 +191,11 @@ class FedAvgAPI:
         self._m_screen_ms = reg.histogram("sp/screen_ms")
         self._m_aggregate_ms = reg.histogram("sp/aggregate_ms")
         self._m_rounds = reg.counter("sp/rounds")
-        # per-phase device memory samples (health.jsonl, mem/* gauges)
+        # per-phase device memory samples (health.jsonl, mem/* gauges) and
+        # each client's latency, update norm and loss scored per round
+        # (client_health records, health/* gauges)
         self._devstats = DeviceStatsSampler()
+        self._health = ClientHealthTracker()
         self._codec = get_codec(getattr(args, "compression", ""), args)
         self._ef_by_client: Dict[int, ErrorFeedback] = {}
 
@@ -306,6 +316,9 @@ class FedAvgAPI:
                     kept[i] = False
                     self._drop_screened(cid, round_idx, reason)
                     continue
+            # anomaly scoring reads the delta as encoded: quantization error
+            # and the error-feedback residual included, what the wire carries
+            self._health.observe(cid, round_idx, update_norm=update_norm(ct))
             enc.append((cid, i, n_k, ct))
         wire = [ct.wire_nbytes() for _, _, _, ct in enc]
         if self._screen is not None:
@@ -413,7 +426,20 @@ class FedAvgAPI:
                                       n_samples=n_k):
                     w, metrics = self.trainer.run_local_training(
                         self.global_params, train_data, self.device, self.args)
-                self._m_client_ms.observe((time.perf_counter() - t0) * 1e3)
+                if self.device.type == "cuda":
+                    # the client's wall must cover its device work, not only
+                    # its launches
+                    torch.cuda.synchronize(self.device)
+                client_wall_s = time.perf_counter() - t0
+                self._m_client_ms.observe(client_wall_s * 1e3)
+                loss = metrics.get("train_loss")
+                self._health.observe(
+                    cid, round_idx, latency_s=client_wall_s,
+                    # without a codec the raw displacement; with one the
+                    # encoded delta's norm is observed in _compress_uplinks
+                    update_norm=(update_norm(w, base=self.global_params)
+                                 if self._codec is None else None),
+                    train_loss=loss if isinstance(loss, (int, float)) else None)
                 if metrics.get("scaffold_c_delta") is not None:
                     c_deltas.append(metrics["scaffold_c_delta"])
                 if metrics.get("mime_full_grad") is not None:
@@ -479,6 +505,7 @@ class FedAvgAPI:
         self.event.log_event_ended("aggregate", round_idx)
         self._m_rounds.inc()
         self._devstats.sample("aggregate", round_idx)
+        self._health.finish_round(round_idx)
         flight_recorder.record("round_end", round=round_idx)
 
         report: Dict[str, Any] = {"round": round_idx, "clients": client_ids,
@@ -516,6 +543,9 @@ class FedAvgAPI:
             t0 = time.perf_counter()
             self._ckpt.save(round_idx, self._ckpt_state())
             report["checkpoint_ms"] = (time.perf_counter() - t0) * 1e3
+            # the flight recorder agrees with the checkpointer on the last
+            # durable round: recorded only after a completed save
+            flight_recorder.record("checkpoint", round=round_idx)
             report["checkpoint_bytes"] = self._ckpt.last_save_bytes
         if metrics is not None:
             report.update(metrics)

@@ -18,9 +18,12 @@ dir. Device-side profiling (ROADMAP A12b1) is here too: the program
 catalog (``wrap_program``, ``programs.jsonl``), the H100 roofline and the
 report's attribution, ``torch.profiler`` round traces
 (``TraceController``) and phase-attributed device memory samples
-(``DeviceStatsSampler``, ``mem_sample`` records in ``health.jsonl``). The
-client health tracker and ``doctor`` wait for ROADMAP A12b2; causal
-tracing and the live plane for A12c.
+(``DeviceStatsSampler``, ``mem_sample`` records in ``health.jsonl``). So
+is run health (A12b2): the per-client straggler and anomaly scoring
+(``ClientHealthTracker``, ``client_health`` records), the resilience,
+secagg, integrity and scheduler records, and ``build_doctor`` /
+``format_doctor`` behind ``telemetry doctor <run_dir>``. Causal tracing
+and the live plane wait for ROADMAP A12c.
 """
 from fedml_tpu_torch.telemetry.registry import (
     BYTES_BUCKETS,
@@ -65,7 +68,11 @@ from fedml_tpu_torch.telemetry.device_stats import (
     memory_snapshot,
     sample_now,
 )
-from fedml_tpu_torch.telemetry.health import log_health_event, update_norm
+from fedml_tpu_torch.telemetry.health import (
+    ClientHealthTracker,
+    log_health_event,
+    update_norm,
+)
 from fedml_tpu_torch.telemetry.profiling import (
     ProgramCatalog,
     TraceController,
@@ -83,6 +90,7 @@ from fedml_tpu_torch.telemetry.report import (
     load_programs,
     load_spans,
 )
+from fedml_tpu_torch.telemetry.doctor import build_doctor, format_doctor
 
 __all__ = [
     "BYTES_BUCKETS",
@@ -118,6 +126,9 @@ __all__ = [
     "load_metrics",
     "load_programs",
     "load_spans",
+    "build_doctor",
+    "format_doctor",
+    "ClientHealthTracker",
     "DeviceStatsSampler",
     "install_compile_cache_counters",
     "memory_snapshot",

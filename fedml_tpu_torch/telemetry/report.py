@@ -13,9 +13,9 @@ bucket estimates), the slowest client of each round, the kernel-build vs
 execute split, the comm-bytes breakdown and the spans stitched across
 processes. Its keys are the reference's, and it reads either package's
 run dir, and joins ``programs.jsonl`` (the program catalog) against the
-phase walls into the roofline attribution. The sections whose sinks come
-later print the reference's "no data" notes: the client-health sinks with
-ROADMAP A12b2, the critical path with A12c.
+phase walls into the roofline attribution, and shows the ``health/*``
+gauges the client health tracker sets. The critical path prints the
+reference's "no data" note until causal tracing (ROADMAP A12c).
 """
 from __future__ import annotations
 

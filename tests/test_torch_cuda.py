@@ -1197,3 +1197,27 @@ def test_cataloged_call_peak_agrees_with_the_allocator():
     assert torch.cuda.max_memory_allocated() == high  # not reset behind the caller
     assert rec.n_signatures == 2
     reset_catalog()
+
+
+@pytest.mark.requires_cuda
+def test_int8_update_norm_on_cuda_matches_cpu():
+    """The health tracker's norm of an int8 delta, read off its blocks on the
+    card, equals the CPU's within 1e-6 relative (the same codes and scales;
+    only the f32 sum's order differs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fedml_tpu_torch.compression import derive_key, get_codec
+    from fedml_tpu_torch.telemetry.health import update_norm
+
+    gen = torch.Generator().manual_seed(7)
+    delta = {"params/Conv_0/kernel": 0.01 * torch.randn(3, 3, 64, 64, generator=gen),
+             "params/Dense_0/kernel": 0.02 * torch.randn(512, 10, generator=gen),
+             "params/Dense_0/bias": 0.05 * torch.randn(10, generator=gen)}
+    codec = get_codec("int8")
+    ct_cpu = codec.encode(delta, key=derive_key(0, 1, 2), is_delta=True)
+    ct_gpu = codec.encode({k: v.cuda() for k, v in delta.items()},
+                          key=derive_key(0, 1, 2), is_delta=True)
+    assert all(p.is_cuda for parts in ct_gpu.arrays for p in parts
+               if isinstance(p, torch.Tensor))
+    want, got = update_norm(ct_cpu), update_norm(ct_gpu)
+    assert abs(got - want) <= 1e-6 * want, (got, want)

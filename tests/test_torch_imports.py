@@ -559,3 +559,32 @@ def test_profiling_modules_are_scanned(module):
     roofline, the trace state machine and the catalog's accounting are
     copies of reference modules."""
     assert module in PORT_MODULES
+
+
+@pytest.mark.parametrize("module", [
+    "fedml_tpu_torch.telemetry.doctor",
+    "fedml_tpu_torch.telemetry.health",
+    "fedml_tpu_torch.scheduler.supervision",
+])
+def test_run_health_modules_are_scanned(module):
+    """The run-health modules (the doctor, a copy of a reference module that
+    imports no JAX; the client health tracker; the scheduler's
+    ``sched_event``) are among those both scans cover."""
+    assert module in PORT_MODULES
+
+
+def test_doctor_imports_no_jax():
+    """``telemetry.doctor`` imports in an interpreter where JAX, flax and the
+    reference package cannot be imported."""
+    code = ("import sys\n"
+            "for m in ('jax', 'flax', 'optax', 'fedml_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "from fedml_tpu_torch.telemetry.doctor import build_doctor, format_doctor\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'flax', 'fedml_tpu') and sys.modules[k] is not None))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
