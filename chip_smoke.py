@@ -375,11 +375,44 @@ the final ``ok`` line:
     section lists the kills; it prints the flagged edges (not gated).
     Phase t runs after q and before r, so that its last doctor child runs
     beside phase r.
+(u) causal tracing and the live plane (``telemetry.tracing``,
+    ``telemetry.live``; no kernel of its own), between m1 and m2. (u1) phase h's ResNet-18 with int8 uplinks on U_TRAIN (T1_DATA
+    over U_SILOS silos), a server and the silos as OS processes over the
+    TCP broker, U_ROUNDS rounds, the live plane on (``metrics_port: 0``,
+    ``trace_streaming``), silo U_SLOW sleeping U_SLOW_S after its training
+    in rounds U_SLOW_ROUNDS and silo 1 U_BASE_S in every round; it runs
+    alone, as it gates on times. It fails unless a scrape of the server's
+    ``/metrics``, taken while the run is in flight and before the last round
+    closed, holds the job, ``node="rank0"`` with ``health_rounds_scored``
+    and every silo's node; ``telemetry.jsonl`` holds a straggler
+    ``doctor_alert`` for client U_SLOW at round 2, written before the run
+    ended; the capture that alert armed covers round 3 and holds CUDA
+    kernel events; the collector's rank0 totals equal the server's registry
+    after the run and a replayed final frame is refused; ``spans_remote.jsonl``
+    holds every silo's spans, each silo's clock ``paired`` or ``one_way``
+    with an uncertainty; every round's critical path covers 95-100% of its
+    wall; and in rounds 1-4 client U_SLOW is on the path exactly in the
+    slowed rounds, with a straggler what-if of at least half U_SLOW_S. It
+    prints the scrape's ms, the µs of a silo's frame pop and the bytes of a
+    frame, each node's clock, each round's path and the capture's bytes
+    and start and stop-and-export seconds. u1's twin (the plane off, no
+    sleeps) runs beside m2 and must end on u1's digest. (u2) phase t3's
+    tree under
+    ``TreeRunner(live=LivePlane(..., metrics_port=0))``: it fails unless a
+    scrape between rounds holds ``node="tree_root"`` tier metrics, the
+    collector's ``tier/*`` instruments equal the registry's at close, the
+    root's seq is at least 3, and ``tree U2_CLI_ARGS --metrics-port 0``, in
+    a child process beside m2, completes. (u3) ``telemetry trace --json
+    --perfetto`` and ``telemetry watch --once`` over u1's run dir, as
+    children started after u1 (beside m2): the child's per-round coverage must equal u1's, the Perfetto file
+    must load with the critical-path track and the watch must name client
+    U_SLOW.
     Each phase prints its seconds. The phases whose work is child processes
     run in a thread beside the in-process phases that follow them, none of
     which gates on a time, reads a counter they move or has its own
     deadline: i2 beside j, k2 beside k3, k4, l1 and l2, m1 beside l3, l4
-    and l5, o beside n, r2 beside r3 and s; their times and those of the
+    and l5, o beside n, r2 beside r3 and s, u1's twin, u2's command and
+    u3's readers beside m2; their times and those of the
     phases beside them are taken under that load. The report and doctor
     children of phases r, s and t run beside the legs after theirs, and
     their checks run after the last phase (``children``).
@@ -390,7 +423,7 @@ Without a CUDA device the script exits with code 2 and prints no result;
 with one, it runs itself again under ``PYTHONHASHSEED=0`` unless that is
 set, so every phase and every process it starts draws the same CIFAR-10
 stand-in. The full per-shape results also go to
-``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklmnopqrst``) runs
+``results/chip_smoke.json``. ``--phases d`` (any subset of ``bcdefghijklmnopqrstu``) runs
 (a) and the phases named, and prints no kernels or ok line (phase g sets
 its round beside phase e's only when both run). ``--parent DIR`` builds the dequant and flash-forward kernels of
 another checkout (DIR, e.g. the parent commit unpacked by ``git archive``)
@@ -899,7 +932,7 @@ R3_ARGS = dict(model_size="llama3_8b", num_hidden_layers=2, lora_rank=16,
 # script's own FLOPs over its host-timed rounds. s2: phase r1's round
 # (R1_DATA) with trace_rounds "0", against r1's untraced twin (run with
 # FEDML_PROFILE=0) when phase r ran, else against its own.
-ALL_PHASES = "bcdefghijklmnopqrst"
+ALL_PHASES = "bcdefghijklmnopqrstu"
 S1_LAYERS = 4
 S1_ARGS = dict(TRAIN_ARGS, num_hidden_layers=S1_LAYERS, run_id="chip_smoke_s1")
 S_FLOPS_TOL = 0.02
@@ -937,6 +970,42 @@ T2_DEADLINE_MULTIPLIER = 1.0   # k1's 2.0 would keep round 1 open twice round 0'
 T3 = dict(clients=64, tiers=4, seed=0, quorum=0.75, chunk=8, rounds=3)
 T3_LEVELS = (1, 4, 16, 64)
 T3_KILLS = ((3, 17, 1), (3, 40, 1))   # KillWindow(tier, node, round): leaf clients
+
+
+# Phase (u), causal tracing and the live plane (ROADMAP A12c). u1: phase
+# h's ResNet-18 with int8 uplinks on T1_DATA's images split IID over
+# U_SILOS silos, a server and the silos as OS processes over the TCP broker
+# (every process under cuDNN's deterministic algorithms), U_ROUNDS rounds,
+# ``live_telemetry``, ``metrics_port: 0`` and ``trace_streaming`` on, each
+# silo's run dir its own. Silo U_SLOW sleeps U_SLOW_S after its training in
+# rounds U_SLOW_ROUNDS, silo 1 U_BASE_S in every round, so silo 1 holds the
+# round's path when silo U_SLOW is not slowed. A straggler score is a
+# latency over the cohort median, which is silo 1's w + U_BASE_S for an
+# honest silo wall w: silo U_SLOW scores (w + U_SLOW_S) / (w + U_BASE_S),
+# at least 2 (the doctor's threshold) while U_SLOW_S >= w + 2 x U_BASE_S.
+# Three silos, not i2's two: over two clients the ratio to their median
+# stays below 2. U_SLOW_S is set from the wall measured on the card: an
+# honest silo's latency was 0.89-1.03 s a round after round 0 (NVIDIA H100
+# 80GB HBM3 at 700 W), and 3.0 s keeps silo U_SLOW's score above 2 on a
+# host twice as slow ((2.0 + 3.0) / (2.0 + 0.3) = 2.17), U_BASE_S above the
+# 20-50 ms that honest silos' latencies differ by. u1's twin: the same
+# federation with the plane off and no sleeps, beside u2; its digest must
+# equal u1's. u2: phase t3's tree (T3, T3_KILLS) under
+# ``TreeRunner(live=LivePlane(..., metrics_port=0))``, and ``tree
+# --metrics-port 0`` at U2_CLI_ARGS in a child process. u3: the readers of
+# u1's run dir as children: ``telemetry trace --json --perfetto`` and
+# ``telemetry watch --once``. u1 runs after m1's processes have exited and
+# before o starts; the twin, u2's command and u3's readers run beside m2,
+# which gates on no time (paid for phase u: without that, the children's
+# ~30 s ran in the open after u1).
+U_SILOS = 3
+U_ROUNDS = 5
+U_SLOW = 2
+U_SLOW_ROUNDS = (1, 2, 3)
+U_BASE_S = 0.3
+U_SLOW_S = 3.0
+U_TRAIN = dict(T1_DATA, client_num_in_total=U_SILOS, comm_round=U_ROUNDS)
+U2_CLI_ARGS = ("--clients", "2000", "--tiers", "3", "--rounds", "2", "--params", "128")
 
 
 def share_stand_in_draws():
@@ -2868,10 +2937,11 @@ def _federation_processes(run_id: str, n_silos: int, comm: dict, train: dict,
     return kids, wall
 
 
-def _broker_federation(run_id: str, n_silos: int, hold=None, env=None, **train):
+def _broker_federation(run_id: str, n_silos: int, hold=None, env=None, child=CS_CHILD,
+                       **train):
     """A server and ``n_silos`` silos as OS processes over the port's broker
     and a shared object store (phase h's model and data, ``train`` over
-    CS_CONFIG's training arguments; ``hold`` and ``env`` as
+    CS_CONFIG's training arguments; ``hold``, ``env`` and ``child`` as
     ``_federation_processes``'s).
     Returns each process's CHILD record, the wall and the bytes published on
     the broker; fails unless every process exits 0 within
@@ -2885,7 +2955,8 @@ def _broker_federation(run_id: str, n_silos: int, hold=None, env=None, **train):
         host, port = broker.address
         kids, wall = _federation_processes(
             run_id, n_silos, {"comm_backend": "BROKER", "broker_host": host,
-                              "broker_port": port}, train, env=env, hold=hold)
+                              "broker_port": port}, train, child=child, env=env,
+            hold=hold)
     finally:
         broker.stop()
     return kids, wall, get_registry().counter("broker/bytes_in").value - published0
@@ -6712,6 +6783,402 @@ def health_tree_phase(card: str, dev: str = "cuda"):
     return _deferred(log_dir, gate)
 
 
+# what each process of phase (u1) and of its twin runs: CS_CHILD's entry
+# points under cuDNN's deterministic algorithms, with a silo's sleeps after
+# its local training (CHIP_SMOKE_U_SLEEPS: by rank, the seconds of each
+# round), a silo's run dir of its own (under CHIP_SMOKE_U_SILO_LOGS), the
+# server plane's URL written to CHIP_SMOKE_U_URL once it serves, every
+# MetricStreamer.pop_frame timed, and after the run the server's collector
+# against its registry, a replayed final frame, and its captures
+U_CHILD = r"""
+import json, os, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+import fedml_tpu_torch
+from chip_smoke import _registry_flat, _timed_stops, live_totals
+from fedml_tpu_torch import runner as runner_mod
+from fedml_tpu_torch.ml.trainer import classification_trainer as ct
+from fedml_tpu_torch.resilience.durability.recover import digest
+from fedml_tpu_torch.telemetry import get_registry, get_trace_controller
+from fedml_tpu_torch.telemetry import live as live_mod
+t0 = time.perf_counter()
+role = sys.argv[1]
+rank = int(sys.argv[sys.argv.index("--rank") + 1])
+built, planes, pops = {}, [], []
+build = runner_mod.FedMLRunner.__init__
+def recording_build(self, args, *a, **kw):
+    if role == "client" and os.environ.get("CHIP_SMOKE_U_SILO_LOGS"):
+        args.log_file_dir = os.path.join(os.environ["CHIP_SMOKE_U_SILO_LOGS"], f"rank{rank}")
+    build(self, args, *a, **kw)
+    built["runner"] = self.runner
+runner_mod.FedMLRunner.__init__ = recording_build
+sleeps = json.loads(os.environ.get("CHIP_SMOKE_U_SLEEPS", "{}")).get(str(rank), [])
+train = ct.ClassificationTrainer.train
+def slowed(self, *a, **kw):
+    out = train(self, *a, **kw)
+    if self._round_seed < len(sleeps) and sleeps[self._round_seed]:
+        torch.cuda.synchronize()
+        time.sleep(sleeps[self._round_seed])
+    return out
+ct.ClassificationTrainer.train = slowed
+plane_init = live_mod.LivePlane.__init__
+def recording_plane(self, *a, **kw):
+    plane_init(self, *a, **kw)
+    planes.append(self)
+    url_file = os.environ.get("CHIP_SMOKE_U_URL")
+    if self.url and url_file:
+        with open(url_file + ".tmp", "w") as f:
+            f.write(self.url)
+        os.replace(url_file + ".tmp", url_file)
+live_mod.LivePlane.__init__ = recording_plane
+pop = live_mod.MetricStreamer.pop_frame
+def timed_pop(self, force=False):
+    t = time.perf_counter()
+    frame = pop(self, force)
+    pops.append([(time.perf_counter() - t) * 1e6, force, frame is not None])
+    return frame
+live_mod.MetricStreamer.pop_frame = timed_pop
+tc = get_trace_controller()
+stops, starts, start = _timed_stops(tc), [], tc._start
+def timed_start(trace_dir):
+    t = time.perf_counter()
+    ok = start(trace_dir)
+    starts.append(time.perf_counter() - t)
+    return ok
+tc._start = timed_start
+fn = {"server": fedml_tpu_torch.run_cross_silo_server,
+      "client": fedml_tpu_torch.run_cross_silo_client}[role]
+result = fn()
+ended = time.time()
+torch.cuda.synchronize()
+record = {"role": role, "result": result, "wall_s": time.perf_counter() - t0,
+          "ended": ended, "metrics": _registry_flat(get_registry()), "pops": pops}
+if role == "server":
+    record["digest"] = digest(built["runner"].fedml_aggregator.get_global_model_params())
+    record["captures"] = get_trace_controller().captures
+    record["stop_s"] = stops
+    record["start_s"] = starts
+    if planes:
+        col = planes[0].collector
+        record["collector"] = live_totals(col.registry, node="rank0")
+        record["registry"] = live_totals(get_registry())
+        record["nodes"] = col.nodes()
+        replay = {"v": 1, "node": "rank0", "job": col.job, "seq": record["nodes"]["rank0"]["seq"],
+                  "ts": time.time(), "full": True, "metrics": []}
+        record["replay_applied"] = col.ingest(replay)
+        record["collector_after_replay"] = live_totals(col.registry, node="rank0")
+print("CHILD " + json.dumps(record, default=str), flush=True)
+"""
+
+
+def live_totals(registry, node=None, prefix: str = "") -> dict:
+    """A registry's instruments as ``{name[labels]: value}`` (a histogram's
+    ``[count, sum]``), sums rounded to 6 places as the reference's
+    acceptance compares them, without the live plane's own ``live/*``;
+    with ``node``, a collector's entries of that node, its node and job
+    labels dropped; with ``prefix``, only the names under it."""
+    out = {}
+    for rec in registry.snapshot():
+        labels = dict(rec.get("labels") or {})
+        if node is not None:
+            if labels.pop("node", None) != node:
+                continue
+            labels.pop("job", None)
+        name = rec["name"]
+        if name.startswith("live/") or not name.startswith(prefix):
+            continue
+        out[name + json.dumps(sorted(labels.items()))] = (
+            [rec["count"], round(rec["sum"], 6)] if rec["kind"] == "histogram"
+            else round(rec["value"], 6))
+    return out
+
+
+def _prom_value(text: str, metric: str, label: str):
+    """The value of ``metric``'s first sample carrying ``label`` in a
+    Prometheus text, or None."""
+    for line in text.splitlines():
+        if line.startswith(metric + "{") and label in line:
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def _u_federation(log_dir: str, live: bool, url_file=None):
+    """Phase u1's federation (or, with ``live`` off, its twin: no plane, no
+    sleeps) over its own broker; each silo's run dir under ``log_dir``."""
+    env = {"CHIP_SMOKE_U_SILO_LOGS": os.path.join(log_dir, "silos")}
+    train = dict(U_TRAIN, log_file_dir=log_dir)
+    if live:
+        env["CHIP_SMOKE_U_SLEEPS"] = json.dumps({
+            str(U_SLOW): [U_SLOW_S if r in U_SLOW_ROUNDS else 0.0 for r in range(U_ROUNDS)],
+            "1": [U_BASE_S] * U_ROUNDS})
+        env["CHIP_SMOKE_U_URL"] = url_file
+        train.update(live_telemetry=True, metrics_port=0, trace_streaming=True)
+    kids, wall, _ = _broker_federation("chip_smoke_u1", U_SILOS, env=env, child=U_CHILD,
+                                       **train)
+    if kids[0]["result"].get("rounds") != U_ROUNDS:
+        raise RuntimeError(f"u1{'' if live else ' twin'}: the server ran "
+                           f"{kids[0]['result']}")
+    return kids, wall
+
+
+def live_broker_phase(card: str):
+    """Phase (u1): the live plane and causal tracing over the broker (see the
+    module doc). Returns the leg's numbers and the readers' gate (u3)."""
+    import shutil
+    import tempfile
+
+    from fedml_tpu_torch.telemetry.tracing import assemble_trace, compute_critical_paths
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_u1_")
+    try:
+        url_file = os.path.join(log_dir, "plane_url")
+        box = {}
+
+        def run():
+            try:
+                box["kids"], box["wall"] = _u_federation(log_dir, True, url_file)
+            except Exception as e:  # noqa: BLE001 - raised again below
+                box["error"] = e
+
+        fed = threading.Thread(target=run, name="u1")
+        fed.start()
+        scrape, scrape_ms = None, []
+        while fed.is_alive():
+            if scrape is None and os.path.exists(url_file):
+                with open(url_file) as f:
+                    url = f.read()
+                try:
+                    t0 = time.perf_counter()
+                    with urllib.request.urlopen(url + "/metrics", timeout=5) as resp:
+                        text = resp.read().decode()
+                    scrape_ms.append((time.perf_counter() - t0) * 1e3)
+                    scored = _prom_value(text, "health_rounds_scored", 'node="rank0"')
+                    if (scored is not None and scored < U_ROUNDS and 'job="chip_smoke_u1"' in text
+                            and all(f'node="rank{r}"' in text for r in range(U_SILOS + 1))):
+                        scrape = dict(rounds_scored=scored, lines=len(text.splitlines()))
+                except OSError:
+                    pass
+            time.sleep(0.1)
+        fed.join()
+        if "error" in box:
+            raise box["error"]
+        kids, wall = box["kids"], box["wall"]
+        server = kids[0]
+        run_dir = os.path.join(log_dir, "run_chip_smoke_u1")
+        alerts = [r for r in _read_rows(os.path.join(run_dir, "telemetry.jsonl"))
+                  if r.get("kind") == "doctor_alert"]
+        stragglers = [(a.get("client"), a.get("round"), a.get("ts") < server["ended"],
+                       a.get("score")) for a in alerts if a.get("rule") == "straggler"]
+        caps = server["captures"]
+        kernels = trace_kernels(caps[0]["trace_dir"]) if caps and caps[0].get("ok") else []
+        remote = _read_rows(os.path.join(run_dir, "spans_remote.jsonl"))
+        remote_nodes = sorted({r.get("node") for r in remote})
+        trace = assemble_trace(run_dir)
+        clocks = {n: trace.clocks[n].to_dict() for n in sorted(trace.clocks)}
+        cps = {cp.round: cp.to_dict() for cp in compute_critical_paths(trace)}
+        latency = {}  # (client): [ms a round], broadcast to upload on the server's clock
+        for rec in sorted(_health_records(run_dir, "client_health"),
+                          key=lambda e: (e["round"], str(e["client"]))):
+            latency.setdefault(str(rec["client"]), []).append(rec.get("latency_ms"))
+        hot = [us for k in kids[1:] for us, force, _ in k["pops"] if not force]
+        frame_bytes = [k["metrics"].get("live/frame_bytes", {}) for k in kids[1:]]
+        fb_mean = (sum(h.get("sum", 0) for h in frame_bytes)
+                   / max(1, sum(h.get("count", 0) for h in frame_bytes)))
+        piggy = [k["metrics"].get("live/frames_piggybacked", 0) for k in kids[1:]]
+        print(f"  {card}: u1 {U_SILOS + 1} processes in {wall:.1f} s; the scrape before round "
+              f"{U_ROUNDS - 1} closed: {scrape}, {len(scrape_ms)} scrape(s), "
+              f"{np.median(scrape_ms) if scrape_ms else float('nan'):.2f} ms median "
+              f"({min(scrape_ms, default=float('nan')):.2f}-"
+              f"{max(scrape_ms, default=float('nan')):.2f})", flush=True)
+        print(f"  {card}: u1 a silo's frame pop on the send path "
+              f"{np.median(hot) if hot else float('nan'):.1f} us median over {len(hot)} pops "
+              f"({np.percentile(hot, 90) if hot else float('nan'):.1f} us p90); "
+              f"{fb_mean:.0f} B a frame; frames piggybacked by silo {piggy}; each "
+              f"silo's latency a round (ms) {latency}", flush=True)
+        print(f"  {card}: u1 straggler alerts (client, round, before the run ended, score) "
+              f"{stragglers}; all alerts {[(a['rule'], a.get('round')) for a in alerts]}; "
+              f"captures {[(c['round'], c['rule'], c['ok'], c.get('trace_bytes')) for c in caps]}"
+              f" with {len(kernels)} kernel events, start "
+              f"{[round(x, 3) for x in server['start_s']]} s, stop and export "
+              f"{[round(x, 3) for x in server['stop_s']]} s", flush=True)
+        print(f"  {card}: u1 collector == registry for rank0: "
+              f"{server.get('collector') == server.get('registry')} "
+              f"({len(server.get('registry') or {})} instruments); replayed final frame "
+              f"applied {server.get('replay_applied')}; nodes {server.get('nodes')}", flush=True)
+        print(f"  {card}: u1 spans_remote nodes {remote_nodes} ({len(remote)} records); clocks "
+              + "; ".join(f"{n} {c['method']} {c['offset_ms']} ms ±{c['uncertainty_ms']} "
+                          f"({c['pairs']} pairs)" for n, c in clocks.items()), flush=True)
+        for r, d in sorted(cps.items()):
+            st = d.get("straggler") or {}
+            print(f"  {card}: u1 round {r}: path {d['path_ms']:.1f} ms of wall "
+                  f"{d['wall_ms']:.1f} ms (coverage {d['coverage']}), on path "
+                  f"{d['clients_on_path']}, top {d['top_phase']} {d['top_share']:.2f}, "
+                  f"straggler {st.get('client')} on path {st.get('on_critical_path')} "
+                  f"savings {st.get('savings_ms')} ms", flush=True)
+        faults = []
+        if scrape is None:
+            faults.append(f"no scrape before round {U_ROUNDS - 1} closed held rank0..rank"
+                          f"{U_SILOS}, the job and health_rounds_scored")
+        if not any(c == str(U_SLOW) and rnd == 2 and before for c, rnd, before, _ in stragglers):
+            faults.append(f"no straggler alert for client {U_SLOW} at round 2 before the run "
+                          f"ended: {stragglers}")
+        if not (caps and caps[0]["round"] == 3 and caps[0]["rule"] == "straggler"
+                and caps[0]["ok"] and kernels):
+            faults.append(f"the capture: {caps}, {len(kernels)} kernel events")
+        if not (server.get("collector") and server["collector"] == server.get("registry")):
+            diff = {k: (server.get("collector", {}).get(k), v)
+                    for k, v in (server.get("registry") or {}).items()
+                    if server.get("collector", {}).get(k) != v}
+            faults.append(f"the collector's rank0 totals differ from the registry: {diff}")
+        if server.get("replay_applied") is not False or (
+                server.get("collector_after_replay") != server.get("collector")):
+            faults.append("the replayed final frame was applied")
+        want_nodes = [f"rank{r}" for r in range(1, U_SILOS + 1)]
+        if not set(want_nodes) <= set(remote_nodes):
+            faults.append(f"spans_remote.jsonl holds nodes {remote_nodes}")
+        for n in want_nodes:
+            c = clocks.get(n) or {}
+            if c.get("method") not in ("paired", "one_way") or c.get("uncertainty_ms") is None:
+                faults.append(f"{n}'s clock {c}")
+        if sorted(cps) != list(range(U_ROUNDS)):
+            faults.append(f"critical paths of rounds {sorted(cps)}")
+        for r, d in cps.items():
+            if not (d["coverage"] is not None and 0.95 <= d["coverage"] <= 1.0 + 1e-6):
+                faults.append(f"round {r}'s coverage {d['coverage']}")
+            if r == 0:
+                continue  # every process's first calls: whichever is slowest holds it
+            on = str(U_SLOW) in d["clients_on_path"]
+            if on != (r in U_SLOW_ROUNDS):
+                faults.append(f"round {r}: clients on the path {d['clients_on_path']}")
+            if r in U_SLOW_ROUNDS:
+                st = d.get("straggler") or {}
+                if not (st.get("client") == str(U_SLOW) and st.get("on_critical_path")
+                        and st.get("savings_ms", 0) >= 0.5 * U_SLOW_S * 1e3):
+                    faults.append(f"round {r}'s straggler what-if {st}")
+        if faults:
+            raise RuntimeError("u1: " + "; ".join(faults))
+        perfetto = os.path.join(log_dir, "perfetto.json")
+        trace_child = _CliChild(("telemetry", "trace", run_dir, "--json", "--perfetto",
+                                 perfetto))
+        watch_child = _CliChild(("telemetry", "watch", "--once", run_dir))
+    except BaseException:
+        shutil.rmtree(log_dir, ignore_errors=True)
+        raise
+
+    def readers():
+        """Phase (u3): the readers of u1's run dir, as children."""
+        text, trace_s = trace_child.result()
+        summary = json.loads(text)
+        child_cov = {r["round"]: r["coverage"] for r in summary["rounds"]}
+        with open(perfetto) as f:
+            doc = json.load(f)
+        tracks = [e for e in doc["traceEvents"] if e.get("ph") == "M"
+                  and (e.get("args") or {}).get("name") == "critical path"]
+        cp_slices = sum(e.get("cat") == "critical-path" for e in doc["traceEvents"])
+        watch_text, watch_s = watch_child.result()
+        print(f"  {card}: u3 telemetry trace --json --perfetto in a child {trace_s:.1f} s "
+              f"({len(doc['traceEvents'])} trace events, {cp_slices} on the critical-path "
+              f"track); telemetry watch --once {watch_s:.1f} s:", flush=True)
+        for line in watch_text.splitlines():
+            print(f"  {card}: u3 | {line}", flush=True)
+        faults = []
+        if child_cov != {r: d["coverage"] for r, d in cps.items()}:
+            faults.append(f"the trace child's coverage {child_cov}")
+        if not (tracks and cp_slices):
+            faults.append("the Perfetto file has no critical-path track")
+        if f"client {U_SLOW}" not in watch_text:
+            faults.append(f"watch does not name client {U_SLOW}")
+        if faults:
+            raise RuntimeError("u3: " + "; ".join(faults))
+        return dict(trace_child_s=trace_s, watch_child_s=watch_s, perfetto_events=len(
+            doc["traceEvents"]))
+
+    out = dict(wall_s=wall, scrape=scrape, scrape_ms=scrape_ms, pop_us=hot,
+               frame_bytes_mean=fb_mean, frames_piggybacked=piggy, alerts=stragglers,
+               captures=caps, capture_kernels=len(kernels), start_s=server["start_s"],
+               stop_s=server["stop_s"],
+               clocks=clocks, rounds={r: {k: d[k] for k in ("path_ms", "wall_ms", "coverage",
+                                                              "clients_on_path", "straggler")}
+                                      for r, d in cps.items()},
+               digest=server["digest"], process_walls_s=[k["wall_s"] for k in kids],
+               latency_ms=latency)
+    return out, _deferred(log_dir, readers)
+
+
+def live_twin_phase(card: str):
+    """Phase u1's twin: the same federation, the plane off and no sleeps."""
+    import shutil
+    import tempfile
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_u1_twin_")
+    try:
+        kids, wall = _u_federation(log_dir, False)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    print(f"  {card}: u1's twin: {U_SILOS + 1} processes in {wall:.1f} s, digest "
+          f"{kids[0]['digest']}", flush=True)
+    return dict(wall_s=wall, digest=kids[0]["digest"])
+
+
+def live_tree_phase(card: str, cli: "_CliChild", dev: str = "cuda"):
+    """Phase (u2): phase t3's tree under a live plane, and ``cli``, the tree
+    command with ``--metrics-port 0`` started in a child process earlier
+    (see the module doc)."""
+    from fedml_tpu_torch.hierarchy import KillWindow, TreeRunner, TreeTopology
+    from fedml_tpu_torch.telemetry import get_registry, reset_trace_controller
+    from fedml_tpu_torch.telemetry.live import LivePlane
+
+    _fresh_telemetry()
+    topo = TreeTopology.build(T3["clients"], tiers=T3["tiers"])
+    plane = LivePlane(job="chip_smoke_u2", node="tree_root", metrics_port=0)
+    scrapes = []
+
+    def scrape_between_rounds(r, _params):
+        if r >= 1:  # round r-1's pump is in; round r's comes after this listener
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(plane.url + "/metrics", timeout=5) as resp:
+                text = resp.read().decode()
+            scrapes.append(dict(round=r, ms=(time.perf_counter() - t0) * 1e3,
+                                tree_root='node="tree_root"' in text,
+                                tier=sum(ln.startswith("tier_") for ln in text.splitlines())))
+
+    try:
+        runner = TreeRunner(topo, template=resnet_wire_template(dev), codec="int8",
+                            seed=T3["seed"], quorum=T3["quorum"], chunk=T3["chunk"],
+                            chaos=[KillWindow(*k) for k in T3_KILLS],
+                            on_round=scrape_between_rounds, live=plane, device=dev)
+        out = runner.run(T3["rounds"])
+    finally:
+        plane.close()
+        reset_trace_controller()  # an edge's straggler alert may have armed one
+    col = live_totals(plane.collector.registry, node="tree_root", prefix="tier/")
+    reg = live_totals(get_registry(), prefix="tier/")
+    seq = plane.collector.nodes()["tree_root"]["seq"]
+    text, cli_s = cli.result()
+    cli_out = json.loads(text.strip().splitlines()[-1])
+    print(f"  {card}: u2 levels {topo.levels}, {T3['rounds']} rounds in {out['wall_s']:.3f} s "
+          f"under the plane; scrapes between rounds {scrapes}; the root's seq {seq}; "
+          f"{len(col)} tier instruments in the collector, equal to the registry: "
+          f"{col == reg}; alerts {[(a['rule'], a.get('round')) for a in plane.doctor.alerts]}; "
+          f"tree {' '.join(U2_CLI_ARGS)} --metrics-port 0 in a child: completed "
+          f"{cli_out.get('completed')} in {cli_s:.1f} s", flush=True)
+    faults = []
+    if not scrapes or not all(s["tree_root"] and s["tier"] for s in scrapes):
+        faults.append(f"the scrapes between rounds {scrapes}")
+    if not col or col != reg:
+        faults.append(f"the collector's tier counters {col} against the registry's {reg}")
+    if seq < 3:
+        faults.append(f"the root's seq {seq}")
+    if not cli_out.get("completed"):
+        faults.append(f"the tree command: {cli_out}")
+    if faults:
+        raise RuntimeError("u2: " + "; ".join(faults))
+    return dict(wall_s=out["wall_s"], scrapes=scrapes, seq=seq, tier_instruments=len(col),
+                cli_s=cli_s, alerts=plane.doctor.alerts)
+
+
 def step_sum(results, key, rows=DECODE_ROWS):
     """One pass's total over its 225 launches at ``rows`` rows (None where
     a time was not measured)."""
@@ -6780,7 +7247,7 @@ def main(argv=None) -> int:
 
     results = serve = flash = train = quantized = qlora = sp = cross_silo = trust = None
     secure = checkpoints = durable = tree = transports = analytics = llm_rest = None
-    spans = profiling = health = None
+    spans = profiling = health = live_out = None
     phase_s = {}
     parent_dequant = parent_fwd = None
     if opts.parent:
@@ -6891,9 +7358,34 @@ def main(argv=None) -> int:
         del ds
     if "m" in phases:
         durable = dict(m1=durable_phase.result("phases l3, l4 and l5"))
+    if "u" in phases:
+        # u1 gates on times: alone, after m1's processes and before o's; its
+        # twin, u2's command and u3's readers (started by u1) run beside m2
+        print(f"(u1) the live plane and causal tracing over the broker: resnet18, int8, a "
+              f"server and {U_SILOS} silos as processes, {U_ROUNDS} rounds, silo {U_SLOW} "
+              f"slowed by {U_SLOW_S} s in rounds {list(U_SLOW_ROUNDS)} and silo 1 by "
+              f"{U_BASE_S} s in every round; alone", flush=True)
+        u1, readers = timed("u1", lambda: live_broker_phase(card))
+        print(f"(u1 twin) u1's federation with the plane off and no sleeps; tree "
+              f"{' '.join(U2_CLI_ARGS)} --metrics-port 0 in a child; both beside phase m2 "
+              "with u3's children", flush=True)
+        twin = beside("u1 twin", lambda: live_twin_phase(card))
+        u2_cli = _CliChild(("tree", *U2_CLI_ARGS, "--metrics-port", "0"))
+    if "m" in phases:
         print("(m2) the async server over LOCAL: 4 silos, int8, FedBuff of 4, 8 updates, "
               "a journal refill, then instant apply", flush=True)
         durable["m2"] = timed("m2", lambda: async_phase(card))
+    if "u" in phases:
+        live_out = dict(u1=u1, twin=twin.result("phase m2"))
+        if live_out["twin"]["digest"] != u1["digest"]:
+            raise RuntimeError(f"u1: the live plane changed the aggregate: {u1['digest']} vs "
+                               f"the twin's {live_out['twin']['digest']}")
+        print(f"(u2) the live plane in the tree: resnet18-wide, {T3['clients']} clients over "
+              f"{T3['tiers']} tiers, {T3['rounds']} rounds, leaf kills as t3", flush=True)
+        live_out["u2"] = timed("u2", lambda: live_tree_phase(card, u2_cli))
+        print("(u3) the readers of u1's run dir, as children: telemetry trace --json "
+              "--perfetto, telemetry watch --once", flush=True)
+        live_out["u3"] = timed("u3", lambda: _run_gates({"u3": readers})["u3"])
     if "o" in phases:
         print(f"(o) the other transports, at once: a server and {O_SILOS} silos as processes "
               "each over tRPC (o1), cross-cloud over the C++ broker with an S3 store (o2) "
@@ -6997,7 +7489,8 @@ def main(argv=None) -> int:
               "trust": trust, "secure": secure, "checkpoints": checkpoints,
               "durable": durable, "tree": tree, "transports": transports,
               "analytics": analytics, "llm_rest": llm_rest, "spans": spans,
-              "profiling": profiling, "health": health, "phase_s": phase_s,
+              "profiling": profiling, "health": health, "live": live_out,
+              "phase_s": phase_s,
               "whole_s": whole_s}
     if sorted(phases) != list(ALL_PHASES):
         with open(os.path.join("results", "chip_smoke.json"), "w") as f:

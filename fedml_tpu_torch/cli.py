@@ -32,8 +32,8 @@ window (``--kill-tier``/``--kill-node``/``--kill-round``). It prints one
 JSON line and exits 1 on a below-quorum abort; the same ``--seed``
 reproduces the same ``final_digest``. ``--trace-rounds 0,2`` captures a
 ``torch.profiler`` trace of those rounds (the budgeted trace controller)
-into the run dir's ``traces/``. ``--metrics-port`` comes with the live
-plane (ROADMAP A12c).
+into the run dir's ``traces/``; ``--metrics-port`` hosts the live plane
+(a ``/metrics`` endpoint and the online doctor) for the run.
 
 ``telemetry report RUN_DIR`` reads a run's sinks (``spans.jsonl``,
 ``events.jsonl``, ``telemetry.jsonl``; ``<log_file_dir>/run_<run_id>``)
@@ -208,7 +208,8 @@ def build_parser() -> argparse.ArgumentParser:
     tree.add_argument("--revive-round", type=int, default=None,
                       help="round the killed node comes back (default: +1)")
     tree.add_argument("--metrics-port", type=int, default=None,
-                      help="live /metrics endpoint (not ported: ROADMAP A12c)")
+                      help="host a live /metrics + /healthz scrape endpoint and the "
+                           "online doctor for this tree run (0 = ephemeral)")
     tree.add_argument("--trace-rounds", default="",
                       help="comma-separated round indices to capture a device trace "
                            "of (budgeted trace controller)")
@@ -235,6 +236,26 @@ def build_parser() -> argparse.ArgumentParser:
     doctor.add_argument("--anomaly-threshold", type=float, default=4.0,
                         help="flag clients whose median per-round update-norm/loss "
                              "robust z exceeds this (default 4.0)")
+    trace = telemetry_sub.add_parser(
+        "trace", help="assemble the federation-wide causal trace and walk its "
+                      "critical path")
+    trace.add_argument("run_dir", help="a run's sink directory "
+                                       "(<log_file_dir>/run_<run_id>)")
+    trace.add_argument("--round", dest="round_idx", type=int, default=None,
+                       help="restrict to ONE round index (default: all rounds)")
+    trace.add_argument("--perfetto", dest="perfetto_out", default=None,
+                       help="write a Perfetto/Chrome trace-event JSON file here")
+    trace.add_argument("--json", dest="as_json", action="store_true",
+                       help="emit the critical-path summary dict as JSON")
+    watch = telemetry_sub.add_parser(
+        "watch", help="refreshing per-round/per-node view of a live run (a /metrics "
+                      "URL) or of a run dir")
+    watch.add_argument("target", help="a live scrape endpoint URL (http://host:port) "
+                                      "or a run dir")
+    watch.add_argument("--interval", type=float, default=2.0,
+                       help="refresh period in seconds (default 2.0)")
+    watch.add_argument("--once", action="store_true",
+                       help="render a single frame and exit")
     profile = telemetry_sub.add_parser(
         "profile", help="run CMD with device-trace capture armed for some rounds")
     profile.add_argument("--rounds", dest="trace_rounds", default="0",
@@ -340,9 +361,6 @@ def run_tree(args: argparse.Namespace) -> dict:
 
     from fedml_tpu_torch.telemetry.profiling import get_trace_controller, parse_rounds
 
-    if args.metrics_port is not None:
-        raise NotImplementedError("tree --metrics-port: the live plane comes with "
-                                  "ROADMAP A12c")
     armed = parse_rounds(args.trace_rounds)
     if armed:
         get_trace_controller().arm_rounds(armed)
@@ -350,13 +368,25 @@ def run_tree(args: argparse.Namespace) -> dict:
     if args.kill_tier is not None:
         chaos.append(KillWindow(args.kill_tier, args.kill_node, args.kill_round,
                                 until=args.revive_round))
+    live = None
+    if args.metrics_port is not None:
+        from fedml_tpu_torch.telemetry.live import LivePlane
+
+        live = LivePlane(job=f"tree_{args.seed}", node="tree_root",
+                         metrics_port=args.metrics_port)
+        print(f"live telemetry: {live.url}/metrics (watch: python -m fedml_tpu_torch.cli "
+              f"telemetry watch {live.url})", file=sys.stderr, flush=True)
     runner = TreeRunner(TreeTopology.build(args.clients, tiers=args.tiers),
                         template=default_template(args.params), codec=args.codec,
-                        seed=args.seed, quorum=args.quorum, chaos=chaos, device=args.device)
+                        seed=args.seed, quorum=args.quorum, chaos=chaos, live=live,
+                        device=args.device)
     try:
         return runner.run(args.rounds)
     except RuntimeError as e:
         return {"completed": False, "error": str(e)}
+    finally:
+        if live is not None:
+            live.close()
 
 
 def run_chaos(args: argparse.Namespace) -> dict:
@@ -498,6 +528,80 @@ def run_telemetry_doctor(args) -> int:
     return 0
 
 
+def run_telemetry_trace(args) -> int:
+    """``telemetry trace``: the run dir's causal trace (``spans.jsonl`` and the
+    live plane's ``spans_remote.jsonl`` on one clock-aligned timeline) and
+    each round's critical path, as text or JSON, optionally exported to
+    Perfetto; exit 1 on a dir with no spans or no round spans."""
+    from fedml_tpu_torch.telemetry.report import load_programs
+    from fedml_tpu_torch.telemetry.tracing import (
+        assemble_trace,
+        compute_critical_paths,
+        summarize_critical_paths,
+        write_perfetto,
+    )
+
+    run_dir = args.run_dir
+    trace = assemble_trace(run_dir)
+    if not trace.spans:
+        print(f"no spans recorded under {run_dir}", flush=True)
+        return 1
+    rounds = [int(args.round_idx)] if args.round_idx is not None else None
+    programs = load_programs(run_dir)
+    cps = compute_critical_paths(trace, rounds=rounds, programs=programs or None)
+    if args.perfetto_out:
+        write_perfetto(trace, args.perfetto_out, critical_paths=cps, rounds=rounds)
+        print(f"perfetto trace -> {args.perfetto_out} (load at https://ui.perfetto.dev)",
+              file=sys.stderr, flush=True)
+    if args.as_json:
+        summary = summarize_critical_paths(cps)
+        summary["schema"] = "fedml_tpu.telemetry.trace/v1"
+        summary["run_dir"] = run_dir
+        summary["nodes"] = trace.nodes
+        summary["clocks"] = [trace.clocks[n].to_dict() for n in sorted(trace.clocks)]
+        print(json.dumps(summary, indent=1, sort_keys=True, default=str), flush=True)
+        return 0
+    lines = [f"causal trace: {run_dir}",
+             f"  nodes: {', '.join(trace.nodes)} (reference clock: {trace.ref_node})"]
+    for node in sorted(trace.clocks):
+        c = trace.clocks[node]
+        if c.method == "reference":
+            continue
+        unc = (f"±{c.uncertainty_s * 1e3:.1f} ms" if c.uncertainty_s is not None
+               else "unbounded")
+        lines.append(f"  clock {node}: offset {c.offset_s * 1e3:+.1f} ms "
+                     f"{unc} ({c.method}, {c.pairs} pair(s))")
+    if not cps:
+        lines.append("  no round spans found — nothing to walk")
+        print("\n".join(lines), flush=True)
+        return 1
+    for cp in cps:
+        d = cp.to_dict()
+        lines.append(f"\nround {d['round']}: path {d['path_ms']:.1f} ms / "
+                     f"wall {d['wall_ms']:.1f} ms (coverage {100 * d['coverage']:.0f}%)")
+        for seg in cp.segments:
+            label = seg.phase + (f" [{seg.program}]" if seg.program else "")
+            lines.append(f"  {seg.duration_ms:>9.2f} ms  {seg.kind:<8s}"
+                         f"{seg.node:<18s}{label}")
+        st = d.get("straggler")
+        if st:
+            where = "ON the critical path" if st["on_critical_path"] else "has slack"
+            lines.append(f"  straggler client {st['client']}: {where} "
+                         f"(what-if savings {st['savings_ms']:.1f} ms)")
+        for flag in d.get("flags") or []:
+            lines.append(f"  note: {flag}")
+    print("\n".join(lines), flush=True)
+    return 0
+
+
+def run_telemetry_watch(args) -> int:
+    """``telemetry watch``: the live plane's per-node view of a scrape URL or
+    a run dir; exit 1 when the target cannot be read."""
+    from fedml_tpu_torch.telemetry.live import watch
+
+    return watch(args.target, interval_s=args.interval, once=args.once)
+
+
 def run_telemetry_profile(args) -> int:
     """``telemetry profile``: CMD's exit code, after running it with the
     trace arm exported; lists the captures made under the trace dir."""
@@ -521,7 +625,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "telemetry":
         return {"profile": run_telemetry_profile, "doctor": run_telemetry_doctor,
-                "report": run_telemetry_report}[args.tool](args)
+                "report": run_telemetry_report, "trace": run_telemetry_trace,
+                "watch": run_telemetry_watch}[args.tool](args)
     if args.command == "deploy":
         run_broker(args)
     elif args.command in ("chaos", "tree", "fa"):

@@ -27,9 +27,12 @@ Every send carries the open span's context as the reference's
 handler under a ``comm/dispatch`` span, so a rank's spans join the
 sender's trace, across the two packages too. Sends and receives are
 ``comm/send`` / ``comm/recv`` point events and flight-recorder records,
-and a raising handler dumps the flight recorder. The live telemetry
-plane's metric and span frames come with ROADMAP A12c; the registry
-counters keep the reference's names.
+and a raising handler dumps the flight recorder. The live plane rides the
+same seam: with a ``live_streamer`` (a ``MetricStreamer``) or a
+``trace_streamer`` (a ``SpanStreamer``) set, each send pops one prepared
+frame of each onto the message before the chaos seam, and each receive
+hands a piggybacked frame to this process's ``LivePlane``, if one is
+bound. The registry counters keep the reference's names.
 """
 from __future__ import annotations
 
@@ -56,6 +59,7 @@ from fedml_tpu_torch.resilience import (
     transient_exceptions,
 )
 from fedml_tpu_torch.telemetry import flight_recorder
+from fedml_tpu_torch.telemetry.live import ingest_frame, ingest_trace_frame
 from fedml_tpu_torch.telemetry.registry import get_registry
 from fedml_tpu_torch.telemetry.spans import (
     activate_context,
@@ -114,6 +118,10 @@ class FedMLCommManager(Observer):
         self._m_dups = reg.counter("resilience/duplicates_dropped")
         self._m_retries = reg.counter("resilience/send_retries")
         self._m_failures = reg.counter("resilience/send_failures")
+        # the live plane's streamers (None unless a client sets them): with
+        # both None a send pays two None-checks
+        self.live_streamer = None
+        self.trace_streamer = None
         if self.com_manager is None:
             self._init_manager()
         self.com_manager.add_observer(self)
@@ -158,6 +166,21 @@ class FedMLCommManager(Observer):
             logger.debug("rank %d: duplicate %s dropped (%s)", self.rank, msg_type, msg_id)
             return
         self.liveness.note(msg_params.get_sender_id())
+        # a piggybacked frame merges into this process's collector, if one is
+        # bound, whatever the message; the collector's seq gate absorbs the
+        # same frame on a resent or duplicated message
+        frame = msg_params.get(Message.MSG_ARG_KEY_TELEMETRY)
+        if frame is not None:
+            try:
+                ingest_frame(frame)
+            except Exception:  # noqa: BLE001 - observability never breaks the round
+                logger.exception("telemetry frame ingest failed")
+        tframe = msg_params.get(Message.MSG_ARG_KEY_TRACE)
+        if tframe is not None:
+            try:
+                ingest_trace_frame(tframe)
+            except Exception:  # noqa: BLE001
+                logger.exception("trace frame ingest failed")
         handler = self.message_handler_dict.get(str(msg_type))
         if handler is None:
             logger.warning("rank %d: no handler for %s", self.rank, msg_type)
@@ -221,6 +244,26 @@ class FedMLCommManager(Observer):
 
             self._m_raw.inc(payload.raw_nbytes if isinstance(payload, CompressedTree)
                             else tree_nbytes(payload))
+        # one prepared frame of each stream (rate-limited in the streamer),
+        # before the chaos seam: an injected drop or duplicate exercises the
+        # collectors' recovery
+        if (self.live_streamer is not None
+                and message.get(Message.MSG_ARG_KEY_TELEMETRY) is None):
+            try:
+                frame = self.live_streamer.pop_frame()
+                if frame is not None:
+                    message.add_params(Message.MSG_ARG_KEY_TELEMETRY, frame)
+                    get_registry().counter("live/frames_piggybacked").inc()
+            except Exception:  # noqa: BLE001 - observability never breaks the send
+                logger.exception("telemetry frame piggyback failed")
+        if (self.trace_streamer is not None
+                and message.get(Message.MSG_ARG_KEY_TRACE) is None):
+            try:
+                tframe = self.trace_streamer.pop_frame()
+                if tframe is not None:
+                    message.add_params(Message.MSG_ARG_KEY_TRACE, tframe)
+            except Exception:  # noqa: BLE001
+                logger.exception("trace frame piggyback failed")
 
         copies, delay_s = 1, 0.0
         if self._chaos is not None:

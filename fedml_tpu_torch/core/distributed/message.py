@@ -30,6 +30,12 @@ class Message:
     MSG_ARG_KEY_MSG_ID = "msg_id"
     # rejoin marker on a resync after an eviction
     MSG_ARG_KEY_REJOIN = "rejoin"
+    # live telemetry: one seq-numbered metric frame (a JSON-safe dict,
+    # telemetry/live/frames.py) piggybacked on a message already sent
+    MSG_ARG_KEY_TELEMETRY = "telemetry_frame"
+    # causal tracing: one seq-numbered span-batch frame
+    # (telemetry/tracing/stream.py), piggybacked the same way
+    MSG_ARG_KEY_TRACE = "trace_frame"
 
     def __init__(self, type_: str = "default", sender_id: int = 0, receiver_id: int = 0):
         self.type = str(type_)

@@ -39,8 +39,14 @@ Each local training runs under ``round/<n>/client/<rank>/train``, inside
 the ``comm/dispatch`` span that carries the server's round context, so it
 stitches into the server's trace. A client in its own process (any
 backend but LOCAL) binds the run dir's sinks itself, stamped
-``rank<r>``, and lands its spans there at finish. The live telemetry
-streamers come with ROADMAP A12c.
+``rank<r>``, and lands its spans there at finish. Such a client, with
+``live_telemetry: true``, also streams its registry (a ``MetricStreamer``)
+and, unless ``trace_streaming`` is false, its spans (a ``SpanStreamer``)
+to the server's live plane on the messages it already sends; on FINISH it
+arms a full frame of each and sends one last status carrying them. Over
+LOCAL every rank shares the server's registry and tracer, which the
+server's plane loops back itself: a client streamer there would count the
+shared instruments once a rank.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ import torch
 from fedml_tpu_torch.compression import (
     CompressedTree,
     ErrorFeedback,
+    check_trust_stack,
     derive_key,
     get_codec,
     tree_delta,
@@ -65,7 +72,6 @@ from fedml_tpu_torch.core.distributed.fedml_comm_manager import (
 )
 from fedml_tpu_torch.core.distributed.message import Message
 from fedml_tpu_torch.cross_silo.message_define import MyMessage
-from fedml_tpu_torch.cross_silo.server.fedml_server_manager import refuse_unported
 from fedml_tpu_torch.device import DeviceLike
 from fedml_tpu_torch.integrity import parse_robust_spec
 from fedml_tpu_torch.models.convert import (
@@ -75,22 +81,20 @@ from fedml_tpu_torch.models.convert import (
     to_wire_params,
 )
 from fedml_tpu_torch.privacy.secagg import SecAggClientSession, SecAggMessage
+from fedml_tpu_torch.telemetry.live import MetricStreamer
 from fedml_tpu_torch.telemetry.registry import get_registry
 from fedml_tpu_torch.telemetry.spans import configure_from_args, flush_run, get_tracer
+from fedml_tpu_torch.telemetry.tracing import SpanStreamer
 from fedml_tpu_torch.utils.tree import Tree
 
 logger = logging.getLogger(__name__)
-
-_NOT_PORTED = {
-    "live_telemetry": "the live telemetry plane (ROADMAP A12c)",
-}
 
 
 class ClientMasterManager(FedMLCommManager):
     def __init__(self, args: Any, trainer_dist_adapter, comm=None, rank: int = 0,
                  size: int = 0, backend: str = COMM_BACKEND_LOCAL,
                  device: DeviceLike = "cpu"):
-        refuse_unported(args, _NOT_PORTED)
+        check_trust_stack(args)
         super().__init__(args, comm, rank, size, backend, device)
         # in process, the ranks share the server's tracer and run dir
         self._own_sinks = str(backend).upper() != COMM_BACKEND_LOCAL
@@ -106,6 +110,14 @@ class ClientMasterManager(FedMLCommManager):
         self._heartbeat_thread: Optional[threading.Thread] = None
         self._finished = threading.Event()
         self._secagg = SecAggClientSession.from_args(rank, args)
+        if self._own_sinks and bool(getattr(args, "live_telemetry", False)):
+            job = str(getattr(args, "run_id", "0") or "0")
+            interval_s = float(getattr(args, "live_interval_s", 1.0))
+            self.live_streamer = MetricStreamer(f"rank{self.rank}", job=job,
+                                                interval_s=interval_s).start()
+            if bool(getattr(args, "trace_streaming", True)):
+                self.trace_streamer = SpanStreamer(f"rank{self.rank}", job=job,
+                                                   interval_s=interval_s).attach()
 
     def _heartbeat_fields(self) -> dict:
         """The reference's health scalars, piggybacked on status and upload
@@ -237,10 +249,25 @@ class ClientMasterManager(FedMLCommManager):
         logger.info("client %d re-synced at round %d after rejoin", self.rank, self.round_idx)
 
     def handle_message_finish(self, msg: Message) -> None:
+        if self.live_streamer is not None or self.trace_streamer is not None:
+            # the streams' close: one last status carries a full frame of
+            # each, so the collector's totals and this node's trace end exact
+            try:
+                if self.live_streamer is not None:
+                    self.live_streamer.flush_final()
+                if self.trace_streamer is not None:
+                    self.trace_streamer.flush_final()
+                self.send_client_status(0)
+            except Exception:  # noqa: BLE001 - observability never breaks shutdown
+                logger.debug("final telemetry flush failed", exc_info=True)
         self.finish()
 
     def finish(self) -> None:
         self._finished.set()  # stops the heartbeat on every shutdown path
+        if self.live_streamer is not None:
+            self.live_streamer.stop()
+        if self.trace_streamer is not None:
+            self.trace_streamer.stop()
         if self._own_sinks:
             try:
                 flush_run()

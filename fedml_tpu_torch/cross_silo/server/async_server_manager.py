@@ -46,7 +46,7 @@ import logging
 import threading
 from typing import Any, Dict, Optional
 
-from fedml_tpu_torch.compression import CompressedTree, get_codec
+from fedml_tpu_torch.compression import CompressedTree, check_trust_stack, get_codec
 from fedml_tpu_torch.core.checkpoint import (
     apply_round_state,
     engine_checkpointer,
@@ -60,10 +60,6 @@ from fedml_tpu_torch.core.distributed.message import Message
 from fedml_tpu_torch.core.mlops import metrics as mlops
 from fedml_tpu_torch.cross_silo.message_define import MyMessage
 from fedml_tpu_torch.cross_silo.server.fedml_aggregator import FedMLAggregator
-from fedml_tpu_torch.cross_silo.server.fedml_server_manager import (
-    _NOT_PORTED,
-    refuse_unported,
-)
 from fedml_tpu_torch.device import DeviceLike
 from fedml_tpu_torch.hierarchy.fedbuff import FedBuffBuffer
 from fedml_tpu_torch.models.convert import (
@@ -83,7 +79,7 @@ class AsyncFedMLServerManager(FedMLCommManager):
     def __init__(self, args: Any, aggregator: FedMLAggregator, comm=None,
                  client_rank: int = 0, client_num: int = 0,
                  backend: str = COMM_BACKEND_LOCAL, device: DeviceLike = "cpu"):
-        refuse_unported(args, _NOT_PORTED)
+        check_trust_stack(args)
         super().__init__(args, comm, client_rank, client_num + 1, backend, device)
         self.aggregator = aggregator
         self.client_num = client_num

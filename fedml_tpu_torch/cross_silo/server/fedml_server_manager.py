@@ -87,8 +87,15 @@ recovery wave, a journal replay, an abort) lands as a ``resilience_event``
 record beside its counter, and a masked round that cannot resume as a
 ``secagg_event``; ``telemetry doctor`` triages them.
 
-Not ported yet, and refused when their arguments are set: FHE (A13) and the
-live telemetry plane (A12c).
+With ``live_telemetry: true`` this rank hosts the live plane
+(``telemetry.live.LivePlane``): the collector every client's piggybacked
+metric and span frames merge into, the online doctor, and a ``/metrics``
+endpoint when ``metrics_port`` is set. It loops its own registry back after
+each aggregate (the health scores and the just-closed round's critical path
+reach the doctor then), and on a distributed backend it waits up to
+``finish_grace_s`` for each client's final status, which carries its last
+full frames, before it closes the plane. Not ported yet, and refused when
+its arguments are set: FHE (A13).
 ``cross_silo/round_ms`` (broadcast to the test after aggregation), the
 journal's append and replay times, and the reference's ``resilience/*``,
 ``integrity/*`` and ``secagg/*`` counters go to the port's metrics
@@ -149,33 +156,25 @@ from fedml_tpu_torch.telemetry.health import (
     log_health_event,
     update_norm,
 )
+from fedml_tpu_torch.telemetry.live import LivePlane
 from fedml_tpu_torch.telemetry.profiling import get_trace_controller
 from fedml_tpu_torch.telemetry.spans import configure_from_args, flush_run
 
 logger = logging.getLogger(__name__)
-
-# arguments of features the port's server does not have yet → the item
-_NOT_PORTED = {
-    "live_telemetry": "the live telemetry plane (ROADMAP A12c)",
-}
-
-
-def refuse_unported(args: Any, table: Dict[str, str]) -> None:
-    check_trust_stack(args)
-    for arg, what in table.items():
-        if getattr(args, arg, None):
-            raise NotImplementedError(
-                f"{arg}: {what} is not ported to the cross-silo path yet")
 
 
 class FedMLServerManager(FedMLCommManager):
     def __init__(self, args: Any, aggregator: FedMLAggregator, comm=None,
                  client_rank: int = 0, client_num: int = 0,
                  backend: str = COMM_BACKEND_LOCAL, device: DeviceLike = "cpu"):
-        refuse_unported(args, _NOT_PORTED)
+        check_trust_stack(args)
         super().__init__(args, comm, client_rank, client_num + 1, backend, device)
         # the run-dir sinks (spans, flight recorder), as the sp engine binds them
         self.tracer = configure_from_args(args, service=f"rank{self.rank}")
+        # the live plane's host (None unless live_telemetry): the collector,
+        # the online doctor and the optional /metrics endpoint
+        self._live = LivePlane.from_args(args, node=f"rank{self.rank}",
+                                         run_dir=self.tracer.sink_dir)
         # device memory sampled per aggregate (mem/* gauges, health.jsonl);
         # each client scored from its uploads and piggybacked heartbeats
         # (client_health records, health/* gauges; its latency EWMA sets the
@@ -220,6 +219,11 @@ class FedMLServerManager(FedMLCommManager):
         self._deadline_extensions_used = 0
         self._completing = False
         self._finished_once = False
+        # the finish grace: after FINISH, wait for each client's final status
+        # (its last full frames) before closing the live plane
+        self._finishing = False
+        self._final_status_pending: set = set()
+        self._finish_grace_timer: Optional[threading.Timer] = None
         self._deadline = RoundDeadline(self._on_round_deadline)
         # the recovery's bounded waves re-arm this timer, never the round's
         self._recovery_deadline = RoundDeadline(self._on_recovery_deadline)
@@ -450,6 +454,17 @@ class FedMLServerManager(FedMLCommManager):
                 except ValueError:
                     logger.warning("dropping malformed secagg key advertisement from "
                                    "client %s", sender)
+        # during the finish grace the handler is a sink (the frames were
+        # ingested on receipt): once every final status is in, finish
+        with self._round_lock:
+            drained = None
+            if self._finishing:
+                self._final_status_pending.discard(sender)
+                drained = not self._final_status_pending
+        if drained is not None:
+            if drained:
+                self.finish()
+            return
         # any sign of life from an evicted client is its reconnect
         if self.is_initialized and self.liveness.is_evicted(sender):
             self._readmit_client(sender)
@@ -468,7 +483,7 @@ class FedMLServerManager(FedMLCommManager):
                 with self._round_lock:
                     self.result = {"rounds": self.round_num, **metrics}
                 self._send_finish()
-                self.finish()
+                self._finish_after_final_frames()
                 return
             with self._round_lock:
                 salvaged = self._salvaged is not None
@@ -845,6 +860,15 @@ class FedMLServerManager(FedMLCommManager):
                 return
         self._health.finish_round(self.args.round_idx)
         self._devstats.sample("aggregate", self.args.round_idx)
+        if self._live is not None:
+            # the fresh health scores reach /metrics and the online doctor as
+            # the round closes, and the round's critical path the tracepath/*
+            # gauges; a straggler alert here arms the capture opened below
+            try:
+                self._live.pump(round_idx=int(self.args.round_idx))
+            except Exception:  # noqa: BLE001 - observability never breaks the round
+                logger.exception("live telemetry pump failed at round %d",
+                                 self.args.round_idx)
         # the trace round boundary: close the capture that bracketed the
         # round that just aggregated, open one for the next if armed
         try:
@@ -884,7 +908,7 @@ class FedMLServerManager(FedMLCommManager):
             with self._round_lock:
                 self.result = {"rounds": self.round_num, **metrics}
             self._send_finish()
-            self.finish()
+            self._finish_after_final_frames()
             return
         self._select_round_clients()
         self._open_round(global_params, init=False)
@@ -1130,15 +1154,43 @@ class FedMLServerManager(FedMLCommManager):
             self.send_message(Message(MyMessage.MSG_TYPE_S2C_FINISH,
                                       self.get_sender_id(), client_id))
 
+    def _finish_after_final_frames(self) -> None:
+        """Finish, once each remote client's final status is in.
+
+        On FINISH a client arms full frames of its metric and span streams
+        and sends one last status carrying them; tearing the receive loop
+        down first would lose the tail of every remote node's trace and
+        leave the collector's totals short. Over LOCAL every rank shares this
+        process's registry and tracer: nothing is in flight.
+        """
+        backend = str(getattr(self.args, "comm_backend", "LOCAL") or "LOCAL").upper()
+        if backend == COMM_BACKEND_LOCAL or self._live is None or self.client_num <= 0:
+            self.finish()
+            return
+        grace = float(getattr(self.args, "finish_grace_s", 3.0) or 3.0)
+        with self._round_lock:
+            self._finishing = True
+            self._final_status_pending = set(range(1, self.client_num + 1))
+            timer = threading.Timer(grace, self.finish)
+            timer.daemon = True
+            self._finish_grace_timer = timer
+        timer.start()
+
     def finish(self) -> None:
         with self._round_lock:
             if self._finished_once:
                 return
             self._finished_once = True
+            if self._finish_grace_timer is not None:
+                self._finish_grace_timer.cancel()
         self._deadline.cancel()
         self._recovery_deadline.cancel()
         if self._journal is not None:
             self._journal.close()
+        if self._live is not None:
+            # the final full loopback frame: the collector's totals become
+            # the post-hoc registry's; spans_remote.jsonl lands in the run dir
+            self._live.close()
         get_trace_controller().finish()  # never leave a trace recording
         try:
             flush_run()  # spans, a registry snapshot and programs.jsonl

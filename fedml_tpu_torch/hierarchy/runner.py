@@ -22,7 +22,10 @@ record in ``health.jsonl``, and each leaf-parent edge is scored as a client
 of a ``ClientHealthTracker`` (its cohort's reduce wall is its round
 latency; on the card the reduce's span between two CUDA events, read at the
 round's end), so ``telemetry doctor`` triages a tree run's tiers and slow
-edges. ``live=`` comes with the live plane (ROADMAP A12c).
+edges. With ``live=`` (a ``telemetry.live.LivePlane``) the root loops its
+registry, the ``tier/<d>/*`` counters and the edges' health scores, into
+the plane's collector after every global round, so its ``/metrics`` and
+online doctor follow the tree while it runs.
 """
 from __future__ import annotations
 
@@ -169,10 +172,6 @@ class TreeRunner:
                  device: DeviceLike = "cuda"):
         from fedml_tpu_torch.resilience.chaos import CorruptUpdateWindow
 
-        if live is not None:
-            raise NotImplementedError(
-                "TreeRunner(live=...): the live telemetry plane comes with "
-                "ROADMAP A12c")
         self.device = resolve_device(device)
         self.topology = topology
         self.codec = get_codec(codec)
@@ -229,6 +228,8 @@ class TreeRunner:
         # called with (round_idx, global_params) after every root close; a
         # listener's failure must not corrupt the federation
         self.on_round = on_round
+        # the live plane (optional): pumped after every global round
+        self.live = live
         self._f32_tree_nbytes = sum(_numel(sh) * 4 for _, sh in self.meta)
 
         L = topology.leaf_tier
@@ -592,6 +593,11 @@ class TreeRunner:
                     self.on_round(r, self.global_params)
                 except Exception:  # a listener must never corrupt training
                     logger.exception("round listener failed at round %d", r)
+            if self.live is not None:
+                try:
+                    self.live.pump(round_idx=r)
+                except Exception:  # noqa: BLE001 - observability never corrupts it
+                    logger.exception("live telemetry pump failed at round %d", r)
             for d, b in self._tier_round_bytes.items():
                 peak_round_bytes[d] = max(peak_round_bytes.get(d, 0), b)
             get_trace_controller().on_round_end(r)

@@ -23,7 +23,11 @@ is run health (A12b2): the per-client straggler and anomaly scoring
 (``ClientHealthTracker``, ``client_health`` records), the resilience,
 secagg, integrity and scheduler records, and ``build_doctor`` /
 ``format_doctor`` behind ``telemetry doctor <run_dir>``. Causal tracing
-and the live plane wait for ROADMAP A12c.
+and the live plane (A12c) are ``tracing`` (clock alignment, the assembled
+trace, the per-round critical path, Perfetto export, span streams) and
+``live`` (metric frames, the collector, the online doctor, ``/metrics``,
+``watch``; ``LivePlane`` ties them together), read with ``telemetry trace``
+and ``telemetry watch``.
 """
 from fedml_tpu_torch.telemetry.registry import (
     BYTES_BUCKETS,
@@ -91,6 +95,26 @@ from fedml_tpu_torch.telemetry.report import (
     load_spans,
 )
 from fedml_tpu_torch.telemetry.doctor import build_doctor, format_doctor
+from fedml_tpu_torch.telemetry.live import (
+    LiveCollector,
+    LivePlane,
+    MetricStreamer,
+    MetricsScrapeServer,
+    OnlineDoctor,
+    reset_live_plane,
+)
+from fedml_tpu_torch.telemetry.tracing import (
+    AssembledTrace,
+    RoundCriticalPath,
+    SpanStreamer,
+    TraceCollector,
+    assemble_trace,
+    compute_critical_path,
+    compute_critical_paths,
+    export_perfetto,
+    summarize_critical_paths,
+    write_perfetto,
+)
 
 __all__ = [
     "BYTES_BUCKETS",
@@ -128,6 +152,22 @@ __all__ = [
     "load_spans",
     "build_doctor",
     "format_doctor",
+    "LiveCollector",
+    "LivePlane",
+    "MetricStreamer",
+    "MetricsScrapeServer",
+    "OnlineDoctor",
+    "reset_live_plane",
+    "AssembledTrace",
+    "RoundCriticalPath",
+    "SpanStreamer",
+    "TraceCollector",
+    "assemble_trace",
+    "compute_critical_path",
+    "compute_critical_paths",
+    "export_perfetto",
+    "summarize_critical_paths",
+    "write_perfetto",
     "ClientHealthTracker",
     "DeviceStatsSampler",
     "install_compile_cache_counters",

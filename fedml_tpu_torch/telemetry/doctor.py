@@ -21,10 +21,12 @@ Data sources (all under ``<run_dir>/``):
   fallback when no health records exist
 - ``telemetry.jsonl``       — the registry's counters and gauges
 
-The serving, job-plane and live sections read records that the port writes
-once those parts are ported (ROADMAP A7, A13, A12c); on a run dir without
-them they give the reference's "no data" notes. The port's report builds
-no critical path yet (A12c), so its ``tracepath`` section is empty.
+The serving and job-plane sections read records that the port writes
+once those parts are ported (ROADMAP A7, A13); on a run dir without them
+they give the reference's "no data" notes. The ``live`` section reads the
+online doctor's ``doctor_alert`` records (a "MID-RUN" verdict) and the
+``live/*`` counters, and ``tracepath`` crosses the report's critical path
+with the flagged stragglers.
 """
 from __future__ import annotations
 

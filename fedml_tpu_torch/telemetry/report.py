@@ -14,8 +14,10 @@ execute split, the comm-bytes breakdown and the spans stitched across
 processes. Its keys are the reference's, and it reads either package's
 run dir, and joins ``programs.jsonl`` (the program catalog) against the
 phase walls into the roofline attribution, and shows the ``health/*``
-gauges the client health tracker sets. The critical path prints the
-reference's "no data" note until causal tracing (ROADMAP A12c).
+gauges the client health tracker sets. The critical path is the
+per-round walk of the assembled trace (``telemetry.tracing``) over
+``spans.jsonl`` and the live plane's ``spans_remote.jsonl``, with each
+node's clock.
 """
 from __future__ import annotations
 
@@ -119,9 +121,11 @@ class RunData:
 
     @property
     def trace_records(self) -> List[Dict]:
-        """Raw span and point-event records (the live plane's remote sink
-        comes with ROADMAP A12c)."""
-        return self.raw("spans.jsonl")
+        """Raw span and point-event records: the local sink plus the live
+        plane's node-annotated remote sink."""
+        from fedml_tpu_torch.telemetry.tracing.assemble import REMOTE_SPANS_FILENAME
+
+        return self.raw("spans.jsonl") + self.raw(REMOTE_SPANS_FILENAME)
 
 
 def load_spans(run_dir: str) -> List[Dict]:
@@ -399,8 +403,24 @@ def build_report(run_dir) -> Dict:
     stitched = [s for s in spans if s.get("remote_parent")]
 
     # -- causal critical path (per-round assembled-trace walk) ------------
-    # -- causal critical path: the assembled-trace walk is ROADMAP A12c --
     critical_path: Dict = {}
+    if spans:
+        try:
+            from fedml_tpu_torch.telemetry.tracing import (
+                assemble_records,
+                compute_critical_paths,
+                summarize_critical_paths,
+            )
+
+            trace = assemble_records(data.trace_records)
+            cps = compute_critical_paths(trace, programs=programs or None)
+            if cps:
+                critical_path = summarize_critical_paths(cps)
+                critical_path["clocks"] = [
+                    c.to_dict() for c in sorted(trace.clocks.values(),
+                                                key=lambda c: c.node)]
+        except Exception as e:  # noqa: BLE001 - the report degrades, never raises
+            notes["critical_path"] = f"trace assembly failed: {e!r}"
 
     return {
         "schema": "fedml_tpu.telemetry.report/v1",

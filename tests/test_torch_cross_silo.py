@@ -411,7 +411,7 @@ REFUSALS = {
     "cross-cloud": ({"training_type": "cross_cloud"}, 0, None),
     "resume": ({"resume": True, "checkpoint_dir": "<tmp>"}, 0, None),
     "checkpoint_dir": ({"checkpoint_dir": "<tmp>"}, 0, None),
-    "live telemetry": ({"live_telemetry": True}, 1, r"A12"),
+    "live telemetry": ({"live_telemetry": True}, 1, None),
     "n_proc_in_silo": ({"n_proc_in_silo": 2}, 1, r"A11"),
 }
 

@@ -1221,3 +1221,70 @@ def test_int8_update_norm_on_cuda_matches_cpu():
                if isinstance(p, torch.Tensor))
     want, got = update_norm(ct_cpu), update_norm(ct_gpu)
     assert abs(got - want) <= 1e-6 * want, (got, want)
+
+
+@pytest.mark.requires_cuda
+def test_live_straggler_alert_captures_the_next_round_on_cuda(tmp_path):
+    """The live plane over LOCAL on the card (LR, 3 silos, 4 rounds, silo 1
+    slowed): the online doctor's straggler alert at round 2 arms a capture of
+    round 3, and that capture holds CUDA kernel events."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import copy
+    import json
+    import os
+    import time
+
+    from fedml_tpu_torch import telemetry
+    from fedml_tpu_torch.arguments import load_arguments_from_dict
+    from fedml_tpu_torch.core.distributed.communication.local_comm import LocalBroker
+    from fedml_tpu_torch.cross_silo.client.client import Client
+    from fedml_tpu_torch.cross_silo.message_define import MyMessage
+    from fedml_tpu_torch.cross_silo.run_inproc import run_managers_to_completion
+    from fedml_tpu_torch.cross_silo.server.server import Server
+    from fedml_tpu_torch.data.data_loader import load_federated
+    from fedml_tpu_torch.ml.trainer.classification_trainer import ClassificationTrainer
+    from fedml_tpu_torch.models.model_hub import create
+    from fedml_tpu_torch.telemetry.profiling import get_trace_controller
+
+    class SlowTrainer(ClassificationTrainer):
+        def train(self, params, train_data, device, a):
+            time.sleep(0.35)
+            return super().train(params, train_data, device, a)
+
+    for reset in (telemetry.reset_live_plane, telemetry.reset_registry,
+                  telemetry.reset_tracer, telemetry.reset_trace_controller):
+        reset()
+    args = load_arguments_from_dict({
+        "common_args": {"training_type": "cross_silo", "run_id": "cuda_live",
+                        "log_file_dir": str(tmp_path)},
+        "data_args": {"dataset": "synthetic", "train_size": 300, "test_size": 60,
+                      "class_num": 4, "feature_dim": 12},
+        "model_args": {"model": "lr"},
+        "train_args": {"client_num_in_total": 3, "client_num_per_round": 3,
+                       "comm_round": 4, "learning_rate": 0.3, "live_telemetry": True}})
+    ds = load_federated(args)
+    model = create(args, ds.class_num)
+    LocalBroker.destroy("cuda_live")
+    try:
+        server = Server(args, "cuda", ds, model)
+        clients = []
+        for rank in (1, 2, 3):
+            cargs = copy.copy(args)
+            cargs.rank = rank
+            clients.append(Client(cargs, "cuda", ds, model,
+                                  SlowTrainer(model, cargs) if rank == 1 else None))
+        result = run_managers_to_completion(
+            [server.manager] + [c.manager for c in clients], "cuda_live",
+            MyMessage.MSG_TYPE_CONNECTION_IS_READY, timeout=300)
+        assert result["rounds"] == 4
+        alerts = [a for a in server.manager._live.doctor.alerts if a["rule"] == "straggler"]
+        assert [(a["client"], a["round"]) for a in alerts] == [("1", 2)]
+        caps = get_trace_controller().captures
+        assert [(c["round"], c["rule"], c["ok"]) for c in caps] == [(3, "straggler", True)]
+        with open(os.path.join(caps[0]["trace_dir"], "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        assert any(e.get("cat") == "kernel" for e in events)
+    finally:
+        telemetry.reset_live_plane()
+        telemetry.reset_trace_controller()

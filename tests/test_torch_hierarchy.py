@@ -529,8 +529,16 @@ def test_killed_edge_rejoins_and_runs_are_deterministic():
 
 
 def test_unported_tree_options_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="A12"):
-        th.TreeRunner(th.TreeTopology((1, 4)), live=object(), device="cpu")
+    # live= is ported: the runner pumps the plane once a global round
+    class Plane:
+        rounds = []
+
+        def pump(self, round_idx=None):
+            self.rounds.append(round_idx)
+
+    plane = Plane()
+    th.TreeRunner(th.TreeTopology((1, 4)), live=plane, device="cpu").run(2)
+    assert plane.rounds == [0, 1]
     with pytest.raises(ValueError, match="needs a codec"):
         th.TreeRunner(th.TreeTopology((1, 4)), codec="none", device="cpu")
     with pytest.raises(ValueError, match="float-leaf"):
@@ -571,8 +579,10 @@ def test_tree_command_below_quorum_and_refusals(capsys, tmp_path, monkeypatch):
     assert rc == 1 and len(out) == 1
     res = json.loads(out[0])
     assert res["completed"] is False and "below quorum at the root" in res["error"]
-    with pytest.raises(NotImplementedError, match="A12c"):
-        tcli.main(["tree", "--clients", "20", "--device", "cpu", "--metrics-port", "0"])
+    # the live plane is ported: --metrics-port hosts it for the run
+    assert tcli.main(["tree", "--clients", "20", "--device", "cpu", "--metrics-port",
+                      "0"]) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["completed"]
     # device traces are ported: the armed round is captured
     from fedml_tpu_torch.telemetry.profiling import get_trace_controller, reset_trace_controller
 

@@ -14,8 +14,7 @@ What must be equal, and how:
   norms within ``NORM_RTOL``, the same flags, and a doctor naming the same
   clients, plain and under int8;
 * each package's doctor over the other's run dir gives the other's result,
-  dict and text, apart from ``tracepath`` (the port's report builds no
-  critical path until ROADMAP A12c);
+  dict and text, ``tracepath`` (the critical path's) included;
 * the cross-silo, secagg, integrity, tree, scheduler, comm-manager and
   async-server records equal the reference's in kind, event, fields,
   rounds and clients; the doctor's secagg counters are equal (C5: the port
@@ -313,34 +312,16 @@ def test_sp_client_health_equals_the_reference(codec, sp_dirs):
     assert {e["round"] for e in mem} == set(range(5))
 
 
-def _strip_tracepath(d):
-    """The doctor dict without ``tracepath``: its section, its notes and the
-    verdicts it adds (the port's report builds no critical path, A12c)."""
-    d = copy.deepcopy(d)
-    d.pop("tracepath")
-    for key in ("tracepath", "critical_path"):
-        d["notes"].pop(key, None)
-    d["verdict"] = [v for v in d["verdict"] if not v.startswith("straggler client ")]
-    return d
-
-
-def _strip_tracepath_text(text):
-    lines = text.splitlines()
-    cut = lines.index("critical path:")
-    return [ln for ln in lines[:cut] if not ln.startswith("  - straggler client ")]
-
-
 @pytest.mark.parametrize("codec", ["plain", "int8"])
 @pytest.mark.parametrize("run", ["jax", "port"])
 def test_doctor_reads_either_packages_run_dir(run, codec, sp_dirs):
     """Each package's doctor over the other's run dir gives the other's
-    result, dict and text; ``tracepath`` aside (the port's report has no
-    critical path until A12c)."""
+    result, dict and text, the critical path's ``tracepath`` included."""
     run_dir = sp_dirs[codec][0 if run == "port" else 1]
     jd, td = jdoctor.build_doctor(run_dir), tdoctor.build_doctor(run_dir)
-    assert _strip_tracepath(td) == _strip_tracepath(jd)
-    assert (_strip_tracepath_text(tdoctor.format_doctor(td))
-            == _strip_tracepath_text(jdoctor.format_doctor(jd)))
+    assert td == jd
+    assert td["tracepath"]["rounds_traced"] == 5
+    assert tdoctor.format_doctor(td) == jdoctor.format_doctor(jd)
     # a doctor dict of either package renders alike in the other's format
     assert tdoctor.format_doctor(jd) == jdoctor.format_doctor(jd)
     assert td["schema"] == "fedml_tpu.telemetry.doctor/v1"
@@ -411,9 +392,8 @@ def test_doctor_degrades_like_the_reference(case, tmp_path):
     exception; the CLI exits 1 only on a dir with no telemetry at all."""
     run_dir = _degraded_dirs(tmp_path)[case]
     jd, td = jdoctor.build_doctor(run_dir), tdoctor.build_doctor(run_dir)
-    assert _strip_tracepath(td) == _strip_tracepath(jd)
-    assert (_strip_tracepath_text(tdoctor.format_doctor(td))
-            == _strip_tracepath_text(jdoctor.format_doctor(jd)))
+    assert td == jd
+    assert tdoctor.format_doctor(td) == jdoctor.format_doctor(jd)
     assert "no data" in tdoctor.format_doctor(td)
     assert ("run" in td["notes"]) == (case == "empty")
     if case == "span_fallback":
@@ -493,7 +473,7 @@ def test_sigterm_crash_context_names_death_and_checkpoint(tmp_path):
     assert td["crash"]["reason"] == "sigterm"
     assert td["crash"]["last_checkpoint_round"] == last
     assert any("died" in v and "sigterm" in v for v in td["verdict"])
-    assert _strip_tracepath(td) == _strip_tracepath(jd)
+    assert td == jd
 
 
 # -- scheduler records ---------------------------------------------------------------

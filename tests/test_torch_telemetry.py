@@ -799,9 +799,7 @@ def test_report_cli_prints_the_references_sections(tmp_path, capsys):
     out = capsys.readouterr().out
     res = CliRunner().invoke(jcli, ["telemetry", "report", run_dir])
     assert res.exit_code == 0, res.output
-    # the causal critical path is ROADMAP A12c's
-    jsections = {s for s in _sections(res.output) if not s.startswith("critical path")}
-    assert _sections(out) == jsections
+    assert _sections(out) == _sections(res.output)
     for want in ("round 0: wall", "round 1: wall", "p50 ms", "broker/bytes_in",
                  "cross-process stitched spans"):
         assert want in out
